@@ -4,31 +4,32 @@
     python3 chip_smoke.py
 
 Phases, each printing its own line; the first failure raises:
-  1. device   nvidia-smi name and power limit, torch's device name
-  2. build    K1 (csrc/decode_k1.cu) with nvcc into build/, with its
-              ptxas resource report
-  3. corpus   text = this machine's torch/**/*.py, exe = torch/lib/
-              libc10.so, plus seeded random / DLT data; golden encodes,
-              cached in build/corpus/
-  4. parity   K1 against its plain PyTorch version on the same CUDA
-              tensors, every output field, on the parity batch
-  5. headline decode_batch of 128 x 16 KB m1 text (the main path), its
-              wall and kernel time, and the plain version's time
-  6. extract  one archiver extract group: 256 x 1 MB m1 text
-  7. cli      `csc_tpu_torch.cli d --backend cuda` on a 256 KB-dict,
-              1 MB stream (no declared size: the window regrows)
+  1. device          nvidia-smi name and power limit, torch's device name
+  2. build           K1, K2, K3 (csrc/*.cu) with nvcc into build/, one nvcc
+                     per kernel started together, with ptxas's reports
+  3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
+                     libc10.so, plus seeded random / DLT data
+  4. encode_parity   on the parity batch (2 KB streams, m1 and m2): the
+                     candidates on the card equal those on the CPU; K2, the
+                     stitch and K3 equal their plain versions, every field
+  5. parity          K1 against its plain version on the streams of 4
+  6. headline        the decode main path: decode_batch of 128 x 16 KB m1
+                     text, encoded on the card by encode_batch; K1 against
+                     its plain version on the first 16 streams
+  7. encode_headline the encode main path: encode_batch of 96 x 16 KB text
+                     (filters on) at m1 and m2, its layers, K2 / K3 times,
+                     a round trip through K1
+  8. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
+  9. extract         one archiver extract group: 256 x 1 MB m1 text
+ 10. cli             `c` then `d` with --backend cuda on a 1 MB file
 The last two lines are the kernels' JSON record and the ok line.
 """
-import glob
-import hashlib
 import json
-import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -36,20 +37,25 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from csc_tpu.golden.decoder import DecodeError  # noqa: E402
-from csc_tpu.props import props_init, read_properties, write_properties  # noqa: E402
 from csc_tpu_torch import _build, corpus  # noqa: E402
-from csc_tpu_torch.ops import decode_kernel, decode_scan, pipeline  # noqa: E402
+from csc_tpu_torch.constants import K_END  # noqa: E402
+from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
+                               decode_scan, encode_host, parse_kernel,
+                               parse_pre, parse_scan, pipeline, stitch)
+from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 
 SEED = 20261016
 KB, MB = 1024, 1024 * 1024
-PARITY_BYTES = 4 * KB                 # per parity stream
-HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's headline shape
+PARITY_BYTES = 2 * KB                 # per parity stream
+HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's decode headline shape
+HEAD_PLAIN = 16                       # headline streams K1's plain version runs
+ENC_STREAMS = 96                      # bench.py's encode shape: 96 x 16 KB
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
-CLI_DICT, CLI_BYTES = 256 * KB, MB
-CACHE = os.path.join(_build.BUILD_DIR, "corpus")
+CLI_BYTES = MB
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (on-chip-measurement)
+OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak; int32 is no faster
 
 
 def check(cond, msg):
@@ -62,73 +68,183 @@ def phase(tag, **kv):
           flush=True)
 
 
-def encode_all(cases, pool):
-    """Golden raw streams for (name, props, data) cases, cached on disk by
-    a hash of the input and the props."""
-    os.makedirs(CACHE, exist_ok=True)
-    paths, todo = [], []
-    for case in cases:
-        h = hashlib.sha256(repr(case[1]).encode() + case[2]).hexdigest()
-        paths.append(os.path.join(CACHE, h[:32] + ".csc"))
-        if not os.path.exists(paths[-1]):
-            todo.append(len(paths) - 1)
-    for i, blob in zip(todo, pool.map(corpus.encode_case,
-                                      [cases[i] for i in todo])):
-        with open(paths[i] + ".tmp", "wb") as f:
-            f.write(blob)
-        os.replace(paths[i] + ".tmp", paths[i])
-    out = []
-    for p in paths:
-        with open(p, "rb") as f:
-            out.append(f.read())
-    return out, len(todo)
+def sync_time():
+    torch.cuda.synchronize()
+    return time.time()
 
 
-def upload(props, blobs, positions, dev):
-    rc, bc, rce, bce = pipeline._demux(props, blobs, positions)
-    return [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
-
-
-def kernel_ms(args, wnd_size, reps):
-    """Median device time of K1 over `reps` launches (CUDA events)."""
-    times = []
+def event_ms(fn, reps):
+    """Median device time of fn() over `reps` calls (CUDA events), and
+    the last call's result."""
+    times, out = [], None
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        decode_kernel.decode_k1(*args, wnd_size, NO_STEP_CAP)
+        out = fn()
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
-def layer_ms(props, blobs, sizes, dev):
-    """One decode_batch pass split by layer, each ended by a synchronize:
-    host demux + pad, upload, K1 (with its scratch fills), copy back,
-    host post-pass (bytes + inverse filters).  Milliseconds."""
-    t = [time.time()]
+def bound(nbytes, ops):
+    """Least time on the card: bytes over the memory rate or operations
+    over the peak rate, the larger; (ms, "bytes" | "operations")."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return (tb * 1e3, "bytes") if tb >= to else (to * 1e3, "operations")
+
+
+def max_diff(a, b):
+    return int(np.abs(a.cpu().numpy().astype(np.int64)
+                      - b.cpu().numpy().astype(np.int64)).max(initial=0))
+
+
+def coded_length(ends):
+    """Total coded bytes of a batch from its [B, NB] cumulative block-end
+    table (padded with 0x7FFFFFFF)."""
+    ends = ends.cpu().numpy().astype(np.int64)
+    return int(np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1).sum())
+
+
+def demux_upload(props, blobs, dev):
     rc, bc, rce, bce = pipeline._demux(props, blobs, [0] * len(blobs))
+    return [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
+
+
+# ----------------------------------------------------------- phase 4 parts
+def encode_group_parity(props, plans, idxs, dev):
+    """One preset group through precompute, K2, stitch and K3, each held
+    against its counterpart on the same inputs: the precompute and stitch
+    on the CPU, K2 and K3 against their plain versions on the card.
+    Returns (streams, fields compared, max abs difference, plain seconds
+    and kernel ms of K2 and K3)."""
+    p0 = props[idxs[0]]
+    ins = pipeline.group_inputs(props, plans, idxs, dev)
+    data, run_ends, run_skip, sizes, dicts = ins
+    cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
+                                           p0.hash_width)
+    cand_cpu = parse_pre.precompute_candidates(data.cpu(), run_ends.cpu(),
+                                               p0.hash_bits, p0.hash_width)
+    err = max_diff(cand, cand_cpu)
+    nfields = 1
+    candp = parse_pre.pack_candidates(cand)
+    tcap = parse_scan.tape_capacity(data.shape[1], run_ends.shape[1])
+    args = (data, candp, run_ends, run_skip, sizes, dicts, p0.good_len,
+            tcap)
+    k2_ms, got = event_ms(lambda: parse_kernel.parse_k2(*args), 3)
+    t0 = sync_time()
+    want = parse_scan.parse_plain(*args)
+    k2_plain_s = sync_time() - t0
+    for g, w in zip(got, want):
+        err = max(err, max_diff(g, w))
+        nfields += 1
+    tape, tok_cnt, done, kerr = got
+    check(bool(done.all()) and not bool(kerr.any()), "encode parity: K2 "
+          "did not finish")
+    tape = tape[:, :int(tok_cnt.max())].contiguous()
+    run_tables = [plans[i][1] for i in idxs]
+    kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
+    ref = stitch.stitch_tapes(tape.cpu(), data.cpu(), run_tables)
+    for g, w in zip((kk, aa, bb, cc), ref[:4]):
+        err = max(err, max_diff(g, w))
+        nfields += 1
+    k3_args = (kk, aa, bb, cc, *pipeline.k3_shapes(p0, data.shape[1],
+                                                   run_tables))
+    k3_ms, coded = event_ms(lambda: bits_kernel.code_k3(*k3_args), 3)
+    t0 = sync_time()
+    want = bits_scan.bits_plain(*k3_args)
+    k3_plain_s = sync_time() - t0
+    for g, w in zip(coded, want):
+        err = max(err, max_diff(g, w))
+        nfields += 1
+    stats = coded[5].cpu().numpy()
+    check(stats[3].all() and not stats[4].any(), "encode parity: K3 did "
+          "not finish or overflowed")
+    return (pipeline.remux_group(p0, coded), nfields, err, k2_plain_s,
+            k3_plain_s, k2_ms, k3_ms)
+
+
+# ----------------------------------------------------------- phase 7 parts
+def encode_layers(props, datas, dev):
+    """One encode_batch-like pass over one preset group, split by layer,
+    each ended by a synchronize.  Milliseconds, and the streams."""
+    t = [time.time()]
+    plans = pipeline.plan_streams(props, datas)
+    idxs = list(range(len(datas)))
     t.append(time.time())
-    args = [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
-    torch.cuda.synchronize()
+    p0 = props[0]
+    ins = pipeline.group_inputs(props, plans, idxs, dev)
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        ins[0], ins[1], p0.hash_bits, p0.hash_width))
+    t.append(sync_time())
+    tape, tok_cnt, _, _ = parse_kernel.parse_k2(
+        *ins[:1], candp, *ins[1:], p0.good_len,
+        parse_scan.tape_capacity(ins[0].shape[1], ins[1].shape[1]))
+    t.append(sync_time())
+    tape = tape[:, :int(tok_cnt.max())].contiguous()
+    run_tables = [pl[1] for pl in plans]
+    kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, ins[0], run_tables)
+    t.append(sync_time())
+    coded = pipeline.code_group(p0, kk, aa, bb, cc, ins[0].shape[1],
+                                run_tables)
+    t.append(sync_time())
+    outs = pipeline.remux_group(p0, coded)
     t.append(time.time())
-    wnd_size = pipeline._bucket(max(sizes))
-    wnd, log, pos, _, _, cnt = decode_kernel.decode_k1(
-        *args, wnd_size, NO_STEP_CAP)
-    torch.cuda.synchronize()
-    t.append(time.time())
-    pos, cnt = pos.cpu().numpy(), cnt.cpu().numpy()
-    wnd_np = wnd[:, :int(pos.max())].cpu().numpy()
-    log_np = log[:, :int(cnt.max())].cpu().numpy()
-    t.append(time.time())
-    for i in range(len(blobs)):
-        raw = bytearray(wnd_np[i, :pos[i]].tobytes())
-        pipeline._inverse_filters(raw, log_np[i], int(cnt[i]), int(pos[i]))
-        bytes(raw)
-    t.append(time.time())
-    names = ("demux", "upload", "k1", "copy_back", "post_pass")
-    return {n: round((b - a) * 1e3, 3) for n, a, b in zip(names, t, t[1:])}
+    names = ("plan", "precompute", "k2", "stitch", "k3", "remux")
+    return {n: round((b - a) * 1e3, 3) for n, a, b in zip(names, t, t[1:])}, \
+        outs
+
+
+def kernel_inputs(props, datas, dev):
+    """The inputs the main path gives K2 and K3 on one preset group."""
+    plans = pipeline.plan_streams(props, datas)
+    p0 = props[0]
+    ins = pipeline.group_inputs(props, plans, list(range(len(datas))), dev)
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        ins[0], ins[1], p0.hash_bits, p0.hash_width))
+    k2_args = (ins[0], candp, *ins[1:], p0.good_len,
+               parse_scan.tape_capacity(ins[0].shape[1], ins[1].shape[1]))
+    tape, tok_cnt, _, _ = parse_kernel.parse_k2(*k2_args)
+    tape = tape[:, :int(tok_cnt.max())].contiguous()
+    run_tables = [pl[1] for pl in plans]
+    tapes = stitch.stitch_tapes(tape, ins[0], run_tables)[:4]
+    k3_args = (*tapes, *pipeline.k3_shapes(p0, ins[0].shape[1],
+                                           run_tables))
+    return k2_args, k3_args, tok_cnt
+
+
+def encode_cell(tag, props, datas, dev, reps):
+    """Encode one preset group `reps` + 1 times (the first warm), check a
+    round trip through K1; returns the phase's numbers."""
+    walls = []
+    for _ in range(reps + 1):
+        t0 = time.time()
+        outs = pipeline.encode_batch(props, datas, device=dev)
+        walls.append(time.time() - t0)
+    wall = statistics.median(walls[1:])
+    back = pipeline.decode_batch(props, outs,
+                                 out_sizes=[len(d) for d in datas],
+                                 device=dev)
+    check(back == datas, f"{tag}: the round trip through K1 differs")
+    k2_args, k3_args, tok_cnt = kernel_inputs(props, datas, dev)
+    k2_ms, _ = event_ms(lambda: parse_kernel.parse_k2(*k2_args), reps)
+    k3_ms, coded = event_ms(lambda: bits_kernel.code_k3(*k3_args), reps)
+    stats = coded[5].cpu().numpy().astype(np.int64)
+    total = sum(len(d) for d in datas)
+    # bytes each kernel must move: K2 reads the data and its candidates
+    # (4 bytes a row a position) and writes 8 bytes a token; K3 reads 16
+    # bytes a token up to K_END and writes the coded bytes
+    ntok = int(tok_cnt.sum())
+    c = k2_args[1].shape[1]
+    k2_bound = bound(total * (1 + 4 * c) + 8 * ntok, total * (c + 4))
+    kind = k3_args[0]
+    used = int(((kind != K_END).sum(dim=1) + 1).sum())
+    coded_bytes = int(stats[0].sum() + stats[1].sum())
+    k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
+    return dict(wall=wall, outs=outs, k2_ms=k2_ms, k3_ms=k3_ms,
+                ratio=sum(len(o) for o in outs) / total, total=total,
+                k2_bound=k2_bound, k3_bound=k3_bound)
 
 
 def main():
@@ -147,59 +263,73 @@ def main():
 
     # ------------------------------------------------------------- 2 build
     t0 = time.time()
-    _build.k1_library()
-    phase("build", seconds=f"{time.time() - t0:.2f}")
-    rep = subprocess.run(
+    _build.build_kernels()
+    phase("build", kernels=",".join(_build.KERNELS),
+          seconds=f"{time.time() - t0:.2f}")
+    reports = {name: subprocess.Popen(
         [_build._nvcc()] + _build.NVCC_FLAGS + [
-            "-Xptxas", "-v", "-o", os.path.join(_build.BUILD_DIR,
-                                                "ptxas_report.so"),
-            os.path.join(_build.CSRC, "decode_k1.cu")],
-        capture_output=True, text=True, check=True)
-    for line in rep.stderr.splitlines():
-        if "registers" in line or "spill" in line:
-            phase("ptxas", line=line.strip())
+            "-Xptxas", "-v", "-o",
+            os.path.join(_build.BUILD_DIR, f"ptxas_{name}.so"),
+            os.path.join(_build.CSRC, srcs[0])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, srcs in _build.KERNELS.items()}
+    for name, proc in reports.items():
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"ptxas report of {name} failed")
+        for line in err.splitlines():
+            if "registers" in line or "spill" in line:
+                phase("ptxas", kernel=name, line=line.strip())
 
     # ------------------------------------------------------------ 3 corpus
     t0 = time.time()
-    tdir = os.path.dirname(torch.__file__)
-    parts = []
-    for f in sorted(glob.glob(os.path.join(tdir, "**", "*.py"),
-                              recursive=True)):
-        with open(f, "rb") as fh:
-            parts.append(fh.read())
-    text = b"".join(parts)
+    text = corpus.torch_python_text(64 * MB)
     exe = corpus.torch_library_exe()
     check(len(text) >= 8 * MB, f"text corpus only {len(text)} bytes")
     rng = np.random.default_rng(SEED)
-
-    par = corpus.parity_cases(text, exe, PARITY_BYTES, SEED, chunk=8 * KB,
-                              big=64 * KB)
-    head = [("m1_head", props_init(HEAD_BYTES, 1),
-             text[i * HEAD_BYTES:(i + 1) * HEAD_BYTES])
-            for i in range(HEAD_STREAMS)]
+    par = corpus.parity_cases(text, exe, PARITY_BYTES, SEED, chunk=1 * KB,
+                              big=40 * KB)
     offs = sorted(int(o) for o in rng.choice(
         len(text) // GROUP_BYTES - 2, GROUP_SLICES + 1, replace=False))
-    group = [("m1_group", props_init(GROUP_BYTES, 1),
-              text[o * GROUP_BYTES:(o + 1) * GROUP_BYTES])
+    group = [text[o * GROUP_BYTES:(o + 1) * GROUP_BYTES]
              for o in offs[:GROUP_SLICES]]
-    o = offs[-1] * GROUP_BYTES
-    cli_case = ("cli", props_init(CLI_DICT, 1), text[o:o + CLI_BYTES])
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=os.cpu_count() or 4,
-                             mp_context=ctx) as pool:
-        blobs, n_new = encode_all(par + head + group + [cli_case], pool)
-    par_blobs = blobs[:len(par)]
-    head_blobs = blobs[len(par):len(par) + HEAD_STREAMS]
-    group_blobs = blobs[len(par) + HEAD_STREAMS:-1]
-    cli_blob = blobs[-1]
+    cli_data = text[offs[-1] * GROUP_BYTES:offs[-1] * GROUP_BYTES
+                    + CLI_BYTES]
     phase("corpus", text_bytes=len(text), exe_bytes=len(exe),
-          encoded=n_new, cached=len(blobs) - n_new,
           seconds=f"{time.time() - t0:.1f}")
 
-    # ------------------------------------------------------------ 4 parity
-    par_blobs[-1] = corpus.flip(par_blobs[-1])
+    # ----------------------------------------------------- 4 encode_parity
     props = [c[1] for c in par]
-    args = upload(props, par_blobs, [0] * len(par), dev)
+    plans = [encode_host.plan_stream(p, d) for _, p, d in par]
+    check(len({p.hash_bits for p in props if p.hash_width == 1}) == 1
+          and len({p.hash_bits for p in props if p.hash_width == 8}) == 1,
+          "parity: one preset per level")
+    par_blobs = [None] * len(par)
+    nfields = max_err_enc = 0
+    times = {}
+    for level in (1, 2):
+        idxs = [i for i, p in enumerate(props)
+                if (p.hash_width == 1) == (level == 1)]
+        outs, nf, err, k2_plain_s, k3_plain_s, k2_ms, k3_ms = \
+            encode_group_parity(props, plans, idxs, dev)
+        for i, out in zip(idxs, outs):
+            par_blobs[i] = out
+        nfields += nf
+        max_err_enc = max(max_err_enc, err)
+        check(err == 0, f"encode parity m{level}: a kernel differs from "
+              f"its plain version")
+        times[level] = (k2_plain_s, k3_plain_s, k2_ms, k3_ms)
+        phase("encode_parity", level=f"m{level}", streams=len(idxs),
+              fields_compared=nf, max_abs_err=err,
+              k2_plain_s=f"{k2_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}",
+              k2_ms=f"{k2_ms:.3f}", k3_ms=f"{k3_ms:.3f}")
+    k2_plain_ms = 1e3 * sum(t[0] for t in times.values())
+    k3_plain_ms = 1e3 * sum(t[1] for t in times.values())
+    k2_par_ms = sum(t[2] for t in times.values())
+    k3_par_ms = sum(t[3] for t in times.values())
+
+    # ------------------------------------------------------------ 5 parity
+    par_blobs[-1] = corpus.flip(par_blobs[-1])
+    args = demux_upload(props, par_blobs, dev)
     wnd_size = pipeline._bucket(max(len(c[2]) for c in par))
     launches = decode_kernel.LAUNCHES
     got = decode_kernel.decode_k1(*args, wnd_size, NO_STEP_CAP)
@@ -241,7 +371,7 @@ def main():
                                   out_sizes=[len(par[-1][2])], device=dev)
             raise RuntimeError("chip_smoke: flipped stream decoded "
                                "without DecodeError")
-        except DecodeError:
+        except pipeline.DecodeError:
             pass
     types = sorted({int(t) for j in range(len(par) - 1)
                     for t in log_k[j, :cnt_k[j], 0]})
@@ -249,14 +379,21 @@ def main():
           flipped_flagged=bool(flagged_k), flipped_identical=flipped_identical,
           block_types=types, plain_seconds=f"{plain_par_s:.3f}")
 
-    # ---------------------------------------------------------- 5 headline
-    hp = [read_properties(write_properties(c[1])) for c in head]
+    # ---------------------------------------------------------- 6 headline
+    head = [("m1_head", props_init(HEAD_BYTES, 1),
+             text[i * HEAD_BYTES:(i + 1) * HEAD_BYTES])
+            for i in range(HEAD_STREAMS)]
+    hp = [c[1] for c in head]
     hd = [c[2] for c in head]
+    t0 = time.time()
+    head_blobs = corpus.encode(head, dev)
+    phase("headline_corpus", streams=HEAD_STREAMS, encoder="encode_batch",
+          seconds=f"{time.time() - t0:.3f}")
     sizes = [len(d) for d in hd]
     decode_kernel.LAUNCHES = 0
     outs = pipeline.decode_batch(hp, head_blobs, out_sizes=sizes, device=dev)
-    main_launches = decode_kernel.LAUNCHES
-    check(main_launches >= 1, "main path did not launch K1")
+    k1_launches = decode_kernel.LAUNCHES
+    check(k1_launches >= 1, "the decode main path did not launch K1")
     check(outs == hd, "headline: decoded bytes differ from input")
     walls = []
     for _ in range(5):
@@ -266,77 +403,178 @@ def main():
         walls.append(time.time() - t0)
     check(outs == hd, "headline: decoded bytes differ (timed run)")
     wall = statistics.median(walls)
-    # kernel and plain version on the inputs the main path gives K1
-    hargs = upload(hp, head_blobs, [0] * HEAD_STREAMS, dev)
+    hargs = demux_upload(hp, head_blobs, dev)
     wnd16 = pipeline._bucket(HEAD_BYTES)
-    k_ms = kernel_ms(hargs, wnd16, 5)
-    kout = [t.cpu().numpy() for t in
-            decode_kernel.decode_k1(*hargs, wnd16, NO_STEP_CAP)]
-    t0 = time.time()
-    pout = decode_scan.decode_plain(*hargs, wnd16, NO_STEP_CAP)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    for fname, k, p in zip(FIELDS, kout, pout):
-        diff = int(np.abs(k.astype(np.int64)
-                          - p.cpu().numpy().astype(np.int64)).max())
+    k1_ms, kout = event_ms(
+        lambda: decode_kernel.decode_k1(*hargs, wnd16, NO_STEP_CAP), 5)
+    # the plain version on the first HEAD_PLAIN of the same inputs
+    sub = [t[:HEAD_PLAIN].contiguous() for t in hargs]
+    ksub = decode_kernel.decode_k1(*sub, wnd16, NO_STEP_CAP)
+    t0 = sync_time()
+    pout = decode_scan.decode_plain(*sub, wnd16, NO_STEP_CAP)
+    k1_plain_ms = (sync_time() - t0) * 1e3
+    for fname, k, p in zip(FIELDS, ksub, pout):
+        diff = max_diff(k, p)
         max_err = max(max_err, diff)
         check(diff == 0, f"headline: kernel and plain differ in {fname}")
+    for fname, k, p in zip(FIELDS, kout, ksub):
+        check(max_diff(k[:HEAD_PLAIN], p) == 0, f"headline: {fname} of "
+              f"the 128-stream call differs from the 16-stream call")
     layers = layer_ms(hp, head_blobs, sizes, dev)
     total = sum(sizes)
+    # bytes K1 must move: the coded rc and bc bytes in, the window out;
+    # operations: one per coded rc bit and one per decoded byte
+    rc_used, bc_used = (coded_length(t) for t in hargs[2:])
+    k1_bound = bound(rc_used + bc_used + total, 8 * rc_used + total)
     phase("headline_layers", **layers)
-    phase("headline", streams=HEAD_STREAMS, bytes=total, launches=main_launches,
-          wall_median_s=f"{wall:.4f}",
+    phase("headline", streams=HEAD_STREAMS, bytes=total,
+          launches=k1_launches, wall_median_s=f"{wall:.4f}",
           wall_mbps=f"{total / wall / 1e6:.2f}",
-          kernel_ms=f"{k_ms:.3f}", kernel_mbps=f"{total / k_ms / 1e3:.2f}",
-          plain_ms=f"{plain_ms:.1f}",
+          kernel_ms=f"{k1_ms:.3f}", kernel_mbps=f"{total / k1_ms / 1e3:.2f}",
+          plain_ms=f"{k1_plain_ms:.1f}", plain_streams=HEAD_PLAIN,
+          bound_ms=f"{k1_bound[0]:.5f}",
           note="plain: one lockstep step per micro-op of the longest stream")
 
-    # ----------------------------------------------------------- 6 extract
-    gp = [c[1] for c in group] * GROUP_REPEAT
+    # --------------------------------------------------- 7 encode_headline
+    ed = hd[:ENC_STREAMS]
+    cells = {}
+    for level in (1, 2):
+        ep = [props_init(HEAD_BYTES, level) for _ in range(ENC_STREAMS)]
+        if level == 1:
+            parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+            pipeline.encode_batch(ep, ed, device=dev)
+            k2_launches = parse_kernel.LAUNCHES
+            k3_launches = bits_kernel.LAUNCHES
+            check(k2_launches >= 1 and k3_launches >= 1,
+                  "the encode main path did not launch K2 and K3")
+        cell = encode_cell(f"encode_headline m{level}", ep, ed, dev, 5)
+        layers, louts = encode_layers(ep, ed, dev)
+        check(louts == cell["outs"], f"encode_headline m{level}: the layer "
+              f"pass differs from encode_batch")
+        cells[level] = cell
+        phase("encode_headline_layers", level=f"m{level}", **layers)
+        phase("encode_headline", level=f"m{level}", streams=ENC_STREAMS,
+              bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
+              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
+              k2_ms=f"{cell['k2_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
+              launches_k2=k2_launches if level == 1 else "-",
+              launches_k3=k3_launches if level == 1 else "-")
+
+    # ---------------------------------------------------- 8 encode_extract
+    gp = [props_init(GROUP_BYTES, 1) for _ in group]
+    ext = encode_cell("encode_extract", gp, group, dev, 1)
+    group_blobs = ext["outs"]
+    phase("encode_extract", streams=len(group), bytes=ext["total"],
+          wall_s=f"{ext['wall']:.3f}",
+          wall_mbps=f"{ext['total'] / ext['wall'] / 1e6:.2f}",
+          k2_ms=f"{ext['k2_ms']:.1f}", k3_ms=f"{ext['k3_ms']:.1f}",
+          ratio=f"{ext['ratio']:.4f}", round_trip="K1 byte-exact")
+
+    # ----------------------------------------------------------- 9 extract
+    gps = gp * GROUP_REPEAT
     gb = group_blobs * GROUP_REPEAT
-    gd = [c[2] for c in group] * GROUP_REPEAT
+    gd = group * GROUP_REPEAT
     gbytes = sum(len(d) for d in gd)
     t0 = time.time()
-    outs = pipeline.decode_batch(gp, gb, out_sizes=[len(d) for d in gd],
+    outs = pipeline.decode_batch(gps, gb, out_sizes=[len(d) for d in gd],
                                  device=dev)
     g_wall = time.time() - t0
     check(outs == gd, "extract group: decoded bytes differ from input")
     del outs
-    gargs = upload(gp, gb, [0] * len(gb), dev)
-    g_ms = kernel_ms(gargs, pipeline._bucket(GROUP_BYTES), 1)
+    gargs = demux_upload(gps, gb, dev)
+    g_ms, _ = event_ms(lambda: decode_kernel.decode_k1(
+        *gargs, pipeline._bucket(GROUP_BYTES), NO_STEP_CAP), 1)
     del gargs
-    glayers = layer_ms(gp, gb, [len(d) for d in gd], dev)
+    glayers = layer_ms(gps, gb, [len(d) for d in gd], dev)
     phase("extract_layers", **glayers)
     phase("extract", streams=len(gb), bytes=gbytes, wall_s=f"{g_wall:.3f}",
           wall_mbps=f"{gbytes / g_wall / 1e6:.2f}", kernel_ms=f"{g_ms:.1f}",
           kernel_mbps=f"{gbytes / g_ms / 1e3:.2f}")
 
-    # --------------------------------------------------------------- 7 cli
+    # --------------------------------------------------------------- 10 cli
     from csc_tpu_torch import cli
     sdir = os.path.join(_build.BUILD_DIR, "smoke")
     os.makedirs(sdir, exist_ok=True)
-    src, dst = os.path.join(sdir, "cli.csc"), os.path.join(sdir, "cli.out")
+    src, enc, dst = (os.path.join(sdir, n) for n in ("cli.bin", "cli.csc",
+                                                     "cli.out"))
     with open(src, "wb") as f:
-        f.write(write_properties(cli_case[1]) + cli_blob)
+        f.write(cli_data)
     t0 = time.time()
-    check(cli.main(["d", "--backend", "cuda", src, dst]) == 0, "cli failed")
+    check(cli.main(["c", "-m", "1", "--backend", "cuda", src, enc]) == 0,
+          "cli c failed")
+    t1 = time.time()
+    check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0, "cli d failed")
+    t2 = time.time()
     with open(dst, "rb") as f:
-        check(f.read() == cli_case[2], "cli: decoded bytes differ")
-    phase("cli", dict_size=cli_case[1].dict_size, bytes=len(cli_case[2]),
-          seconds=f"{time.time() - t0:.2f}", regrow="dict < output")
+        check(f.read() == cli_data, "cli: decoded bytes differ")
+    with open(enc, "rb") as f:
+        head = f.read(10)
+    check(head == write_properties(props_init(len(cli_data), 1)),
+          "cli: unexpected property header")
+    phase("cli", bytes=len(cli_data), c_seconds=f"{t1 - t0:.2f}",
+          d_seconds=f"{t2 - t1:.2f}", compressed=os.path.getsize(enc))
 
-    print(json.dumps({"kernels": [{
-        "name": "K1 decode",
-        "route": "cuda",
-        "source": "csc_tpu_torch/csrc/decode_k1.cu",
-        "replaces": "csc_tpu/ops/pallas_decode.py:272",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": round(k_ms, 4),
-        "plain_ms": round(plain_ms, 2),
-    }]}))
+    m1 = cells[1]
+    print(json.dumps({"kernels": [
+        {"name": "K1 decode", "route": "cuda",
+         "source": "csc_tpu_torch/csrc/decode_k1.cu",
+         "replaces": "csc_tpu/ops/pallas_decode.py:272",
+         "launches": k1_launches, "max_abs_err": max_err,
+         "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 2),
+         "bound_ms": round(k1_bound[0], 6), "bound_by": k1_bound[1],
+         "library_ms": None,
+         "ms_on": f"{HEAD_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
+         "plain_on": f"the first {HEAD_PLAIN} of those streams"},
+        {"name": "K2 lazy parse", "route": "cuda",
+         "source": "csc_tpu_torch/csrc/encode_k2.cu",
+         "replaces": "csc_tpu/ops/pallas_parse.py:112",
+         "launches": k2_launches, "max_abs_err": max_err_enc,
+         "ms": round(m1["k2_ms"], 4), "plain_ms": round(k2_plain_ms, 2),
+         "bound_ms": round(m1["k2_bound"][0], 6),
+         "bound_by": m1["k2_bound"][1], "library_ms": None,
+         "ms_on": f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
+         "plain_on": "the m1 + m2 parity groups",
+         "kernel_ms_on_parity": round(k2_par_ms, 4)},
+        {"name": "K3 phase-B coder", "route": "cuda",
+         "source": "csc_tpu_torch/csrc/encode_k3.cu",
+         "replaces": "csc_tpu/ops/pallas_encode.py:107",
+         "launches": k3_launches, "max_abs_err": max_err_enc,
+         "ms": round(m1["k3_ms"], 4), "plain_ms": round(k3_plain_ms, 2),
+         "bound_ms": round(m1["k3_bound"][0], 6),
+         "bound_by": m1["k3_bound"][1], "library_ms": None,
+         "ms_on": f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
+         "plain_on": "the m1 + m2 parity groups",
+         "kernel_ms_on_parity": round(k3_par_ms, 4)},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def layer_ms(props, blobs, sizes, dev):
+    """One decode_batch pass split by layer, each ended by a synchronize:
+    host demux + pad, upload, K1 (with its scratch fills), copy back,
+    host post-pass (bytes + inverse filters).  Milliseconds."""
+    t = [time.time()]
+    rc, bc, rce, bce = pipeline._demux(props, blobs, [0] * len(blobs))
+    t.append(time.time())
+    args = [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
+    t.append(sync_time())
+    wnd_size = pipeline._bucket(max(sizes))
+    wnd, log, pos, _, _, cnt = decode_kernel.decode_k1(
+        *args, wnd_size, NO_STEP_CAP)
+    t.append(sync_time())
+    pos, cnt = pos.cpu().numpy(), cnt.cpu().numpy()
+    wnd_np = wnd[:, :int(pos.max())].cpu().numpy()
+    log_np = log[:, :int(cnt.max())].cpu().numpy()
+    t.append(time.time())
+    for i in range(len(blobs)):
+        raw = bytearray(wnd_np[i, :pos[i]].tobytes())
+        pipeline._inverse_filters(raw, log_np[i], int(cnt[i]), int(pos[i]))
+        bytes(raw)
+    t.append(time.time())
+    names = ("demux", "upload", "k1", "copy_back", "post_pass")
+    return {n: round((b - a) * 1e3, 3) for n, a, b in zip(names, t, t[1:])}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Build the CUDA kernels with nvcc on first use and load them with ctypes.
+"""Build the native code on first use and load it with ctypes.
 
-The library is compiled from the sources in csrc/ into build/ at the root
-of the checkout, under a name keyed by a hash of the sources and flags,
-so a changed source builds anew and an unchanged one loads at once.  The
-sources have a plain C interface (no PyTorch headers), which keeps a
-build to seconds.
+The CUDA kernels are compiled with nvcc from the sources in csrc/ into
+build/ at the root of the checkout, under a name keyed by a hash of the
+sources and flags, so a changed source builds anew and an unchanged one
+loads at once.  The sources have a plain C interface (no PyTorch
+headers), which keeps a build to seconds.  `build_kernels` starts one
+nvcc per kernel, all at once.  The host runtime (csrc/csc_host.cpp: the
+content filters and the block analyzer) is compiled the same way with
+g++.  A failed build raises: nothing falls back to another path.
 """
 import ctypes
 import hashlib
@@ -18,10 +21,28 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-K1_SOURCES = ["decode_k1.cu", "decode_k1.cuh"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# kernel name -> sources (the first is the .cu that nvcc compiles)
+KERNELS = {
+    "csc_k1": ["decode_k1.cu", "decode_k1.cuh"],
+    "csc_k2": ["encode_k2.cu", "encode_k2.cuh"],
+    "csc_k3": ["encode_k3.cu", "encode_k3.cuh"],
+}
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_ARGTYPES = {
+    "csc_k1": ("csc_k1_launch", [_p, _i64, _p, _i64, _p, _i32, _p, _i32, _p,
+                                 _i64, _i64, _p, _p, _i32, _i64, _p, _i32,
+                                 _p]),
+    "csc_k2": ("csc_k2_launch", [_p, _p, _i64, _i32, _p, _p, _i32, _p, _p,
+                                 _i32, _p, _i64, _p, _i32, _p]),
+    "csc_k3": ("csc_k3_launch", [_p, _p, _p, _p, _i64, _p, _i64, _p, _i64,
+                                 _p, _p, _i32, _p, _i32, _i64, _p, _p, _i32,
+                                 _p]),
+}
 
 _lock = threading.Lock()
-_k1 = None
+_libs = {}
 
 
 def _nvcc():
@@ -34,38 +55,86 @@ def _nvcc():
     return path
 
 
-def build(sources, name):
-    """Compile sources (names in csrc/, the first the .cu to compile) into
-    build/lib<name>_<hash>.so unless it exists; return its path."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(sources, name, flags):
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
-    so = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def _start(compiler, flags, sources, so):
+    """Start one compile of csrc/<sources[0]> into `so`; returns
+    (process, tmp path, command)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp,
-                                    os.path.join(CSRC, sources[0])]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}"
-                           f"\n{r.stderr}")
+    cmd = [compiler] + flags + ["-o", tmp, os.path.join(CSRC, sources[0])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, cmd
+
+
+def _finish(job, so):
+    proc, tmp, cmd = job
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"build failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{err}")
     os.replace(tmp, so)
+
+
+def build(sources, name, compiler=None, flags=NVCC_FLAGS):
+    """Compile sources (names in csrc/, the first the file to compile)
+    into build/lib<name>_<hash>.so unless it exists; return its path."""
+    so = _target(sources, name, flags)
+    if not os.path.exists(so):
+        _finish(_start(compiler or _nvcc(), flags, sources, so), so)
     return so
 
 
-def k1_library():
-    """The K1 decode library, built on first use."""
-    global _k1
+def build_kernels(names=tuple(KERNELS)):
+    """Build the named CUDA kernels that are not built yet, one nvcc per
+    kernel, all started together.  Returns {name: .so path}."""
+    paths = {n: _target(KERNELS[n], n, NVCC_FLAGS) for n in names}
+    jobs = {n: _start(_nvcc(), NVCC_FLAGS, KERNELS[n], so)
+            for n, so in paths.items() if not os.path.exists(so)}
+    errors = []
+    for n, job in jobs.items():
+        try:
+            _finish(job, paths[n])
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def kernel_library(name):
+    """The ctypes library of one kernel ("csc_k1", "csc_k2", "csc_k3"),
+    built on first use."""
     with _lock:
-        if _k1 is None:
-            lib = ctypes.CDLL(build(K1_SOURCES, "csc_k1"))
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-            lib.csc_k1_launch.restype = ctypes.c_int
-            lib.csc_k1_launch.argtypes = [
-                p, i64, p, i64, p, i32, p, i32, p, i64, i64, p, p, i32, i64,
-                p, i32, p]
-            _k1 = lib
-        return _k1
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(KERNELS[name], name))
+            fn_name, argtypes = _ARGTYPES[name]
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            _libs[name] = lib
+        return lib
+
+
+def host_library():
+    """The host runtime (csrc/csc_host.cpp) built with g++, on first
+    use."""
+    with _lock:
+        lib = _libs.get("csc_host")
+        if lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: the host runtime "
+                                   "(csrc/csc_host.cpp) needs it to build")
+            lib = ctypes.CDLL(build(["csc_host.cpp"], "csc_host", gxx,
+                                    GXX_FLAGS))
+            _libs["csc_host"] = lib
+        return lib

@@ -1,21 +1,23 @@
 """csc-compatible command line: c/d single-file compress/decompress.
 
 The counterpart of csc_tpu/cli.py: the same options, 10-byte property
-header and dict clamp (csc.cpp:101-170).  --backend selects the decoder:
-`golden` is the pure-Python codec, `cuda` the batched decode with the K1
-kernel on the first CUDA device.  Encoding is golden under either
-backend.  --backend cuda with no CUDA device raises; it never falls back
-to the CPU.
+header and dict clamp (csc.cpp:101-170).  Both modes run the batched
+pipeline (ops/pipeline.py) on one stream.  --backend cuda (the default)
+runs the kernels (K2 + K3 to encode, K1 to decode) on the first CUDA
+device and raises when there is none; --backend cpu runs their plain
+PyTorch versions on the CPU.  `c` takes levels 1 and 2; levels 3-5 (the
+optimal parse) are not ported yet.
 
-    python -m csc_tpu_torch.cli d --backend cuda in.csc out.bin
+    python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
+    python -m csc_tpu_torch.cli d out.csc back.bin
 """
 import argparse
 import sys
 import time
 
-from csc_tpu.constants import KB, MB
-from csc_tpu.props import (props_init, read_properties, write_properties,
-                           est_mem_usage)
+from .constants import KB, MB
+from .props import (props_init, read_properties, write_properties,
+                    est_mem_usage)
 
 
 def _parse_size(s):
@@ -27,11 +29,14 @@ def _parse_size(s):
     return int(s)
 
 
-def _cuda_device():
+def _device(backend):
     import torch
+    if backend == "cpu":
+        return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--backend cuda needs a CUDA device; none is "
-                           "available")
+                           "available (--backend cpu runs the plain "
+                           "versions)")
     return torch.device("cuda")
 
 
@@ -41,15 +46,16 @@ def main(argv=None):
     ap.add_argument("input")
     ap.add_argument("output")
     ap.add_argument("-m", type=int, default=2, dest="level",
-                    help="compression level 1..5")
+                    help="compression level 1..2 (3..5 not ported yet)")
     ap.add_argument("-d", type=_parse_size, default=32 * MB, dest="dict_size",
                     help="dictionary size (suffix k/m)")
     ap.add_argument("--fdelta0", action="store_true", help="disable DELTA filter")
     ap.add_argument("--fexe0", action="store_true", help="disable EXE filter")
     ap.add_argument("--ftxt0", action="store_true", help="disable TXT filter")
-    ap.add_argument("--backend", choices=["golden", "cuda"], default="golden")
+    ap.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    device = _cuda_device() if args.backend == "cuda" else None
+    device = _device(args.backend)
+    from .ops.pipeline import decode_stream, encode_stream
 
     with open(args.input, "rb") as f:
         data = f.read()
@@ -66,8 +72,8 @@ def main(argv=None):
             props.TXTFilter = 0
         print("Estimated memory usage: %d MB"
               % (est_mem_usage(props) // 1048576), file=sys.stderr)
-        from csc_tpu.golden.encoder import encode_stream
-        out = write_properties(props) + encode_stream(props, data)
+        out = write_properties(props) + encode_stream(props, data,
+                                                      device=device)
         with open(args.output, "wb") as f:
             f.write(out)
         dt = time.time() - t0
@@ -75,12 +81,7 @@ def main(argv=None):
                                         len(data) / 1e6 / max(dt, 1e-9)))
     else:
         props = read_properties(data[:10])
-        if device is not None:
-            from .ops.pipeline import decode_stream
-            raw = decode_stream(props, data, 10, device=device)
-        else:
-            from csc_tpu.golden.api import decompress_stream
-            raw = decompress_stream(props, data, 10)
+        raw = decode_stream(props, data, 10, device=device)
         with open(args.output, "wb") as f:
             f.write(raw)
         dt = time.time() - t0

@@ -1,16 +1,74 @@
-"""Decoder layout and state-machine ids of the batched decode.
+"""Stream-format constants and the state-machine ids of the batched codec.
 
-The values mirror csc_tpu/ops/decode_scan.py:37-107 (probability layout,
-FSM states, int purposes, length targets) and pallas_decode.py:108-110
-(error codes).  They are restated here because those modules import jax;
-a test holds both copies equal.  Format constants come from the jax-free
-csc_tpu.constants.
+The format constants are this package's own copy of csc_tpu/constants.py
+(csc_typedef.h:7-40, the slot tables of csc_model.cpp:45-62, the match
+finder's gates of csc_mf.cpp:245).  The decoder ids mirror
+csc_tpu/ops/decode_scan.py:37-107 and pallas_decode.py:108-110; the
+encoder ids mirror encode_scan.py:36-41, encode_scan_fast.py:34-38,
+encode_bits.py:23-49, parse_pre.py:37 and pallas_encode.py:87-88.  The
+port keeps copies because it imports nothing of csc_tpu; a test holds
+every copy equal to its original.
 """
-from csc_tpu.constants import (  # noqa: F401  (re-exported)
-    DIST_TABLE, REV16_TABLE, DLT_INDEX, DT_NORMAL, DT_EXE, DT_ENGTXT,
-    DT_BAD, DT_ENTROPY, SIG_EOF, DT_DLT)
+KB = 1024
+MB = 1024 * 1024
 
-# ---------------------------------------------------------------- layout
+MIN_BLOCK_SIZE = 8 * KB          # csc_typedef.h:9
+MAX_DICT_SIZE = 1024 * MB        # csc_typedef.h:12
+MIN_DICT_SIZE = 32 * KB          # csc_typedef.h:13
+
+# Block types (csc_typedef.h:20-40)
+DT_NONE = 0x00
+DT_NORMAL = 0x01
+DT_ENGTXT = 0x02
+DT_EXE = 0x03
+DT_FAST = 0x04
+DT_NO_LZ = 0x05
+DT_ENTROPY = 0x07
+DT_BAD = 0x08
+SIG_EOF = 0x09
+DT_DLT = 0x10
+DLT_CHANNEL_MAX = 5
+DLT_INDEX = (1, 2, 3, 4, 8)      # csc_typedef.h:36
+DT_SKIP = 0x1E
+DT_MAXINVALID = 0x1F
+
+# Error codes (csc_common.h:13-15)
+DECODE_ERROR = -96
+WRITE_ERROR = -97
+READ_ERROR = -98
+
+CSC_PROP_SIZE = 10               # csc_common.h:11
+
+# Match-distance slot base table (csc_model.cpp:45-55 / csc_dec.cpp:44-54).
+# slot s covers distances [dist_table[s], dist_table[s+1]).
+DIST_TABLE = (
+    0, 1, 2, 3,
+    5, 9, 17, 33,
+    65, 129, 257, 513,
+    1025, 2049, 4097, 8193,
+    16385, 32769, 65537, 131073,
+    262145, 524289, 1048577, 2097153,
+    4194305, 8388609, 16777217, 33554433,
+    67108865, 134217729, 268435457, 536870913,
+    1073741825,
+)
+
+# Bit-reversal of a 4-bit value (csc_model.cpp:57-62).
+REV16_TABLE = (0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15)
+
+# Probability model geometry (csc_model.h:84-122):
+PROB_INIT = 2048                 # 12-bit probability, initial value
+PROB_ADAPT_SHIFT = 5
+
+# Minimum-length-vs-distance gates for the match finder (csc_mf.cpp:245)
+MF_DIST_BOUND = (0, 0, 64, 1024, 16 * KB, 256 * KB, 4 * MB)
+MF_CAND_LIMIT = 32               # csc_mf.h:34
+
+# Archiver magic (csarc.cpp:580-599)
+CSA_MAGIC = b"CSA\x20"
+
+# ================================================================= decode
+# probability layout
 P_STATE = 0            # 64*3
 P_REPDIST = 192        # 64*3
 P_DIST = 384           # 8 + 16*2 + 32*4 = 168
@@ -25,7 +83,7 @@ P_LIT = 2048           # 65536
 P_DELTA = 67584        # 65536
 NPROB = 133120
 
-# ---------------------------------------------------------------- fsm ids
+# fsm ids
 F_IDLE = 0
 F_FLAG1 = 1
 F_FLAG2 = 2
@@ -75,3 +133,51 @@ MAX_BLOCKS = 4096
 # largest window a decode may grow to: the reference's dict cap
 # (csc_typedef.h:12); a window-overflow halt reports at most this + 1
 MAX_WINDOW = 1 << 30
+
+# ================================================================= encode
+# parse-tape token kinds (encode_scan.py:36-41)
+K_LIT = 0
+K_MATCH = 1       # (dist_wire, len_wire) = (dist-5, len-2)
+K_REP = 2         # (rep_idx, len_wire)
+K_REP0L1 = 3
+K_SENT_A = 4      # run-end sentinel of the parse tape
+K_END = 5
+# phase-B token kinds added by the stitcher (encode_bits.py:43-49)
+K_RAW = 6         # CompressBad payload: a = 1-2 raw bytes, b = bits
+K_ELIT = 7        # CompressLiterals payload: order-1 literal, no LZ flags
+K_DLIT = 8        # CompressRLE literal: a = byte, b = s_ctx
+K_RLEN = 9        # CompressRLE run: b = run length - 11
+K_INT = 10        # EncodeInt(a)
+K_SENT = 11       # EncodeMatch(64, 0) block sentinel
+K_FLUSH = 12      # Coder::Flush chunk boundary
+
+# fast-parse fsm (encode_scan_fast.py:34-38; its FB_EXT and FB_PICK are
+# unused there too)
+FB_BLOCK = 0
+FB_FIND = 1
+FB_DONE = 4
+# precomputed candidate length cap; longer matches extend live
+# (parse_pre.py:37)
+EXT_CAP = 8
+
+# phase-B fsm (encode_bits.py:23-38)
+B_DONE = 0
+B_NEXT = 1
+B_FLAG = 2
+B_LITTREE = 3
+B_REPTREE = 4
+B_LENSLOT = 5
+B_LENTREE = 6
+B_LONGLEN = 7
+B_DISTSLOT = 8
+B_DISTEXTRA = 9
+B_DISTDIRECT = 10
+B_INT = 11
+B_FLUSH = 12
+B_RAW = 13
+B_RLEFLAG = 14
+B_DLITTREE = 15
+NBSTATES = 16
+
+# phase-B per-stream error (pallas_encode.py:87-88)
+ERR_OVERFLOW = 1  # rc or bc output capacity exhausted

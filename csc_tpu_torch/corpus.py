@@ -1,19 +1,18 @@
-"""Decode test inputs: the parity batch that holds K1 against its plain
-version, built from a text source, an executable and a seed.
+"""Codec test inputs: the parity batch that holds each kernel against its
+plain version, built from a text source, an executable and a seed.
 
 Every case is a (name, props, data) triple; `encode` turns cases into raw
-streams with the golden encoder (csc_tpu.golden, about 0.1 MB/s, so keep
-cases small or cache them).  The kinds cover each path of the decoder:
-LZ text at m1 and m2, the EXE filter, BAD and ENTROPY blocks, a
-DT_DLT ramp (fused inverse delta), chunk resets, a dictionary smaller
-than the output, and a corrupt stream.
+streams with this package's encode_batch.  The kinds cover each path of
+the codec: LZ text at m1 and m2, the EXE filter, BAD and ENTROPY blocks,
+a DT_DLT ramp (CompressRLE, fused inverse delta), chunk resets, a
+dictionary smaller than the input, and a stream to corrupt.
 """
+import glob
 import os
 
 import numpy as np
 
-from csc_tpu.golden.encoder import encode_stream
-from csc_tpu.props import props_init
+from .props import props_init
 
 
 def torch_library_exe():
@@ -23,6 +22,23 @@ def torch_library_exe():
     path = os.path.join(os.path.dirname(torch.__file__), "lib", "libc10.so")
     with open(path, "rb") as f:
         return f.read()
+
+
+def torch_python_text(limit):
+    """Up to `limit` bytes of the .py sources of the installed torch
+    package, in a fixed order: English-like text (the analyzer types it
+    DT_ENGTXT) present on every machine that runs this package."""
+    import torch
+    tdir = os.path.dirname(torch.__file__)
+    parts, total = [], 0
+    for f in sorted(glob.glob(os.path.join(tdir, "**", "*.py"),
+                              recursive=True)):
+        with open(f, "rb") as fh:
+            parts.append(fh.read())
+        total += len(parts[-1])
+        if total >= limit:
+            break
+    return b"".join(parts)[:limit]
 
 
 def dlt_ramp(n):
@@ -100,16 +116,38 @@ def parity_cases(text, exe, n, seed, chunk=8192, big=64 * 1024):
     return cases
 
 
-def encode_case(case):
-    """The raw golden stream (no property header) of one (name, props,
-    data) case; a top-level function, so a process pool can run it."""
-    _, props, data = case
-    return encode_stream(props, data)
+def encode_cases(level, n=2048, seed=0):
+    """The encode case set at one level: text, an EXE slice, 8 KB of
+    random bytes (BAD), ENTROPY, a DLT ramp, a multichunk stream (1 KB
+    raw blocks) and, last, a dictionary smaller than its input."""
+    rng = np.random.default_rng(seed)
+    text = torch_python_text(64 * 1024)
+    exe = torch_library_exe()
+
+    def p(size, filters=True, raw_blocksize=None):
+        q = _props(level, size, filters)
+        if raw_blocksize:
+            q.raw_blocksize = raw_blocksize
+        return q
+    return [
+        ("text", p(n, False), text[:n]),
+        ("exe", p(n), exe[len(exe) // 2:len(exe) // 2 + n]),
+        ("random", p(8192), rng.integers(0, 256, 8192,
+                                         dtype=np.uint8).tobytes()),
+        ("entropy", p(640), (rng.integers(0, 10, 640, dtype=np.uint8) * 7
+                             + 65).tobytes()),
+        ("dlt", p(768), dlt_ramp(768)),
+        ("multichunk", p(3000, False, 1024), repetitive(3000, seed + 2)),
+        ("dict_lt_input", p(8000, False), repetitive(40 * 1024, seed + 3)),
+    ]
 
 
-def encode(cases):
-    """Raw golden streams for a list of cases."""
-    return [encode_case(c) for c in cases]
+def encode(cases, device):
+    """Raw streams (no property header) of a list of cases, encoded with
+    this package's encode_batch on `device`."""
+    from .ops.pipeline import encode_batch
+    return encode_batch([c[1] for c in cases], [c[2] for c in cases],
+                        device=device)
 
 
 def flip(blob):

@@ -1,2 +1,2 @@
-"""Batched device pipelines: the plain K1 version, its kernel wrapper and
-the decode pipeline."""
+"""Batched device pipelines: the kernels' plain versions, their wrappers,
+the encode precompute and stitch, and the encode / decode pipelines."""

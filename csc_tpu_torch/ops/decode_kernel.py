@@ -40,7 +40,7 @@ def decode_k1(rc, bc, rc_ends, bc_ends, wnd_size, max_steps,
                          f"on CPU ones), not on {dev}")
 
     from .. import _build
-    lib = _build.k1_library()
+    lib = _build.kernel_library("csc_k1")
     stride = wnd_size + COPY_CHUNK
     wnd = torch.zeros((b, stride), dtype=torch.uint8, device=dev)
     blk_log = torch.zeros((b, max_blocks, 2), dtype=torch.int32, device=dev)

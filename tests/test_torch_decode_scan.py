@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from csc_tpu.golden.encoder import encode_stream
 from csc_tpu.ops import decode_scan as jds
 from csc_tpu.ops import pallas_decode
 from csc_tpu_torch import constants, corpus
@@ -21,7 +22,7 @@ def batch():
     text = corpus.words(8 * N, seed=1)
     cases = corpus.parity_cases(text, corpus.torch_library_exe(), N, seed=2,
                                 chunk=1024, big=40 * 1024)[:-1]
-    blobs = corpus.encode(cases)
+    blobs = [encode_stream(p, d) for _, p, d in cases]
     rc, bc, rce, bce = tpipe._demux([p for _, p, _ in cases], blobs,
                                     [0] * len(cases))
     wnd = tpipe._bucket(max(len(d) for _, _, d in cases))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from csc_tpu.golden.encoder import encode_stream
 from csc_tpu_torch import corpus
 from csc_tpu_torch.ops import decode_scan, pipeline
 
@@ -43,7 +44,7 @@ def batch():
     text = corpus.words(8 * N, seed=6)
     cases = corpus.parity_cases(text, corpus.torch_library_exe(), N, seed=7,
                                 chunk=1024, big=40 * 1024)
-    blobs = corpus.encode(cases)
+    blobs = [encode_stream(p, d) for _, p, d in cases]
     blobs[-1] = corpus.flip(blobs[-1])
     props = [p for _, p, _ in cases]
     rc, bc, rce, bce = pipeline._demux(props, blobs, [0] * len(blobs))

@@ -1,12 +1,14 @@
 """The port's decode_batch (csc_tpu_torch.ops.pipeline) on CPU, where K1's
 wrapper runs the plain PyTorch version, against the JAX scan pipeline
-(csc_tpu.ops.pipeline._decode_batch_scan) and the original bytes."""
+(csc_tpu.ops.pipeline._decode_batch_scan) and the original bytes.  The
+streams come from csc_tpu's golden encoder."""
 import pytest
 
-from csc_tpu.golden.decoder import DecodeError
+from csc_tpu.golden.encoder import encode_stream
 from csc_tpu.ops.pipeline import _decode_batch_scan
 from csc_tpu_torch import cli, constants, corpus
 from csc_tpu_torch.ops import decode_kernel, pipeline
+from csc_tpu_torch.ops.pipeline import DecodeError
 
 N = 1536
 
@@ -16,7 +18,7 @@ def cases():
     text = corpus.words(8 * N, seed=3)
     cs = corpus.parity_cases(text, corpus.torch_library_exe(), N, seed=4,
                              chunk=1024, big=40 * 1024)
-    return cs, corpus.encode(cs)
+    return cs, [encode_stream(p, d) for _, p, d in cs]
 
 
 def test_mixed_batch_matches_scan_and_data(cases):
@@ -90,11 +92,19 @@ def test_unsupported_device_raises(cases):
 
 
 def test_cli_round_trip_golden(tmp_path):
+    """`c` and `d` with --backend cpu (the plain versions) round-trip, and
+    `d` decodes a golden-encoded file."""
+    from csc_tpu.props import props_init, write_properties
     data = corpus.words(3000, seed=5)
     src, enc, dec = (tmp_path / n for n in ("in.bin", "x.csc", "out.bin"))
     src.write_bytes(data)
-    assert cli.main(["c", "-m", "1", str(src), str(enc)]) == 0
-    assert cli.main(["d", "--backend", "golden", str(enc), str(dec)]) == 0
+    assert cli.main(["c", "-m", "1", "--backend", "cpu", str(src),
+                     str(enc)]) == 0
+    assert cli.main(["d", "--backend", "cpu", str(enc), str(dec)]) == 0
+    assert dec.read_bytes() == data
+    gp = props_init(len(data), 1)
+    enc.write_bytes(write_properties(gp) + encode_stream(gp, data))
+    assert cli.main(["d", "--backend", "cpu", str(enc), str(dec)]) == 0
     assert dec.read_bytes() == data
 
 
@@ -105,3 +115,7 @@ def test_cli_cuda_backend_needs_a_card(tmp_path, monkeypatch):
     src.write_bytes(b"abc")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["d", "--backend", "cuda", str(src), str(tmp_path / "o")])
+    # cuda is the default backend of both modes
+    for mode in ("c", "d"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([mode, str(src), str(tmp_path / "o")])
