@@ -54,7 +54,7 @@ GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES = MB
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (on-chip-measurement)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak; int32 is no faster
 
 
