@@ -9,20 +9,29 @@ Phases, each printing its own line; the first failure raises:
                      per kernel started together, with ptxas's reports
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
-  4. encode_parity   on the parity batch (2 KB streams, m1 and m2): the
-                     candidates on the card equal those on the CPU; K2, the
-                     stitch and K3 equal their plain versions, every field
-  5. parity          K1 against its plain version on the streams of 4
-  6. headline        the decode main path: decode_batch of 128 x 16 KB m1
-                     text, encoded on the card by encode_batch; K1 against
-                     its plain version on the first 16 streams
-  7. encode_headline the encode main path: encode_batch of 96 x 16 KB text
-                     (filters on) at m1 and m2, its layers, K2 / K3 times,
+  4. headline        the decode main path: decode_batch of 128 x 16 KB m1
+                     text, encoded on the card by encode_batch
+  5. encode_headline the encode main path: encode_batch of 96 x 16 KB text
+                     (filters on) at m1 and m2, its stages, K2 / K3 times,
                      a round trip through K1
-  8. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
-  9. extract         one archiver extract group: 256 x 1 MB m1 text
- 10. cli             `c` then `d` with --backend cuda on a 1 MB file
-The last two lines are the kernels' JSON record and the ok line.
+  6. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
+  7. extract         one archiver extract group: 256 x 1 MB m1 text
+  8. cli             `c` then `d` with --backend cuda on a 1 MB file, and
+                     `d` of the same stream under a 266 KB dictionary
+                     header, which makes decode_batch regrow its window
+  9. encode_parity   on the parity batch (2 KB streams, m1 and m2): the
+                     candidates on the card equal those on the CPU; K2, the
+                     stitch and K3 equal their plain versions (on the card)
+ 10. parity          K1 against its plain version (on the card) on the
+                     parity batch, a corrupted stream among them
+ 11. plain           each kernel against its plain version on the first
+                     streams of its headline inputs (phases 4 and 5)
+Every count of launches is read around a main-path run (phases 4-8).
+Phase 11's plain versions run on the host's CPU in worker processes
+(`chip_smoke.py --plain FILE`, one thread each), started once phases 4-8
+are timed, so they overlap phases 9 and 10; on the card a plain version
+takes several ms a lockstep step.  The last two lines are the kernels'
+JSON record and the ok line.
 """
 import json
 import os
@@ -38,7 +47,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from csc_tpu_torch import _build, corpus  # noqa: E402
-from csc_tpu_torch.constants import K_END  # noqa: E402
+from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, parse_kernel,
                                parse_pre, parse_scan, pipeline, stitch)
@@ -48,12 +57,19 @@ SEED = 20261016
 KB, MB = 1024, 1024 * 1024
 PARITY_BYTES = 2 * KB                 # per parity stream
 HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's decode headline shape
-HEAD_PLAIN = 16                       # headline streams K1's plain version runs
 ENC_STREAMS = 96                      # bench.py's encode shape: 96 x 16 KB
+# headline streams each kernel's plain version runs on (the first ones)
+PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8}
+PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
-CLI_BYTES = MB
+CLI_BYTES, CLI_DICT = MB, 256 * KB
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
-FIELDS = ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt")
+FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
+          "K2": ("tape", "tok_cnt", "done", "err"),
+          "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
+                 "stats")}
+PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
+         "K3": bits_scan.bits_plain}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak; int32 is no faster
 
@@ -100,6 +116,32 @@ def max_diff(a, b):
                       - b.cpu().numpy().astype(np.int64)).max(initial=0))
 
 
+def compare(tag, kernel, got, want):
+    """Max abs difference of two output tuples of `kernel`, field by
+    field; fails on any difference (the tolerance is 0)."""
+    err = 0
+    for name, g, w in zip(FIELDS[kernel], got, want):
+        d = max_diff(g, w)
+        check(d == 0, f"{tag}: {kernel} {name} differs (max abs {d})")
+        err = max(err, d)
+    return err
+
+
+def first_args(args, k):
+    """A kernel's arguments cut to its first k streams (every tensor
+    argument is batch-first)."""
+    return tuple(a[:k].contiguous() if torch.is_tensor(a) else a
+                 for a in args)
+
+
+def to_cpu(x):
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
 def coded_length(ends):
     """Total coded bytes of a batch from its [B, NB] cumulative block-end
     table (padded with 0x7FFFFFFF)."""
@@ -112,142 +154,195 @@ def demux_upload(props, blobs, dev):
     return [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
 
 
-# ----------------------------------------------------------- phase 4 parts
-def encode_group_parity(props, plans, idxs, dev):
-    """One preset group through precompute, K2, stitch and K3, each held
-    against its counterpart on the same inputs: the precompute and stitch
-    on the CPU, K2 and K3 against their plain versions on the card.
-    Returns (streams, fields compared, max abs difference, plain seconds
-    and kernel ms of K2 and K3)."""
-    p0 = props[idxs[0]]
-    ins = pipeline.group_inputs(props, plans, idxs, dev)
-    data, run_ends, run_skip, sizes, dicts = ins
-    cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
-                                           p0.hash_width)
-    cand_cpu = parse_pre.precompute_candidates(data.cpu(), run_ends.cpu(),
-                                               p0.hash_bits, p0.hash_width)
-    err = max_diff(cand, cand_cpu)
-    nfields = 1
-    candp = parse_pre.pack_candidates(cand)
-    tcap = parse_scan.tape_capacity(data.shape[1], run_ends.shape[1])
-    args = (data, candp, run_ends, run_skip, sizes, dicts, p0.good_len,
-            tcap)
-    k2_ms, got = event_ms(lambda: parse_kernel.parse_k2(*args), 3)
-    t0 = sync_time()
-    want = parse_scan.parse_plain(*args)
-    k2_plain_s = sync_time() - t0
-    for g, w in zip(got, want):
-        err = max(err, max_diff(g, w))
-        nfields += 1
-    tape, tok_cnt, done, kerr = got
-    check(bool(done.all()) and not bool(kerr.any()), "encode parity: K2 "
-          "did not finish")
-    tape = tape[:, :int(tok_cnt.max())].contiguous()
-    run_tables = [plans[i][1] for i in idxs]
-    kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
-    ref = stitch.stitch_tapes(tape.cpu(), data.cpu(), run_tables)
-    for g, w in zip((kk, aa, bb, cc), ref[:4]):
-        err = max(err, max_diff(g, w))
-        nfields += 1
-    k3_args = (kk, aa, bb, cc, *pipeline.k3_shapes(p0, data.shape[1],
-                                                   run_tables))
-    k3_ms, coded = event_ms(lambda: bits_kernel.code_k3(*k3_args), 3)
-    t0 = sync_time()
-    want = bits_scan.bits_plain(*k3_args)
-    k3_plain_s = sync_time() - t0
-    for g, w in zip(coded, want):
-        err = max(err, max_diff(g, w))
-        nfields += 1
-    stats = coded[5].cpu().numpy()
-    check(stats[3].all() and not stats[4].any(), "encode parity: K3 did "
-          "not finish or overflowed")
-    return (pipeline.remux_group(p0, coded), nfields, err, k2_plain_s,
-            k3_plain_s, k2_ms, k3_ms)
+class Stages:
+    """encode_batch's on_stage hook: a synchronize and a timestamp after
+    each stage, and the values the stages hand on."""
+
+    def __init__(self):
+        self.t, self.names, self.values = [time.time()], [], {}
+
+    def __call__(self, name, **values):
+        self.t.append(sync_time())
+        self.names.append(name)
+        self.values.update(values)
+
+    def ms(self):
+        return {n: round((b - a) * 1e3, 3)
+                for n, a, b in zip(self.names, self.t, self.t[1:])}
 
 
-# ----------------------------------------------------------- phase 7 parts
-def encode_layers(props, datas, dev):
-    """One encode_batch-like pass over one preset group, split by layer,
-    each ended by a synchronize.  Milliseconds, and the streams."""
-    t = [time.time()]
-    plans = pipeline.plan_streams(props, datas)
-    idxs = list(range(len(datas)))
-    t.append(time.time())
-    p0 = props[0]
-    ins = pipeline.group_inputs(props, plans, idxs, dev)
-    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
-        ins[0], ins[1], p0.hash_bits, p0.hash_width))
-    t.append(sync_time())
-    tape, tok_cnt, _, _ = parse_kernel.parse_k2(
-        *ins[:1], candp, *ins[1:], p0.good_len,
-        parse_scan.tape_capacity(ins[0].shape[1], ins[1].shape[1]))
-    t.append(sync_time())
-    tape = tape[:, :int(tok_cnt.max())].contiguous()
-    run_tables = [pl[1] for pl in plans]
-    kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, ins[0], run_tables)
-    t.append(sync_time())
-    coded = pipeline.code_group(p0, kk, aa, bb, cc, ins[0].shape[1],
-                                run_tables)
-    t.append(sync_time())
-    outs = pipeline.remux_group(p0, coded)
-    t.append(time.time())
-    names = ("plan", "precompute", "k2", "stitch", "k3", "remux")
-    return {n: round((b - a) * 1e3, 3) for n, a, b in zip(names, t, t[1:])}, \
-        outs
+def plain_job(tag, kernel, args, reps):
+    """The kernel on the first PLAIN_STREAMS[kernel] streams of `args`
+    (the inputs a main path gave it): its time and outputs, and the job
+    that holds them against the plain version in phase 11."""
+    k = PLAIN_STREAMS[kernel]
+    sub = first_args(args, k)
+    launch = {"K1": decode_kernel.decode_k1, "K2": parse_kernel.parse_k2,
+              "K3": bits_kernel.code_k3}[kernel]
+    ms, out = event_ms(lambda: launch(*sub), reps)
+    return dict(tag=tag, kernel=kernel, streams=k, args=to_cpu(sub),
+                kernel_out=to_cpu(out), kernel_ms=ms)
 
 
-def kernel_inputs(props, datas, dev):
-    """The inputs the main path gives K2 and K3 on one preset group."""
-    plans = pipeline.plan_streams(props, datas)
-    p0 = props[0]
-    ins = pipeline.group_inputs(props, plans, list(range(len(datas))), dev)
-    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
-        ins[0], ins[1], p0.hash_bits, p0.hash_width))
-    k2_args = (ins[0], candp, *ins[1:], p0.good_len,
-               parse_scan.tape_capacity(ins[0].shape[1], ins[1].shape[1]))
-    tape, tok_cnt, _, _ = parse_kernel.parse_k2(*k2_args)
-    tape = tape[:, :int(tok_cnt.max())].contiguous()
-    run_tables = [pl[1] for pl in plans]
-    tapes = stitch.stitch_tapes(tape, ins[0], run_tables)[:4]
-    k3_args = (*tapes, *pipeline.k3_shapes(p0, ins[0].shape[1],
-                                           run_tables))
-    return k2_args, k3_args, tok_cnt
+def same_rows(tag, kernel, full, sub, k):
+    """The first k streams of a full-batch call equal a k-stream call."""
+    if kernel == "K3":
+        check(max_diff(full[5][:, :k], sub[5]) == 0, f"{tag}: K3 stats of "
+              f"the full call differ from the {k}-stream call")
+        full, sub = full[:5], sub[:5]
+    for name, f, s in zip(FIELDS[kernel], full, sub):
+        check(max_diff(f[:k], s) == 0, f"{tag}: {kernel} {name} of the "
+              f"full call differs from the {k}-stream call")
 
 
+# ----------------------------------------------------------- phase 5 parts
 def encode_cell(tag, props, datas, dev, reps):
-    """Encode one preset group `reps` + 1 times (the first warm), check a
-    round trip through K1; returns the phase's numbers."""
+    """The encode main path on one preset group: encode_batch once with
+    the launch counts set to 0 (it must launch K2 and K3), `reps` timed
+    calls, one pass split by stage, a round trip through K1, and K2 / K3
+    timed on the inputs that pass gave them.  Returns the phase's
+    numbers."""
+    parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    outs = pipeline.encode_batch(props, datas, device=dev)
+    launches = {"K2": parse_kernel.LAUNCHES, "K3": bits_kernel.LAUNCHES}
+    check(min(launches.values()) >= 1, f"{tag}: the encode path did not "
+          f"launch K2 and K3 ({launches})")
     walls = []
-    for _ in range(reps + 1):
+    for _ in range(reps):
         t0 = time.time()
-        outs = pipeline.encode_batch(props, datas, device=dev)
+        again = pipeline.encode_batch(props, datas, device=dev)
         walls.append(time.time() - t0)
-    wall = statistics.median(walls[1:])
+        check(again == outs, f"{tag}: encode_batch is not deterministic")
+    stages = Stages()
+    check(pipeline.encode_batch(props, datas, device=dev,
+                                on_stage=stages) == outs,
+          f"{tag}: the staged pass differs from encode_batch")
     back = pipeline.decode_batch(props, outs,
                                  out_sizes=[len(d) for d in datas],
                                  device=dev)
     check(back == datas, f"{tag}: the round trip through K1 differs")
-    k2_args, k3_args, tok_cnt = kernel_inputs(props, datas, dev)
-    k2_ms, _ = event_ms(lambda: parse_kernel.parse_k2(*k2_args), reps)
-    k3_ms, coded = event_ms(lambda: bits_kernel.code_k3(*k3_args), reps)
-    stats = coded[5].cpu().numpy().astype(np.int64)
+    v = stages.values
+    k2_args, k3_args = v["k2_args"], v["k3_args"]
+    k2_ms, k2_out = event_ms(lambda: parse_kernel.parse_k2(*k2_args), reps)
+    k3_ms, k3_out = event_ms(lambda: bits_kernel.code_k3(*k3_args), reps)
+    compare(f"{tag} relaunch", "K2", k2_out, v["k2_out"])
+    compare(f"{tag} relaunch", "K3", k3_out, v["k3_out"])
     total = sum(len(d) for d in datas)
-    # bytes each kernel must move: K2 reads the data and its candidates
-    # (4 bytes a row a position) and writes 8 bytes a token; K3 reads 16
-    # bytes a token up to K_END and writes the coded bytes
+    # K2 reads all C candidate words at each position it probes and writes
+    # 8 bytes a token; each parse step emits one token and probes at most
+    # twice, and a step that probes none follows one that probed twice,
+    # so the LZ tokens (kinds below K_SENT_A) are a lower bound on the
+    # probes.  The data bytes are left out: the parse reads them only
+    # where it extends a match.  K3 reads 16 bytes a token up to K_END
+    # and writes the coded bytes, one operation per coded bit.
+    tape, tok_cnt = k2_out[0], k2_out[1]
+    live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
+            < tok_cnt[:, None])
+    probes = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum())
     ntok = int(tok_cnt.sum())
     c = k2_args[1].shape[1]
-    k2_bound = bound(total * (1 + 4 * c) + 8 * ntok, total * (c + 4))
-    kind = k3_args[0]
-    used = int(((kind != K_END).sum(dim=1) + 1).sum())
+    k2_bound = bound(4 * c * probes + 8 * ntok, (c + 4) * probes)
+    used = int(((k3_args[0] != K_END).sum(dim=1) + 1).sum())
+    stats = k3_out[5].cpu().numpy().astype(np.int64)
     coded_bytes = int(stats[0].sum() + stats[1].sum())
     k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
-    return dict(wall=wall, outs=outs, k2_ms=k2_ms, k3_ms=k3_ms,
+    return dict(wall=statistics.median(walls), outs=outs, k2_ms=k2_ms,
+                k3_ms=k3_ms, launches=launches, layers=stages.ms(),
                 ratio=sum(len(o) for o in outs) / total, total=total,
-                k2_bound=k2_bound, k3_bound=k3_bound)
+                k2_bound=k2_bound, k3_bound=k3_bound, probes=probes,
+                ntok=ntok, k2_args=k2_args, k2_out=k2_out,
+                k3_args=k3_args, k3_out=k3_out)
 
 
-def main():
+# ----------------------------------------------------------- phase 9 parts
+def encode_parity(props, plans, idxs, dev):
+    """One preset group of the parity batch through encode_group, its
+    stages held to their counterparts on the same inputs: the candidates
+    and the stitch on the CPU, K2 and K3 against their plain versions on
+    the card.  Returns (streams, fields compared, max abs difference,
+    plain seconds of K2 and K3)."""
+    p0 = props[idxs[0]]
+    stages = Stages()
+    outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
+    v = stages.values
+    data, _, run_ends = v["k2_args"][:3]
+    cand_cpu = parse_pre.precompute_candidates(data.cpu(), run_ends.cpu(),
+                                               p0.hash_bits, p0.hash_width)
+    err = max_diff(v["cand"], cand_cpu)
+    check(err == 0, "encode parity: candidates differ from the CPU's")
+    t0 = sync_time()
+    want = parse_scan.parse_plain(*v["k2_args"])
+    k2_plain_s = sync_time() - t0
+    err = max(err, compare("encode parity", "K2", v["k2_out"], want))
+    tape, data, run_tables = v["stitch_args"]
+    ref = stitch.stitch_tapes(tape.cpu(), data.cpu(), run_tables)
+    for name, g, w in zip("kabc", v["k3_args"][:4], ref[:4]):
+        d = max_diff(g, w)
+        check(d == 0, f"encode parity: stitched tape {name} differs")
+    t0 = sync_time()
+    want = bits_scan.bits_plain(*v["k3_args"])
+    k3_plain_s = sync_time() - t0
+    err = max(err, compare("encode parity", "K3", v["k3_out"], want))
+    nfields = 1 + len(FIELDS["K2"]) + 4 + len(FIELDS["K3"])
+    return outs, nfields, err, k2_plain_s, k3_plain_s
+
+
+# ---------------------------------------------------------- phase 11 parts
+def start_plain(jobs, sdir):
+    """One worker process a job, all started together, on the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, job in enumerate(jobs):
+        path = os.path.join(sdir, f"plain_{i}.pt")
+        torch.save({"kernel": job["kernel"], "args": job["args"]}, path)
+        with open(path + ".log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--plain", path],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+        job["path"] = path
+    return procs
+
+
+def finish_plain(jobs, procs):
+    """Wait for the workers; hold each kernel's outputs to its plain
+    version's.  Returns the largest difference (0, or it fails)."""
+    deadline = time.time() + PLAIN_WAIT_S
+    err = 0
+    for job, proc in zip(jobs, procs):
+        try:
+            rc = proc.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"chip_smoke: the plain {job['kernel']} of "
+                               f"{job['tag']} ran past {PLAIN_WAIT_S} s")
+        with open(job["path"] + ".log") as f:
+            log = f.read()
+        check(rc == 0, f"plain {job['kernel']} of {job['tag']} failed:\n"
+              f"{log[-2000:]}")
+        res = torch.load(job["path"] + ".out")
+        job["plain_s"] = res["seconds"]
+        d = compare(f"{job['tag']} (first {job['streams']} streams)",
+                    job["kernel"], job["kernel_out"], res["out"])
+        err = max(err, d)
+        phase("plain", kernel=job["kernel"], on=job["tag"],
+              streams=job["streams"], fields_compared=len(FIELDS[job[
+                  "kernel"]]), max_abs_err=d,
+              plain_cpu_s=f"{res['seconds']:.3f}",
+              kernel_ms=f"{job['kernel_ms']:.3f}")
+    return err
+
+
+def plain_worker(path):
+    """`chip_smoke.py --plain FILE`: the plain version of the job in FILE
+    on its CPU inputs, one thread; writes its outputs and seconds to
+    FILE.out."""
+    torch.set_num_threads(1)
+    job = torch.load(path)
+    t0 = time.time()
+    out = PLAIN[job["kernel"]](*job["args"])
+    torch.save({"out": out, "seconds": time.time() - t0}, path + ".out")
+
+
+def main(procs):
     # ------------------------------------------------------------ 1 device
     check(torch.cuda.is_available(), "no CUDA device: this script needs "
           "the card and has no CPU path")
@@ -279,6 +374,8 @@ def main():
         for line in err.splitlines():
             if "registers" in line or "spill" in line:
                 phase("ptxas", kernel=name, line=line.strip())
+    sdir = os.path.join(_build.BUILD_DIR, "smoke")
+    os.makedirs(sdir, exist_ok=True)
 
     # ------------------------------------------------------------ 3 corpus
     t0 = time.time()
@@ -296,56 +393,211 @@ def main():
                     + CLI_BYTES]
     phase("corpus", text_bytes=len(text), exe_bytes=len(exe),
           seconds=f"{time.time() - t0:.1f}")
+    jobs = []
 
-    # ----------------------------------------------------- 4 encode_parity
+    # ---------------------------------------------------------- 4 headline
+    head = [("m1_head", props_init(HEAD_BYTES, 1),
+             text[i * HEAD_BYTES:(i + 1) * HEAD_BYTES])
+            for i in range(HEAD_STREAMS)]
+    hp = [c[1] for c in head]
+    hd = [c[2] for c in head]
+    t0 = time.time()
+    head_blobs = corpus.encode(head, dev)
+    phase("headline_corpus", streams=HEAD_STREAMS, encoder="encode_batch",
+          seconds=f"{time.time() - t0:.3f}")
+    sizes = [len(d) for d in hd]
+    decode_kernel.LAUNCHES = 0
+    outs = pipeline.decode_batch(hp, head_blobs, out_sizes=sizes, device=dev)
+    k1_launches = {"headline": decode_kernel.LAUNCHES}
+    check(k1_launches["headline"] >= 1, "the decode main path did not "
+          "launch K1")
+    check(outs == hd, "headline: decoded bytes differ from input")
+    walls = []
+    for _ in range(5):
+        t0 = time.time()
+        outs = pipeline.decode_batch(hp, head_blobs, out_sizes=sizes,
+                                     device=dev)
+        walls.append(time.time() - t0)
+    check(outs == hd, "headline: decoded bytes differ (timed run)")
+    wall = statistics.median(walls)
+    hargs = (*demux_upload(hp, head_blobs, dev), pipeline._bucket(HEAD_BYTES),
+             NO_STEP_CAP)
+    k1_ms, kout = event_ms(lambda: decode_kernel.decode_k1(*hargs), 5)
+    jobs.append(plain_job("headline", "K1", hargs, 5))
+    same_rows("headline", "K1", kout, jobs[-1]["kernel_out"],
+              PLAIN_STREAMS["K1"])
+    layers = layer_ms(hp, head_blobs, sizes, dev)
+    total = sum(sizes)
+    # bytes K1 must move: the coded rc and bc bytes in, the window out;
+    # operations: one per coded rc bit and one per decoded byte
+    rc_used, bc_used = (coded_length(t) for t in hargs[2:4])
+    k1_bound = bound(rc_used + bc_used + total, 8 * rc_used + total)
+    phase("headline_layers", **layers)
+    phase("headline", streams=HEAD_STREAMS, bytes=total,
+          launches=k1_launches["headline"], wall_median_s=f"{wall:.4f}",
+          wall_mbps=f"{total / wall / 1e6:.2f}",
+          kernel_ms=f"{k1_ms:.3f}", kernel_mbps=f"{total / k1_ms / 1e3:.2f}",
+          bound_ms=f"{k1_bound[0]:.5f}")
+
+    # --------------------------------------------------- 5 encode_headline
+    ed = hd[:ENC_STREAMS]
+    cells = {}
+    for level in (1, 2):
+        tag = f"encode_headline m{level}"
+        ep = [props_init(HEAD_BYTES, level) for _ in range(ENC_STREAMS)]
+        cell = encode_cell(tag, ep, ed, dev, 5)
+        cells[level] = cell
+        for kernel, args, out in (("K2", cell["k2_args"], cell["k2_out"]),
+                                  ("K3", cell["k3_args"], cell["k3_out"])):
+            jobs.append(plain_job(tag, kernel, args, 5))
+            same_rows(tag, kernel, out, jobs[-1]["kernel_out"],
+                      PLAIN_STREAMS[kernel])
+        phase("encode_headline_layers", level=f"m{level}", **cell["layers"])
+        phase("encode_headline", level=f"m{level}", streams=ENC_STREAMS,
+              bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
+              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
+              k2_ms=f"{cell['k2_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              k2_bound_ms=f"{cell['k2_bound'][0]:.6f}",
+              k3_bound_ms=f"{cell['k3_bound'][0]:.6f}",
+              tokens=cell["ntok"], lz_tokens=cell["probes"],
+              ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
+              launches_k2=cell["launches"]["K2"],
+              launches_k3=cell["launches"]["K3"])
+        for key in ("k2_args", "k2_out", "k3_args", "k3_out"):
+            del cell[key]
+
+    # ---------------------------------------------------- 6 encode_extract
+    gp = [props_init(GROUP_BYTES, 1) for _ in group]
+    ext = encode_cell("encode_extract", gp, group, dev, 1)
+    group_blobs = ext["outs"]
+    phase("encode_extract", streams=len(group), bytes=ext["total"],
+          wall_s=f"{ext['wall']:.3f}",
+          wall_mbps=f"{ext['total'] / ext['wall'] / 1e6:.2f}",
+          k2_ms=f"{ext['k2_ms']:.1f}", k3_ms=f"{ext['k3_ms']:.1f}",
+          ratio=f"{ext['ratio']:.4f}", round_trip="K1 byte-exact",
+          launches_k2=ext["launches"]["K2"],
+          launches_k3=ext["launches"]["K3"])
+    del ext["k2_args"], ext["k2_out"], ext["k3_args"], ext["k3_out"]
+
+    # ----------------------------------------------------------- 7 extract
+    gps = gp * GROUP_REPEAT
+    gb = group_blobs * GROUP_REPEAT
+    gd = group * GROUP_REPEAT
+    gbytes = sum(len(d) for d in gd)
+    decode_kernel.LAUNCHES = 0
+    t0 = time.time()
+    outs = pipeline.decode_batch(gps, gb, out_sizes=[len(d) for d in gd],
+                                 device=dev)
+    g_wall = time.time() - t0
+    k1_launches["extract"] = decode_kernel.LAUNCHES
+    check(k1_launches["extract"] >= 1, "extract group: K1 not launched")
+    check(outs == gd, "extract group: decoded bytes differ from input")
+    del outs
+    gargs = demux_upload(gps, gb, dev)
+    g_ms, _ = event_ms(lambda: decode_kernel.decode_k1(
+        *gargs, pipeline._bucket(GROUP_BYTES), NO_STEP_CAP), 1)
+    del gargs
+    glayers = layer_ms(gps, gb, [len(d) for d in gd], dev)
+    phase("extract_layers", **glayers)
+    phase("extract", streams=len(gb), bytes=gbytes, wall_s=f"{g_wall:.3f}",
+          wall_mbps=f"{gbytes / g_wall / 1e6:.2f}", kernel_ms=f"{g_ms:.1f}",
+          kernel_mbps=f"{gbytes / g_ms / 1e3:.2f}",
+          launches=k1_launches["extract"])
+
+    # ---------------------------------------------------------------- 8 cli
+    from csc_tpu_torch import cli
+    src, enc, dst, reg = (os.path.join(sdir, n) for n in (
+        "cli.bin", "cli.csc", "cli.out", "cli_regrow.csc"))
+    with open(src, "wb") as f:
+        f.write(cli_data)
+    parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    t0 = time.time()
+    check(cli.main(["c", "-m", "1", "--backend", "cuda", src, enc]) == 0,
+          "cli c failed")
+    t1 = time.time()
+    check(parse_kernel.LAUNCHES >= 1 and bits_kernel.LAUNCHES >= 1,
+          "cli c did not launch K2 and K3")
+    decode_kernel.LAUNCHES = 0
+    check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0, "cli d failed")
+    t2 = time.time()
+    k1_launches["cli_d"] = decode_kernel.LAUNCHES
+    check(k1_launches["cli_d"] >= 1, "cli d did not launch K1")
+    with open(dst, "rb") as f:
+        check(f.read() == cli_data, "cli: decoded bytes differ")
+    with open(enc, "rb") as f:
+        blob = f.read()
+    p_enc = props_init(len(cli_data), 1)
+    check(blob[:10] == write_properties(p_enc), "cli: unexpected property "
+          "header")
+    # the same stream under a 266 KB dictionary header (csc_blocksize and
+    # raw_blocksize unchanged): K1's window starts at the dictionary, the
+    # 1 MB output outgrows it, and decode_batch regrows the window and
+    # decodes again; the linear window holds every distance of the stream
+    p_reg = props_init(CLI_DICT, 1)
+    check((p_reg.csc_blocksize, p_reg.raw_blocksize) ==
+          (p_enc.csc_blocksize, p_enc.raw_blocksize) and
+          p_reg.dict_size < len(cli_data), "cli: regrow header")
+    with open(reg, "wb") as f:
+        f.write(write_properties(p_reg) + blob[10:])
+    decode_kernel.LAUNCHES = 0
+    t3 = time.time()
+    check(cli.main(["d", "--backend", "cuda", reg, dst]) == 0,
+          "cli d (regrow) failed")
+    t4 = time.time()
+    k1_launches["cli_regrow"] = decode_kernel.LAUNCHES
+    check(k1_launches["cli_regrow"] >= 2, "cli d under a 266 KB dictionary "
+          "did not regrow its window")
+    with open(dst, "rb") as f:
+        check(f.read() == cli_data, "cli: regrow decoded bytes differ")
+    phase("cli", bytes=len(cli_data), c_seconds=f"{t1 - t0:.2f}",
+          d_seconds=f"{t2 - t1:.2f}", compressed=len(blob),
+          regrow=f"dict {p_reg.dict_size} -> {len(cli_data)} bytes, "
+          f"{k1_launches['cli_regrow']} K1 launches",
+          regrow_d_seconds=f"{t4 - t3:.2f}")
+
+    # --------------------------- 11 plain (workers on the CPU) start here
+    procs.extend(start_plain(jobs, sdir))
+    phase("plain_start", workers=len(procs),
+          jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
+                        for j in jobs))
+
+    # ----------------------------------------------------- 9 encode_parity
     props = [c[1] for c in par]
     plans = [encode_host.plan_stream(p, d) for _, p, d in par]
     check(len({p.hash_bits for p in props if p.hash_width == 1}) == 1
           and len({p.hash_bits for p in props if p.hash_width == 8}) == 1,
           "parity: one preset per level")
     par_blobs = [None] * len(par)
-    nfields = max_err_enc = 0
-    times = {}
+    max_err = 0
+    plain_card_s = {"K2": 0.0, "K3": 0.0}
     for level in (1, 2):
         idxs = [i for i, p in enumerate(props)
                 if (p.hash_width == 1) == (level == 1)]
-        outs, nf, err, k2_plain_s, k3_plain_s, k2_ms, k3_ms = \
-            encode_group_parity(props, plans, idxs, dev)
+        outs, nf, err, k2_plain_s, k3_plain_s = encode_parity(
+            props, plans, idxs, dev)
         for i, out in zip(idxs, outs):
             par_blobs[i] = out
-        nfields += nf
-        max_err_enc = max(max_err_enc, err)
-        check(err == 0, f"encode parity m{level}: a kernel differs from "
-              f"its plain version")
-        times[level] = (k2_plain_s, k3_plain_s, k2_ms, k3_ms)
+        max_err = max(max_err, err)
+        plain_card_s["K2"] += k2_plain_s
+        plain_card_s["K3"] += k3_plain_s
         phase("encode_parity", level=f"m{level}", streams=len(idxs),
               fields_compared=nf, max_abs_err=err,
-              k2_plain_s=f"{k2_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}",
-              k2_ms=f"{k2_ms:.3f}", k3_ms=f"{k3_ms:.3f}")
-    k2_plain_ms = 1e3 * sum(t[0] for t in times.values())
-    k3_plain_ms = 1e3 * sum(t[1] for t in times.values())
-    k2_par_ms = sum(t[2] for t in times.values())
-    k3_par_ms = sum(t[3] for t in times.values())
+              k2_plain_s=f"{k2_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
 
-    # ------------------------------------------------------------ 5 parity
+    # ----------------------------------------------------------- 10 parity
     par_blobs[-1] = corpus.flip(par_blobs[-1])
     args = demux_upload(props, par_blobs, dev)
     wnd_size = pipeline._bucket(max(len(c[2]) for c in par))
-    launches = decode_kernel.LAUNCHES
     got = decode_kernel.decode_k1(*args, wnd_size, NO_STEP_CAP)
-    torch.cuda.synchronize()
-    check(decode_kernel.LAUNCHES == launches + 1, "K1 did not launch")
-    t0 = time.time()
+    t0 = sync_time()
     want = decode_scan.decode_plain(*args, wnd_size, NO_STEP_CAP)
-    torch.cuda.synchronize()
-    plain_par_s = time.time() - t0
+    plain_card_s["K1"] = sync_time() - t0
     got = [t.cpu().numpy() for t in got]
     want = [t.cpu().numpy() for t in want]
     wnd_k, log_k, pos_k, done_k, err_k, cnt_k = got
     wnd_p, log_p, pos_p, done_p, err_p, cnt_p = want
-    max_err = 0
     for i, (name, _, data) in enumerate(par[:-1]):
-        for fname, k, p in zip(FIELDS, got, want):
+        for fname, k, p in zip(FIELDS["K1"], got, want):
             diff = np.abs(k[i].astype(np.int64) - p[i].astype(np.int64))
             max_err = max(max_err, int(diff.max()))
             check(diff.max() == 0, f"parity {name}: {fname} differs")
@@ -377,175 +629,46 @@ def main():
                     for t in log_k[j, :cnt_k[j], 0]})
     phase("parity", streams=len(par), fields_equal=True, max_abs_err=max_err,
           flipped_flagged=bool(flagged_k), flipped_identical=flipped_identical,
-          block_types=types, plain_seconds=f"{plain_par_s:.3f}")
+          block_types=types, plain_seconds=f"{plain_card_s['K1']:.3f}")
 
-    # ---------------------------------------------------------- 6 headline
-    head = [("m1_head", props_init(HEAD_BYTES, 1),
-             text[i * HEAD_BYTES:(i + 1) * HEAD_BYTES])
-            for i in range(HEAD_STREAMS)]
-    hp = [c[1] for c in head]
-    hd = [c[2] for c in head]
-    t0 = time.time()
-    head_blobs = corpus.encode(head, dev)
-    phase("headline_corpus", streams=HEAD_STREAMS, encoder="encode_batch",
-          seconds=f"{time.time() - t0:.3f}")
-    sizes = [len(d) for d in hd]
-    decode_kernel.LAUNCHES = 0
-    outs = pipeline.decode_batch(hp, head_blobs, out_sizes=sizes, device=dev)
-    k1_launches = decode_kernel.LAUNCHES
-    check(k1_launches >= 1, "the decode main path did not launch K1")
-    check(outs == hd, "headline: decoded bytes differ from input")
-    walls = []
-    for _ in range(5):
-        t0 = time.time()
-        outs = pipeline.decode_batch(hp, head_blobs, out_sizes=sizes,
-                                     device=dev)
-        walls.append(time.time() - t0)
-    check(outs == hd, "headline: decoded bytes differ (timed run)")
-    wall = statistics.median(walls)
-    hargs = demux_upload(hp, head_blobs, dev)
-    wnd16 = pipeline._bucket(HEAD_BYTES)
-    k1_ms, kout = event_ms(
-        lambda: decode_kernel.decode_k1(*hargs, wnd16, NO_STEP_CAP), 5)
-    # the plain version on the first HEAD_PLAIN of the same inputs
-    sub = [t[:HEAD_PLAIN].contiguous() for t in hargs]
-    ksub = decode_kernel.decode_k1(*sub, wnd16, NO_STEP_CAP)
-    t0 = sync_time()
-    pout = decode_scan.decode_plain(*sub, wnd16, NO_STEP_CAP)
-    k1_plain_ms = (sync_time() - t0) * 1e3
-    for fname, k, p in zip(FIELDS, ksub, pout):
-        diff = max_diff(k, p)
-        max_err = max(max_err, diff)
-        check(diff == 0, f"headline: kernel and plain differ in {fname}")
-    for fname, k, p in zip(FIELDS, kout, ksub):
-        check(max_diff(k[:HEAD_PLAIN], p) == 0, f"headline: {fname} of "
-              f"the 128-stream call differs from the 16-stream call")
-    layers = layer_ms(hp, head_blobs, sizes, dev)
-    total = sum(sizes)
-    # bytes K1 must move: the coded rc and bc bytes in, the window out;
-    # operations: one per coded rc bit and one per decoded byte
-    rc_used, bc_used = (coded_length(t) for t in hargs[2:])
-    k1_bound = bound(rc_used + bc_used + total, 8 * rc_used + total)
-    phase("headline_layers", **layers)
-    phase("headline", streams=HEAD_STREAMS, bytes=total,
-          launches=k1_launches, wall_median_s=f"{wall:.4f}",
-          wall_mbps=f"{total / wall / 1e6:.2f}",
-          kernel_ms=f"{k1_ms:.3f}", kernel_mbps=f"{total / k1_ms / 1e3:.2f}",
-          plain_ms=f"{k1_plain_ms:.1f}", plain_streams=HEAD_PLAIN,
-          bound_ms=f"{k1_bound[0]:.5f}",
-          note="plain: one lockstep step per micro-op of the longest stream")
+    # ------------------------------------------------------------ 11 plain
+    max_err = max(max_err, finish_plain(jobs, procs))
+    plain = {(j["kernel"], j["tag"]): j for j in jobs}
+    launches = {"K1": k1_launches}
+    for kernel in ("K2", "K3"):
+        launches[kernel] = {"encode_headline m1": cells[1]["launches"][kernel],
+                            "encode_headline m2": cells[2]["launches"][kernel],
+                            "encode_extract": ext["launches"][kernel]}
 
-    # --------------------------------------------------- 7 encode_headline
-    ed = hd[:ENC_STREAMS]
-    cells = {}
-    for level in (1, 2):
-        ep = [props_init(HEAD_BYTES, level) for _ in range(ENC_STREAMS)]
-        if level == 1:
-            parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
-            pipeline.encode_batch(ep, ed, device=dev)
-            k2_launches = parse_kernel.LAUNCHES
-            k3_launches = bits_kernel.LAUNCHES
-            check(k2_launches >= 1 and k3_launches >= 1,
-                  "the encode main path did not launch K2 and K3")
-        cell = encode_cell(f"encode_headline m{level}", ep, ed, dev, 5)
-        layers, louts = encode_layers(ep, ed, dev)
-        check(louts == cell["outs"], f"encode_headline m{level}: the layer "
-              f"pass differs from encode_batch")
-        cells[level] = cell
-        phase("encode_headline_layers", level=f"m{level}", **layers)
-        phase("encode_headline", level=f"m{level}", streams=ENC_STREAMS,
-              bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
-              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
-              k2_ms=f"{cell['k2_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
-              ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
-              launches_k2=k2_launches if level == 1 else "-",
-              launches_k3=k3_launches if level == 1 else "-")
-
-    # ---------------------------------------------------- 8 encode_extract
-    gp = [props_init(GROUP_BYTES, 1) for _ in group]
-    ext = encode_cell("encode_extract", gp, group, dev, 1)
-    group_blobs = ext["outs"]
-    phase("encode_extract", streams=len(group), bytes=ext["total"],
-          wall_s=f"{ext['wall']:.3f}",
-          wall_mbps=f"{ext['total'] / ext['wall'] / 1e6:.2f}",
-          k2_ms=f"{ext['k2_ms']:.1f}", k3_ms=f"{ext['k3_ms']:.1f}",
-          ratio=f"{ext['ratio']:.4f}", round_trip="K1 byte-exact")
-
-    # ----------------------------------------------------------- 9 extract
-    gps = gp * GROUP_REPEAT
-    gb = group_blobs * GROUP_REPEAT
-    gd = group * GROUP_REPEAT
-    gbytes = sum(len(d) for d in gd)
-    t0 = time.time()
-    outs = pipeline.decode_batch(gps, gb, out_sizes=[len(d) for d in gd],
-                                 device=dev)
-    g_wall = time.time() - t0
-    check(outs == gd, "extract group: decoded bytes differ from input")
-    del outs
-    gargs = demux_upload(gps, gb, dev)
-    g_ms, _ = event_ms(lambda: decode_kernel.decode_k1(
-        *gargs, pipeline._bucket(GROUP_BYTES), NO_STEP_CAP), 1)
-    del gargs
-    glayers = layer_ms(gps, gb, [len(d) for d in gd], dev)
-    phase("extract_layers", **glayers)
-    phase("extract", streams=len(gb), bytes=gbytes, wall_s=f"{g_wall:.3f}",
-          wall_mbps=f"{gbytes / g_wall / 1e6:.2f}", kernel_ms=f"{g_ms:.1f}",
-          kernel_mbps=f"{gbytes / g_ms / 1e3:.2f}")
-
-    # --------------------------------------------------------------- 10 cli
-    from csc_tpu_torch import cli
-    sdir = os.path.join(_build.BUILD_DIR, "smoke")
-    os.makedirs(sdir, exist_ok=True)
-    src, enc, dst = (os.path.join(sdir, n) for n in ("cli.bin", "cli.csc",
-                                                     "cli.out"))
-    with open(src, "wb") as f:
-        f.write(cli_data)
-    t0 = time.time()
-    check(cli.main(["c", "-m", "1", "--backend", "cuda", src, enc]) == 0,
-          "cli c failed")
-    t1 = time.time()
-    check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0, "cli d failed")
-    t2 = time.time()
-    with open(dst, "rb") as f:
-        check(f.read() == cli_data, "cli: decoded bytes differ")
-    with open(enc, "rb") as f:
-        head = f.read(10)
-    check(head == write_properties(props_init(len(cli_data), 1)),
-          "cli: unexpected property header")
-    phase("cli", bytes=len(cli_data), c_seconds=f"{t1 - t0:.2f}",
-          d_seconds=f"{t2 - t1:.2f}", compressed=os.path.getsize(enc))
+    def row(kernel, name, source, replaces, ms, on, bnd, tag):
+        j = plain[(kernel, tag)]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[kernel][tag],
+                "max_abs_err": max_err, "ms": round(ms, 4),
+                "plain_ms": round(j["plain_s"] * 1e3, 2),
+                "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
+                "library_ms": None, "ms_on": on,
+                "plain_on": f"the first {j['streams']} of those streams, "
+                            f"on one CPU core of the card's host",
+                "kernel_ms_on_those_streams": round(j["kernel_ms"], 4),
+                "plain_card_ms": round(plain_card_s[kernel] * 1e3, 2),
+                "plain_card_on": "the parity batch" if kernel == "K1"
+                else "the m1 + m2 parity groups",
+                "launches_by_path": launches[kernel]}
 
     m1 = cells[1]
+    enc_on = f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text"
     print(json.dumps({"kernels": [
-        {"name": "K1 decode", "route": "cuda",
-         "source": "csc_tpu_torch/csrc/decode_k1.cu",
-         "replaces": "csc_tpu/ops/pallas_decode.py:272",
-         "launches": k1_launches, "max_abs_err": max_err,
-         "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 2),
-         "bound_ms": round(k1_bound[0], 6), "bound_by": k1_bound[1],
-         "library_ms": None,
-         "ms_on": f"{HEAD_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
-         "plain_on": f"the first {HEAD_PLAIN} of those streams"},
-        {"name": "K2 lazy parse", "route": "cuda",
-         "source": "csc_tpu_torch/csrc/encode_k2.cu",
-         "replaces": "csc_tpu/ops/pallas_parse.py:112",
-         "launches": k2_launches, "max_abs_err": max_err_enc,
-         "ms": round(m1["k2_ms"], 4), "plain_ms": round(k2_plain_ms, 2),
-         "bound_ms": round(m1["k2_bound"][0], 6),
-         "bound_by": m1["k2_bound"][1], "library_ms": None,
-         "ms_on": f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
-         "plain_on": "the m1 + m2 parity groups",
-         "kernel_ms_on_parity": round(k2_par_ms, 4)},
-        {"name": "K3 phase-B coder", "route": "cuda",
-         "source": "csc_tpu_torch/csrc/encode_k3.cu",
-         "replaces": "csc_tpu/ops/pallas_encode.py:107",
-         "launches": k3_launches, "max_abs_err": max_err_enc,
-         "ms": round(m1["k3_ms"], 4), "plain_ms": round(k3_plain_ms, 2),
-         "bound_ms": round(m1["k3_bound"][0], 6),
-         "bound_by": m1["k3_bound"][1], "library_ms": None,
-         "ms_on": f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text",
-         "plain_on": "the m1 + m2 parity groups",
-         "kernel_ms_on_parity": round(k3_par_ms, 4)},
+        row("K1", "K1 decode", "csc_tpu_torch/csrc/decode_k1.cu",
+            "csc_tpu/ops/pallas_decode.py:272", k1_ms,
+            f"{HEAD_STREAMS} x {HEAD_BYTES // KB} KB m1 text", k1_bound,
+            "headline"),
+        row("K2", "K2 lazy parse", "csc_tpu_torch/csrc/encode_k2.cu",
+            "csc_tpu/ops/pallas_parse.py:112", m1["k2_ms"], enc_on,
+            m1["k2_bound"], "encode_headline m1"),
+        row("K3", "K3 phase-B coder", "csc_tpu_torch/csrc/encode_k3.cu",
+            "csc_tpu/ops/pallas_encode.py:107", m1["k3_ms"], enc_on,
+            m1["k3_bound"], "encode_headline m1"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -578,4 +701,14 @@ def layer_ms(props, blobs, sizes, dev):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--plain"]:
+        plain_worker(sys.argv[2])
+    else:
+        workers = []
+        try:
+            main(workers)
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                    w.wait()

@@ -239,12 +239,6 @@ def k3_shapes(props, n, run_tables):
     return max_rc, max_bc, max(max_rc, max_bc) // bsize + 1, nchunk, bsize
 
 
-def code_group(props, kk, aa, bb, cc, n, run_tables):
-    """K3 on the stitched tapes of a group of streams of at most n LZ
-    input bytes each."""
-    return code_k3(kk, aa, bb, cc, *k3_shapes(props, n, run_tables))
-
-
 def remux_group(props, coded):
     """Host remux of K3's outputs into physical streams."""
     rc_out, bc_out, rc_map, bc_map, clog, stats = coded
@@ -261,18 +255,34 @@ def remux_group(props, coded):
         for j in range(len(rc_cnt))]
 
 
-def encode_group(props_list, plans, idxs, device):
+def encode_group(props_list, plans, idxs, device, on_stage=None):
     """Encode the streams `idxs` of a batch, all of one preset, on
     `device` from their encode_host.plan_stream plans: candidates, K2,
-    stitch, K3, remux.  Returns their raw streams in `idxs` order."""
+    stitch, K3, remux.  Returns their raw streams in `idxs` order.
+
+    on_stage, when given, is called as on_stage(name, **values) after each
+    stage, so a caller can time the stages and hold each kernel to its
+    plain version on the inputs this path gives it:
+      "precompute"  cand ([B, 2C, N] candidates), k2_args (K2's arguments)
+      "k2"          k2_out (K2's outputs)
+      "stitch"      stitch_args (the stitch's), k3_args (K3's arguments)
+      "k3"          k3_out (K3's outputs)
+      "remux"       outs (the raw streams)
+    """
+    note = on_stage or (lambda name, **values: None)
     p0 = props_list[idxs[0]]
     data, run_ends, run_skip, sizes, dicts = group_inputs(
         props_list, plans, idxs, device)
-    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
-        data, run_ends, p0.hash_bits, p0.hash_width))
-    tape, tok_cnt, done, err = parse_k2(
-        data, candp, run_ends, run_skip, sizes, dicts, p0.good_len,
-        tape_capacity(data.shape[1], run_ends.shape[1]))
+    cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
+                                           p0.hash_width)
+    k2_args = (data, parse_pre.pack_candidates(cand), run_ends, run_skip,
+               sizes, dicts, p0.good_len,
+               tape_capacity(data.shape[1], run_ends.shape[1]))
+    note("precompute", cand=cand, k2_args=k2_args)
+    del cand
+    k2_out = parse_k2(*k2_args)
+    note("k2", k2_out=k2_out)
+    tape, tok_cnt, done, err = k2_out
     tok_cnt, done, err = (t.cpu().numpy() for t in (tok_cnt, done, err))
     bad = [idxs[j] for j in range(len(idxs)) if err[j] or not done[j]]
     if bad:
@@ -280,7 +290,10 @@ def encode_group(props_list, plans, idxs, device):
     tape = tape[:, :int(tok_cnt.max())].contiguous()
     run_tables = [plans[i][1] for i in idxs]
     kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
-    coded = code_group(p0, kk, aa, bb, cc, data.shape[1], run_tables)
+    k3_args = (kk, aa, bb, cc, *k3_shapes(p0, data.shape[1], run_tables))
+    note("stitch", stitch_args=(tape, data, run_tables), k3_args=k3_args)
+    coded = code_k3(*k3_args)
+    note("k3", k3_out=coded)
     stats = coded[5].cpu().numpy()
     over = [idxs[j] for j in range(len(idxs)) if stats[4, j]]
     if over:
@@ -290,10 +303,12 @@ def encode_group(props_list, plans, idxs, device):
     if unfinished:
         raise EncodeError(f"stream(s) {unfinished}: K3 did not reach "
                           f"K_END")
-    return remux_group(p0, coded)
+    outs = remux_group(p0, coded)
+    note("remux", outs=outs)
+    return outs
 
 
-def encode_batch(props_list, datas, *, device=CUDA):
+def encode_batch(props_list, datas, *, device=CUDA, on_stage=None):
     """Encode B independent streams at m1/m2 on `device`.
 
     Returns list[bytes], the raw streams without the property header,
@@ -301,11 +316,15 @@ def encode_batch(props_list, datas, *, device=CUDA):
     are grouped by preset (one device call per preset and size group).
     An empty stream is the SIG_EOF chunk alone.  Raises EncodeError for
     a stream it cannot take (m3-m5, over MAX_ENCODE, longer than its
-    dictionary) or that a kernel flags."""
+    dictionary) or that a kernel flags.  on_stage: as encode_group's,
+    called once more as on_stage("plan", plans=...) after the host plan.
+    """
     device = torch.device(device)
     if len(props_list) != len(datas):
         raise ValueError("one props per stream")
     plans = plan_streams(props_list, datas)
+    if on_stage:
+        on_stage("plan", plans=plans)
     outs = [None] * len(datas)
     for i, plan in enumerate(plans):
         if plan is None:
@@ -314,7 +333,7 @@ def encode_batch(props_list, datas, *, device=CUDA):
                 chunk_ends=[])
     for idxs in _groups(props_list, plans):
         for i, out in zip(idxs, encode_group(props_list, plans, idxs,
-                                              device)):
+                                              device, on_stage)):
             outs[i] = out
     return outs
 

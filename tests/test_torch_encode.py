@@ -20,7 +20,7 @@ import torch
 from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream as golden_encode
 from csc_tpu_torch import cli, corpus
-from csc_tpu_torch.ops import bits_kernel, encode_host, parse_kernel
+from csc_tpu_torch.ops import bits_kernel, encode_host, parse_kernel, parse_pre
 from csc_tpu_torch.ops import pipeline
 from csc_tpu_torch.props import props_init
 
@@ -117,6 +117,29 @@ def test_k3_overflow_raises(monkeypatch):
     monkeypatch.setattr(pipeline, "code_k3", small)
     with pytest.raises(pipeline.EncodeError, match=r"\[0\].*overflow"):
         pipeline.encode_batch([props_init(600, 1)], [data], device=CPU)
+
+
+def test_on_stage_sees_every_stage_of_the_one_path():
+    data = corpus.words(600, 3)
+    p = props_init(600, 1)
+    seen = []
+    values = {}
+
+    def on_stage(name, **kv):
+        seen.append(name)
+        values.update(kv)
+    outs = pipeline.encode_batch([p], [data], device=CPU, on_stage=on_stage)
+    assert seen == ["plan", "precompute", "k2", "stitch", "k3", "remux"]
+    assert outs == values["outs"]
+    assert outs == pipeline.encode_batch([p], [data], device=CPU)
+    assert torch.equal(values["k2_args"][1],
+                       parse_pre.pack_candidates(values["cand"]))
+    tape, _, run_tables = values["stitch_args"]
+    assert values["k3_args"][0].shape[0] == tape.shape[0] == 1
+    assert run_tables == [values["plans"][0][1]]
+    for got, want in zip(bits_kernel.code_k3(*values["k3_args"]),
+                         values["k3_out"]):
+        assert torch.equal(got, want)
 
 
 def test_cli_round_trip_cpu_and_m3_refusal(tmp_path):
