@@ -5,8 +5,9 @@
 
 Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
-  2. build           K1, K2, K3 (csrc/*.cu) with nvcc into build/, one nvcc
-                     per kernel started together, with ptxas's reports
+  2. build           K1, K2, K3 and the ten spike libraries (csrc/*.cu)
+                     with nvcc into build/, one nvcc per source started
+                     together, with ptxas's reports of K1-K3
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -26,7 +27,13 @@ Phases, each printing its own line; the first failure raises:
                      parity batch, a corrupted stream among them
  11. plain           each kernel against its plain version on the first
                      streams of its headline inputs (phases 4 and 5)
-Every count of launches is read around a main-path run (phases 4-8).
+ 12. spikes          the spike probes' main path, `python -m
+                     csc_tpu_torch.spikes` (every probe of tools/spike_*.py
+                     timed in layouts a and b), then every probe in both
+                     layouts, at every size the runner times, against its
+                     plain version on the card, with
+                     K1-K3's own ns per step of their longest stream
+Every count of launches is read around a main-path run (phases 4-8, 12).
 Phase 11's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each), started once phases 4-8
 are timed, so they overlap phases 9 and 10; on the card a plain version
@@ -35,6 +42,7 @@ JSON record and the ok line.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,12 +54,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from csc_tpu_torch import _build, corpus  # noqa: E402
+from csc_tpu_torch import _build, corpus, spikes  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, parse_kernel,
                                parse_pre, parse_scan, pipeline, stitch)
 from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
+from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
+from csc_tpu_torch.spikes import _probe  # noqa: E402
 
 SEED = 20261016
 KB, MB = 1024, 1024 * 1024
@@ -142,11 +152,16 @@ def to_cpu(x):
     return x
 
 
-def coded_length(ends):
-    """Total coded bytes of a batch from its [B, NB] cumulative block-end
-    table (padded with 0x7FFFFFFF)."""
+def coded_lengths(ends):
+    """Coded bytes of each stream of a batch from its [B, NB] cumulative
+    block-end table (padded with 0x7FFFFFFF)."""
     ends = ends.cpu().numpy().astype(np.int64)
-    return int(np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1).sum())
+    return np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1)
+
+
+def coded_length(ends):
+    """Total coded bytes of a batch."""
+    return int(coded_lengths(ends).sum())
 
 
 def demux_upload(props, blobs, dev):
@@ -242,7 +257,13 @@ def encode_cell(tag, props, datas, dev, reps):
     ntok = int(tok_cnt.sum())
     c = k2_args[1].shape[1]
     k2_bound = bound(4 * c * probes + 8 * ntok, (c + 4) * probes)
-    used = int(((k3_args[0] != K_END).sum(dim=1) + 1).sum())
+    per_tape = (k3_args[0] != K_END).sum(dim=1) + 1
+    used = int(per_tape.sum())
+    # the longest stream's steps, for the per-step table (phase 12)
+    per_lz = ((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum(dim=1)
+    longest = dict(positions=max(len(d) for d in datas),
+                   lz_tokens=int(per_lz.max()), tokens=int(tok_cnt.max()),
+                   tape_entries=int(per_tape.max()))
     stats = k3_out[5].cpu().numpy().astype(np.int64)
     coded_bytes = int(stats[0].sum() + stats[1].sum())
     k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
@@ -250,7 +271,7 @@ def encode_cell(tag, props, datas, dev, reps):
                 k3_ms=k3_ms, launches=launches, layers=stages.ms(),
                 ratio=sum(len(o) for o in outs) / total, total=total,
                 k2_bound=k2_bound, k3_bound=k3_bound, probes=probes,
-                ntok=ntok, k2_args=k2_args, k2_out=k2_out,
+                ntok=ntok, longest=longest, k2_args=k2_args, k2_out=k2_out,
                 k3_args=k3_args, k3_out=k3_out)
 
 
@@ -361,19 +382,14 @@ def main(procs):
     _build.build_kernels()
     phase("build", kernels=",".join(_build.KERNELS),
           seconds=f"{time.time() - t0:.2f}")
-    reports = {name: subprocess.Popen(
-        [_build._nvcc()] + _build.NVCC_FLAGS + [
-            "-Xptxas", "-v", "-o",
-            os.path.join(_build.BUILD_DIR, f"ptxas_{name}.so"),
-            os.path.join(_build.CSRC, srcs[0])],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, srcs in _build.KERNELS.items()}
-    for name, proc in reports.items():
-        _, err = proc.communicate()
-        check(proc.returncode == 0, f"ptxas report of {name} failed")
-        for line in err.splitlines():
-            if "registers" in line or "spill" in line:
-                phase("ptxas", kernel=name, line=line.strip())
+    for name in _build.KERNELS:
+        log = _build.build_log(name)
+        check("Used" in log and "registers" in log,
+              f"the build report of {name} names no register count")
+        if name.startswith("csc_"):
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    phase("ptxas", kernel=name, line=line.strip())
     sdir = os.path.join(_build.BUILD_DIR, "smoke")
     os.makedirs(sdir, exist_ok=True)
 
@@ -432,6 +448,8 @@ def main(procs):
     # operations: one per coded rc bit and one per decoded byte
     rc_used, bc_used = (coded_length(t) for t in hargs[2:4])
     k1_bound = bound(rc_used + bc_used + total, 8 * rc_used + total)
+    k1_longest = dict(bytes=max(sizes), coded_bits=int(8 * (
+        coded_lengths(hargs[2]) + coded_lengths(hargs[3])).max()))
     phase("headline_layers", **layers)
     phase("headline", streams=HEAD_STREAMS, bytes=total,
           launches=k1_launches["headline"], wall_median_s=f"{wall:.4f}",
@@ -633,6 +651,7 @@ def main(procs):
 
     # ------------------------------------------------------------ 11 plain
     max_err = max(max_err, finish_plain(jobs, procs))
+    m1 = cells[1]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
     launches = {"K1": k1_launches}
     for kernel in ("K2", "K3"):
@@ -654,9 +673,55 @@ def main(procs):
                 "plain_card_ms": round(plain_card_s[kernel] * 1e3, 2),
                 "plain_card_on": "the parity batch" if kernel == "K1"
                 else "the m1 + m2 parity groups",
-                "launches_by_path": launches[kernel]}
+                "launches_by_path": launches[kernel],
+                "ns_per_step": k_steps[kernel]}
 
-    m1 = cells[1]
+    # ----------------------------------------------------------- 12 spikes
+    t0 = time.time()
+    for f in spikes.FILES:
+        spikes.LAUNCHES[f] = 0
+    srows = spike_main.main(["--json", os.path.join(sdir, "spikes.json")])
+    s_launches = dict(spikes.LAUNCHES)
+    check(all(s_launches[f] >= 1 for f in spikes.FILES),
+          f"the spikes' main path did not launch every spike file "
+          f"({s_launches})")
+    t_main = time.time() - t0
+    sdetail = {}
+    for key, p in spikes.PROBES.items():
+        errs = _probe.compare(p, dev)
+        for label, e in errs.items():
+            check(e == 0, f"spikes: {key} at {label} differs from its plain "
+                  f"version (max abs {e})")
+        sdetail[key] = dict(err=max(errs.values()), sizes=len(errs),
+                            plain_ns=_probe.plain_marginal_ns(p, dev),
+                            library_ns=_probe.library_ns(p, dev))
+    torch.cuda.synchronize()
+    srow = {r["key"]: r for r in srows if r["size"] == "spike"}
+    for f in spikes.FILES:
+        keys = [k for k in srow if srow[k]["file"] == f]
+        phase("spikes", file=f, launches=s_launches[f], max_abs_err=max(
+            sdetail[k]["err"] for k in keys), sizes_compared=sum(
+            sdetail[k]["sizes"] for k in keys), probes=",".join(
+            f"{srow[k]['name']}:a={srow[k]['a_ns']:.1f},"
+            f"b={srow[k]['b_ns']:.1f},regs={srow[k]['regs']},"
+            f"spill={srow[k]['spill_stores']}" for k in keys))
+    k2_ms, k3_ms = m1["k2_ms"], m1["k3_ms"]
+    k_steps = {
+        "K1": {"ns_per_decoded_byte": k1_ms * 1e6 / k1_longest["bytes"],
+               "ns_per_coded_bit": k1_ms * 1e6 / k1_longest["coded_bits"],
+               "longest": k1_longest},
+        "K2": {"ns_per_position": k2_ms * 1e6 / m1["longest"]["positions"],
+               "ns_per_lz_token": k2_ms * 1e6 / m1["longest"]["lz_tokens"],
+               "longest": {k: m1["longest"][k]
+                           for k in ("positions", "lz_tokens", "tokens")}},
+        "K3": {"ns_per_tape_entry": k3_ms * 1e6
+               / m1["longest"]["tape_entries"],
+               "longest": {"tape_entries": m1["longest"]["tape_entries"]}}}
+    phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
+                        for u, v in d.items() if u != "longest"})
+    phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
+          main_path_s=f"{t_main:.1f}", seconds=f"{time.time() - t0:.1f}")
+
     enc_on = f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text"
     print(json.dumps({"kernels": [
         row("K1", "K1 decode", "csc_tpu_torch/csrc/decode_k1.cu",
@@ -669,9 +734,48 @@ def main(procs):
         row("K3", "K3 phase-B coder", "csc_tpu_torch/csrc/encode_k3.cu",
             "csc_tpu/ops/pallas_encode.py:107", m1["k3_ms"], enc_on,
             m1["k3_bound"], "encode_headline m1"),
-    ]}))
+    ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def spike_row(f, srows, detail, launches):
+    """The kernels-line row of one spike file: one step of each of its
+    probes, summed (ms in layout a, b_ms in layout b), beside the sums of
+    their bounds, plain versions (on the card) and library calls."""
+    rows = [r for r in srows if r["file"] == f and r["size"] == "spike"]
+    probes = [spikes.PROBES[r["key"]] for r in rows]
+    tb = sum(p.cost(p.size)[0] for p in probes) / _probe.HBM_BYTES_PER_S
+    to = sum(p.cost(p.size)[1] for p in probes) / _probe.OPS_PER_S
+    libs = [detail[r["key"]]["library_ns"] for r in rows
+            if detail[r["key"]]["library_ns"] is not None]
+    lines = sorted({int(x) for p in probes
+                    for x in re.findall(r"pallas_call :(\d+)", p.site)})
+    return {"name": f"{spikes.ROW[f]} spike_{f} probes", "route": "cuda",
+            "source": f"csc_tpu_torch/csrc/spike_{f}.cu",
+            "replaces": f"tools/spike_{f}.py:"
+                        + ",".join(str(x) for x in lines),
+            "launches": launches,
+            "max_abs_err": max(detail[r["key"]]["err"] for r in rows),
+            "ms": sum(r["a_ns"] for r in rows) / 1e6,
+            "plain_ms": sum(detail[r["key"]]["plain_ns"] for r in rows) / 1e6,
+            "bound_ms": sum(r["bound_ns"] for r in rows) / 1e6,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": sum(libs) / 1e6 if libs else None,
+            "ms_on": f"one step (or call) of each of its {len(rows)} probes "
+                     f"at the spike's shapes, layout a (one stream per "
+                     f"block); b_ms the same in layout b (128 streams a "
+                     f"block); plain_ms and library_ms on the card",
+            "b_ms": sum(r["b_ns"] for r in rows) / 1e6,
+            "library_on": [r["name"] for r in rows
+                           if detail[r["key"]]["library_ns"] is not None],
+            "probes": {r["name"]: {
+                "a_ns": round(r["a_ns"], 3), "b_ns": round(r["b_ns"], 3),
+                "bound_ns": round(r["bound_ns"], 6),
+                "plain_ns": round(detail[r["key"]]["plain_ns"], 1),
+                "library_ns": detail[r["key"]]["library_ns"],
+                "regs": r["regs"], "spill": r["spill_stores"]}
+                for r in rows}}
 
 
 def layer_ms(props, blobs, sizes, dev):

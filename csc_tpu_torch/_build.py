@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # kernel name -> sources (the first is the .cu that nvcc compiles)
 KERNELS = {
@@ -28,6 +28,11 @@ KERNELS = {
     "csc_k2": ["encode_k2.cu", "encode_k2.cuh"],
     "csc_k3": ["encode_k3.cu", "encode_k3.cuh"],
 }
+# the spike probes (csc_tpu_torch/spikes): one library per spike file
+SPIKE_FILES = ("carry", "dma", "gather", "marginal", "mxu_stage", "pallas",
+               "pallas2", "pallas3", "regops", "roofline")
+KERNELS.update({f"spike_{f}": [f"spike_{f}.cu", "spike_common.cuh"]
+                for f in SPIKE_FILES})
 
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _ARGTYPES = {
@@ -40,6 +45,9 @@ _ARGTYPES = {
                                  _p, _p, _i32, _p, _i32, _i64, _p, _p, _i32,
                                  _p]),
 }
+_ARGTYPES.update({f"spike_{f}": (f"spike_{f}_launch",
+                                 [_i32, _i32, _i32] + [_p] * 9 + [_i64] * 6
+                                 + [_p]) for f in SPIKE_FILES})
 
 _lock = threading.Lock()
 _libs = {}
@@ -80,7 +88,20 @@ def _finish(job, so):
     if proc.returncode != 0:
         raise RuntimeError(f"build failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{err}")
+    with open(so + ".log", "w") as f:   # the compiler's report (ptxas -v)
+        f.write(err)
     os.replace(tmp, so)
+
+
+def build_log(name):
+    """What the compiler said when it built the CUDA kernel `name` (with
+    ptxas -v: each kernel's registers, shared memory and spills)."""
+    path = _target(KERNELS[name], name, NVCC_FLAGS) + ".log"
+    if not os.path.exists(path):
+        raise RuntimeError(f"no build report of {name} ({path}): build it "
+                           f"with build_kernels() first")
+    with open(path) as f:
+        return f.read()
 
 
 def build(sources, name, compiler=None, flags=NVCC_FLAGS):
@@ -110,8 +131,8 @@ def build_kernels(names=tuple(KERNELS)):
 
 
 def kernel_library(name):
-    """The ctypes library of one kernel ("csc_k1", "csc_k2", "csc_k3"),
-    built on first use."""
+    """The ctypes library of one kernel ("csc_k1", "csc_k2", "csc_k3",
+    "spike_<file>"), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -120,6 +141,10 @@ def kernel_library(name):
             fn = getattr(lib, fn_name)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
+            if name.startswith("spike_"):
+                smem = getattr(lib, f"{name}_smem")
+                smem.restype = ctypes.c_int64
+                smem.argtypes = [_i32, _i32, _i32] + [_i64] * 6
             _libs[name] = lib
         return lib
 

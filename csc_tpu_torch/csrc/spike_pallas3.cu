@@ -1,0 +1,12 @@
+// S8 on Hopper: the probes of tools/spike_pallas3.py (p1-p8).
+//
+// Replaces the pl.pallas_call sites of tools/spike_pallas3.py; each probe's step code and
+// what it replaces is in spike_common.cuh, its plain version and its
+// inputs in csc_tpu_torch/spikes/pallas3.py.  One spike_kernel instance per
+// probe, each launched in layout a (one stream per block) or b (128
+// streams per block).
+#include <cuda_runtime.h>
+
+#include "spike_common.cuh"
+
+SPK_LAUNCH(pallas3)

@@ -150,3 +150,16 @@ def test_k3_overflow_matches_plain_and_encode_raises(dev, batch,
     monkeypatch.setattr(pipeline, "code_k3", small)
     with pytest.raises(EncodeError, match="overflow"):
         pipeline.encode_batch([sel[0][1]], [sel[0][2]], device=dev)
+
+
+def test_spike_probes_equal_their_plain_versions(dev):
+    """Every spike probe (csc_tpu_torch/spikes), launched once in each
+    layout on the spike's own inputs at every size the runner times,
+    equals its plain version run on the card: max abs difference 0 over
+    every output and updated input."""
+    from csc_tpu_torch import spikes
+    from csc_tpu_torch.spikes import _probe
+    errs = {(k, label): e for k, p in spikes.PROBES.items()
+            for label, e in _probe.compare(p, dev, steps=3).items()}
+    torch.cuda.synchronize()
+    assert {k: e for k, e in errs.items() if e != 0} == {}

@@ -159,3 +159,21 @@ def test_native_filters_and_analyzer_equal(inputs):
 def test_decode_error_is_the_ports_own():
     assert pipeline.DecodeError.__module__.startswith("csc_tpu_torch")
     assert pipeline.DecodeError.code == j_constants.DECODE_ERROR
+
+
+_SPIKES = r"""
+import sys
+import csc_tpu_torch.spikes, csc_tpu_torch.spikes.__main__
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "csc_tpu", "tools")
+             or m.startswith("spike_")))
+"""
+
+
+def test_spikes_load_no_jax_csc_tpu_or_tools():
+    """The spike probes import no jax, nothing of csc_tpu and nothing of
+    tools/ (the spike files they answer)."""
+    r = subprocess.run([sys.executable, "-c", _SPIKES], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
