@@ -7,7 +7,9 @@ Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
   2. build           K1, K2, K3 and the ten spike libraries (csrc/*.cu)
                      with nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K3
+                     together, with ptxas's reports of K1-K3 and K1's /
+                     K2's registers, stack frame, LDL / STL counts (SASS)
+                     and K1's blocks per SM
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -390,6 +392,15 @@ def main(procs):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     phase("ptxas", kernel=name, line=line.strip())
+    # K1's and K2's registers, stack frame and local-memory traffic (ptxas
+    # -v and cuobjdump -sass; _build.resources raises if either cannot be
+    # read), and K1's blocks per SM (the design's two)
+    res = {n: _build.resources(n) for n in ("csc_k1", "csc_k2")}
+    res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
+    for name, r in res.items():
+        phase("resources", kernel=name, **r)
+    check(res["csc_k1"]["blocks_per_sm"] == 2,
+          f"K1 holds {res['csc_k1']['blocks_per_sm']} blocks per SM, not 2")
     sdir = os.path.join(_build.BUILD_DIR, "smoke")
     os.makedirs(sdir, exist_ok=True)
 
@@ -674,7 +685,8 @@ def main(procs):
                 "plain_card_on": "the parity batch" if kernel == "K1"
                 else "the m1 + m2 parity groups",
                 "launches_by_path": launches[kernel],
-                "ns_per_step": k_steps[kernel]}
+                "ns_per_step": k_steps[kernel],
+                "resources": res.get(f"csc_{kernel.lower()}")}
 
     # ----------------------------------------------------------- 12 spikes
     t0 = time.time()
@@ -724,11 +736,17 @@ def main(procs):
 
     enc_on = f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text"
     print(json.dumps({"kernels": [
-        row("K1", "K1 decode", "csc_tpu_torch/csrc/decode_k1.cu",
+        row("K1", "K1 decode (two streams an SM, coder state "
+            "and input words in registers, children's probabilities "
+            "prefetched, copies through a shared ring)",
+            "csc_tpu_torch/csrc/decode_k1.cu",
             "csc_tpu/ops/pallas_decode.py:272", k1_ms,
             f"{HEAD_STREAMS} x {HEAD_BYTES // KB} KB m1 text", k1_bound,
             "headline"),
-        row("K2", "K2 lazy parse", "csc_tpu_torch/csrc/encode_k2.cu",
+        row("K2", "K2 lazy parse (one warp a stream, both lazy "
+            "probes' candidate and rep lanes in one round trip, 32-byte "
+            "warp extensions, serial fold on shuffled values)",
+            "csc_tpu_torch/csrc/encode_k2.cu",
             "csc_tpu/ops/pallas_parse.py:112", m1["k2_ms"], enc_on,
             m1["k2_bound"], "encode_headline m1"),
         row("K3", "K3 phase-B coder", "csc_tpu_torch/csrc/encode_k3.cu",

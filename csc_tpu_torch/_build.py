@@ -12,6 +12,7 @@ g++.  A failed build raises: nothing falls back to another path.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -63,20 +64,20 @@ def _nvcc():
     return path
 
 
-def _target(sources, name, flags):
+def _target(sources, name, flags, csrc=CSRC):
     h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
-        with open(os.path.join(CSRC, src), "rb") as f:
+        with open(os.path.join(csrc, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def _start(compiler, flags, sources, so):
-    """Start one compile of csrc/<sources[0]> into `so`; returns
+def _start(compiler, flags, sources, so, csrc=CSRC):
+    """Start one compile of <csrc>/<sources[0]> into `so`; returns
     (process, tmp path, command)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [compiler] + flags + ["-o", tmp, os.path.join(CSRC, sources[0])]
+    cmd = [compiler] + flags + ["-o", tmp, os.path.join(csrc, sources[0])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, tmp, cmd
@@ -93,15 +94,48 @@ def _finish(job, so):
     os.replace(tmp, so)
 
 
-def build_log(name):
+def build_log(name, csrc=CSRC, flags=NVCC_FLAGS):
     """What the compiler said when it built the CUDA kernel `name` (with
     ptxas -v: each kernel's registers, shared memory and spills)."""
-    path = _target(KERNELS[name], name, NVCC_FLAGS) + ".log"
+    path = _target(KERNELS[name], name, flags, csrc) + ".log"
     if not os.path.exists(path):
         raise RuntimeError(f"no build report of {name} ({path}): build it "
                            f"with build_kernels() first")
     with open(path) as f:
         return f.read()
+
+
+def sass(name, csrc=CSRC, flags=NVCC_FLAGS):
+    """The SASS of the built CUDA kernel `name`, as `cuobjdump -sass`
+    (beside nvcc) prints it; raises if it cannot be read."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    so = _target(KERNELS[name], name, flags, csrc)
+    res = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True)
+    if res.returncode != 0 or "Function" not in res.stdout:
+        raise RuntimeError(f"cuobjdump -sass {so} failed "
+                           f"({res.returncode}): {res.stderr[-2000:]}")
+    return res.stdout
+
+
+def resources(name, csrc=CSRC, flags=NVCC_FLAGS):
+    """What the build of the CUDA kernel `name` says of its first
+    kernel: registers, stack frame and spill bytes (ptxas -v), and the
+    count of local-memory loads and stores (LDL / STL) in its SASS."""
+    log = build_log(name, csrc, flags)
+    regs = re.search(r"Used (\d+) registers", log)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", log)
+    if regs is None or frame is None:
+        raise RuntimeError(f"the build report of {name} names no register "
+                           f"count or stack frame")
+    code = sass(name, csrc, flags)
+    return {"registers": int(regs.group(1)),
+            "stack_frame": int(frame.group(1)),
+            "spill_stores": int(frame.group(2)),
+            "spill_loads": int(frame.group(3)),
+            "ldl": len(re.findall(r"\bLDL\b", code)),
+            "stl": len(re.findall(r"\bSTL\b", code))}
 
 
 def build(sources, name, compiler=None, flags=NVCC_FLAGS):
@@ -113,11 +147,12 @@ def build(sources, name, compiler=None, flags=NVCC_FLAGS):
     return so
 
 
-def build_kernels(names=tuple(KERNELS)):
+def build_kernels(names=tuple(KERNELS), csrc=CSRC, flags=NVCC_FLAGS):
     """Build the named CUDA kernels that are not built yet, one nvcc per
-    kernel, all started together.  Returns {name: .so path}."""
-    paths = {n: _target(KERNELS[n], n, NVCC_FLAGS) for n in names}
-    jobs = {n: _start(_nvcc(), NVCC_FLAGS, KERNELS[n], so)
+    kernel, all started together; `csrc`, `flags`: another checkout's
+    sources, other nvcc flags.  Returns {name: .so path}."""
+    paths = {n: _target(KERNELS[n], n, flags, csrc) for n in names}
+    jobs = {n: _start(_nvcc(), flags, KERNELS[n], so, csrc)
             for n, so in paths.items() if not os.path.exists(so)}
     errors = []
     for n, job in jobs.items():
@@ -130,17 +165,25 @@ def build_kernels(names=tuple(KERNELS)):
     return paths
 
 
+def load(name, csrc=CSRC, flags=NVCC_FLAGS):
+    """The ctypes library of kernel `name` built from the sources in
+    `csrc` with `flags` (by build_kernels)."""
+    lib = ctypes.CDLL(_target(KERNELS[name], name, flags, csrc))
+    fn_name, argtypes = _ARGTYPES[name]
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return lib
+
+
 def kernel_library(name):
     """The ctypes library of one kernel ("csc_k1", "csc_k2", "csc_k3",
     "spike_<file>"), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(KERNELS[name], name))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
+            build(KERNELS[name], name)
+            lib = load(name)
             if name.startswith("spike_"):
                 smem = getattr(lib, f"{name}_smem")
                 smem.restype = ctypes.c_int64

@@ -16,10 +16,11 @@ extern "C" int csc_k1_host(
     void* wnd, int64_t wnd_stride, int64_t wnd_size, void* pdelta,
     void* blk_log, int32_t max_blocks, int64_t max_steps, void* out,
     int32_t batch) {
-    std::vector<uint16_t> probs(k1::NPROB_MAIN);
+    // the block's shared memory, 4-byte aligned as on the card
+    std::vector<uint32_t> smem(k1::SMEM_BYTES / 4);
     int32_t* o = (int32_t*)out;
     for (int64_t b = 0; b < batch; ++b) {
-        probs.assign(k1::NPROB_MAIN, 2048);
+        for (int i = 0; i < k1::INIT_WORDS; ++i) smem[i] = k1::init_word(i);
         uint16_t* pd = (uint16_t*)pdelta + b * k1::NPROB_DELTA;
         for (int i = 0; i < k1::NPROB_DELTA; ++i) pd[i] = 2048;
         k1::Stream s;
@@ -33,7 +34,7 @@ extern "C" int csc_k1_host(
         s.nb_bc = nb_bc;
         s.wnd = (uint8_t*)wnd + b * wnd_stride;
         s.wnd_size = wnd_size;
-        s.probs = probs.data();
+        s.smem = (uint8_t*)smem.data();
         s.pdelta = pd;
         s.blk_log = (int32_t*)blk_log + b * 2 * (int64_t)max_blocks;
         s.max_blocks = max_blocks;

@@ -5,7 +5,10 @@ csc_tpu/ops/pallas_decode.py `_run` / `_run_fused`.
 launches the kernel on the current CUDA stream.  For tensors on the CPU
 it runs the plain PyTorch version (ops/decode_scan.py) instead; on any
 other device it raises.  LAUNCHES counts kernel launches.
+`blocks_per_sm` reads how many K1 blocks (streams) one SM holds.
 """
+import ctypes
+
 import torch
 
 from ..constants import COPY_CHUNK, MAX_BLOCKS, NPROB, P_DELTA
@@ -61,3 +64,19 @@ def decode_k1(rc, bc, rc_ends, bc_ends, wnd_size, max_steps,
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc_err}")
     LAUNCHES += 1
     return wnd, blk_log, out[0], out[1], out[2], out[3]
+
+
+def blocks_per_sm(lib=None):
+    """K1's resident blocks per SM on the current card, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them at K1's
+    launch shape (the design's claim: 2); `lib`: another build of K1."""
+    from .. import _build
+    lib = lib or _build.kernel_library("csc_k1")
+    fn = lib.csc_k1_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    n = ctypes.c_int(0)
+    rc = fn(ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"K1 occupancy query failed: cudaError_t {rc}")
+    return n.value

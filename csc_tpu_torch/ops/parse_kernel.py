@@ -2,15 +2,18 @@
 counterpart of csc_tpu/ops/pallas_parse.py `parse_batch_pallas` / `_run`.
 
 `parse_k2` checks its tensors, allocates the tape and the counters, and
-launches the kernel on the current CUDA stream.  For tensors on the CPU
-it runs the plain PyTorch version (ops/parse_scan.py) instead; on any
-other device it raises.  LAUNCHES counts kernel launches.
+launches the kernel on the current CUDA stream (one warp a stream; at
+most MAX_CAND candidate rows, and every preset has 2 + hash_width <= 10).
+For tensors on the CPU it runs the plain PyTorch version
+(ops/parse_scan.py) instead; on any other device it raises.  LAUNCHES
+counts kernel launches.
 """
 import torch
 
 from . import parse_scan
 
 LAUNCHES = 0
+MAX_CAND = 12       # encode_k2.cuh: 16 lanes a probe, 4 of them reps
 
 
 def parse_k2(data, candp, run_ends, run_skip, sizes, dict_sizes, good_len,
@@ -41,6 +44,10 @@ def parse_k2(data, candp, run_ends, run_skip, sizes, dict_sizes, good_len,
     if dev.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors (or the plain version "
                          f"on CPU ones), not on {dev}")
+
+    if candp.shape[1] > MAX_CAND:
+        raise ValueError(f"K2 takes at most {MAX_CAND} candidate rows (2 + "
+                         f"hash_width), got {candp.shape[1]}")
 
     from .. import _build
     lib = _build.kernel_library("csc_k2")

@@ -2,8 +2,11 @@
 (csrc/decode_k1.cu) and decode_batch through it, K2 (encode_k2.cu) on the
 parity batch and on a stream whose dictionary is smaller than it, K3
 (encode_k3.cu) with the output capacity cut until ERR_OVERFLOW fires,
-and encode_batch raising on that overflow.  Needs a card; without one
-every test here skips.  On a machine with a card (it needs no jax):
+and encode_batch raising on that overflow; K1 and K2 on the edge
+streams of their designs (tests/torch_edge_cases.py), K1's two blocks
+per SM, and a 1 MB stream round-tripped through K2, K3 and K1.  Needs a
+card; without one every test here skips.  On a machine with a card (it
+needs no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
@@ -18,6 +21,9 @@ from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
                                decode_scan, encode_host, parse_kernel,
                                parse_pre, parse_scan, pipeline, stitch)
 from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
+from csc_tpu_torch.props import props_init
+
+import torch_edge_cases as edges
 
 pytestmark = pytest.mark.cuda
 N = 1536
@@ -163,3 +169,106 @@ def test_spike_probes_equal_their_plain_versions(dev):
             for label, e in _probe.compare(p, dev, steps=3).items()}
     torch.cuda.synchronize()
     assert {k: e for k, e in errs.items() if e != 0} == {}
+
+
+# ------------------------------------------- K1 / K2 designs' edge streams
+@pytest.fixture(scope="module")
+def k1_edge():
+    cases = edges.k1_cases()
+    blobs = [encode_stream(p, d) for _, p, d in cases]
+    arrays = pipeline._demux([p for _, p, _ in cases], blobs,
+                             [0] * len(blobs))
+    return cases, arrays, pipeline._bucket(max(len(d) for _, _, d in cases))
+
+
+def _k1_against_plain(dev, arrays, wnd_size, max_steps):
+    got = decode_kernel.decode_k1(
+        *(torch.from_numpy(a).to(dev) for a in arrays), wnd_size, max_steps)
+    torch.cuda.synchronize()
+    want = decode_scan.decode_plain(
+        *(torch.from_numpy(a) for a in arrays), wnd_size, max_steps)
+    for name, g, w in zip(FIELDS, got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    return [g.cpu().numpy() for g in got]
+
+
+@pytest.mark.parametrize("cut", [None, "rc", "bc"])
+def test_k1_edge_streams_match_plain(dev, k1_edge, cut):
+    """Distances under 16, of 16, at the ring's reach and past it, a DLT
+    block longer than the ring, chunk resets; then the same with the rc
+    or bc array cut inside a buffered word."""
+    cases, (rc, bc, rce, bce), wnd_size = k1_edge
+    ends = {"rc": rce, "bc": bce}.get(cut)
+    if cut:
+        used = np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1)
+        n = int(np.sort(used)[len(used) // 2]) - 3 | 1
+        rc = edges.cut(rc, n) if cut == "rc" else rc
+        bc = edges.cut(bc, n) if cut == "bc" else bc
+    wnd, _, pos, done, err, _ = _k1_against_plain(
+        dev, (rc, bc, rce, bce), wnd_size, 10 ** 7)
+    if cut:
+        assert err[used > n].all()
+    else:
+        for i, (name, _, data) in enumerate(cases):
+            assert done[i] == 1 and err[i] == 0, name
+            assert wnd[i, :pos[i]].tobytes() == data, name
+
+
+@pytest.mark.parametrize("where", ["copy", "literal"])
+def test_k1_step_cap_inside(dev, k1_edge, where):
+    _, arrays, wnd_size = k1_edge
+    cap = edges.caps_inside([a[:1] for a in arrays], wnd_size, 0,
+                            4000)[where]
+    for steps in (cap, cap + 1):
+        _k1_against_plain(dev, arrays, wnd_size, steps)
+
+
+def test_k1_two_blocks_per_sm(dev):
+    assert decode_kernel.blocks_per_sm() == 2
+
+
+def _k2_edge_args(level, dev, tcap=None):
+    cases = edges.k2_cases(level)
+    prs = [c[1] for c in cases]
+    plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
+    ins = pipeline.group_inputs(prs, plans, list(range(len(cases))), dev)
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        ins[0], ins[1], prs[0].hash_bits, prs[0].hash_width))
+    tcap = tcap or parse_scan.tape_capacity(ins[0].shape[1], ins[1].shape[1])
+    return (ins[0], candp, *ins[1:], prs[0].good_len, tcap)
+
+
+@pytest.mark.parametrize("level,tcap", [(1, None), (2, None), (1, 7)])
+def test_k2_edge_streams_match_plain(dev, level, tcap):
+    """Lane-stride edges, limits that are no multiple of 32, the HT2
+    quirk, good_len mid-fold, C = 3 and 10; and a tape too short."""
+    args = _k2_edge_args(level, dev, tcap)
+    got = parse_kernel.parse_k2(*args)
+    torch.cuda.synchronize()
+    want = parse_scan.parse_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                    for a in args))
+    for name, g, w in zip(("tape", "tok_cnt", "done", "err"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    assert bool(got[3].any()) == (tcap is not None)
+
+
+def test_one_mb_round_trips_through_k2_k3_k1(dev):
+    """A 1 MB stream is too long for the lockstep plain versions: it must
+    come back byte-exact through K2 -> K3 (encode) and K1 (decode), with
+    done = 1 and err = 0."""
+    data = corpus.torch_python_text(2 * 1024 * 1024)[1024 * 1024:]
+    p = props_init(len(data), 1)
+    p.DLTFilter = p.EXEFilter = p.TXTFilter = 0    # the window is the data
+    launches = (parse_kernel.LAUNCHES, bits_kernel.LAUNCHES)
+    blob = pipeline.encode_batch([p], [data], device=dev)[0]
+    assert (parse_kernel.LAUNCHES, bits_kernel.LAUNCHES) == tuple(
+        n + 1 for n in launches)
+    rc, bc, rce, bce = pipeline._demux([p], [blob], [0])
+    wnd, _, pos, done, err, _ = decode_kernel.decode_k1(
+        *(torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)),
+        pipeline._bucket(len(data)), 1 << 62)
+    assert int(done[0]) == 1 and int(err[0]) == 0
+    assert wnd[0, :int(pos[0])].cpu().numpy().tobytes() == data
+    assert pipeline.decode_batch([p], [blob], device=dev) == [data]

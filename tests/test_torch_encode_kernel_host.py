@@ -4,7 +4,13 @@ encode_k2_host.cpp and encode_k3_host.cpp, against the plain PyTorch
 versions: the K2 tape, tok_cnt, done and err at m1 and m2, and the K3
 rc / bc bytes, crossing maps (a 512-byte block size fills them), chunk
 log, counts, done and err, also with the output capacity cut until
-ERR_OVERFLOW fires.  This is the CPU check of the CUDA kernels' logic."""
+ERR_OVERFLOW fires.  This is the CPU check of the CUDA kernels' logic.
+The K2 edge streams drive each mechanism of its one-warp design: matches
+that end just before, at and after 32-byte lane strides (from the rep
+heads and from EXT_CAP), extensions cut by a limit that is no multiple of
+32, the last position's clamped candidate read, the HT2 quirk, good_len
+reached in the middle of the fold, reps that reach before the data start,
+C = 3 and C = 10, and a tape too short for the parse."""
 import ctypes
 import os
 import shutil
@@ -17,6 +23,8 @@ import torch
 from csc_tpu_torch import constants, corpus
 from csc_tpu_torch.ops import (bits_scan, encode_host, parse_pre, parse_scan,
                                pipeline, stitch)
+
+import torch_edge_cases as edges
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csc_tpu_torch", "csrc")
@@ -141,3 +149,57 @@ def test_k3_matches_plain(host):
     assert over.any() and not over.all()
     np.testing.assert_array_equal(
         over, (got[5][0] >= 256) | (got[5][1] >= 128))
+
+
+def _edge_inputs(level):
+    cases = edges.k2_cases(level)
+    prs = [c[1] for c in cases]
+    plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
+    data, run_ends, run_skip, sizes, dicts = pipeline.group_inputs(
+        prs, plans, list(range(len(cases))), torch.device("cpu"))
+    p0 = prs[0]
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        data, run_ends, p0.hash_bits, p0.hash_width))
+    return p0, (data, candp, run_ends, run_skip, sizes, dicts)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_k2_edge_streams(host, level):
+    p0, inputs = _edge_inputs(level)
+    assert inputs[1].shape[1] == (3 if level == 1 else 10)
+    tcap = parse_scan.tape_capacity(inputs[0].shape[1], inputs[2].shape[1])
+    got = _k2_host(host[0], inputs, p0.good_len, tcap)
+    want = parse_scan.parse_plain(*inputs, p0.good_len, tcap)
+    _assert_same(("tape", "tok_cnt", "done", "err"), got, want)
+    assert got[2].all() and not got[3].any()
+    lens = (got[0][..., 0] >> 3) + 2
+    kinds = got[0][..., 0] & 7
+    lz = (kinds == constants.K_MATCH) | (kinds == constants.K_REP)
+    for n in (35, 36, 37, 67, 68, 69, 100):       # stride edges reached
+        assert (lz & (lens == n)).any(), n
+    assert (lz & (lens >= p0.good_len)).any()
+
+
+@pytest.mark.parametrize("tcap", [1, 7, 40])
+def test_k2_tape_overflow(host, tcap):
+    p0, inputs = _edge_inputs(1)
+    got = _k2_host(host[0], inputs, p0.good_len, tcap)
+    want = parse_scan.parse_plain(*inputs, p0.good_len, tcap)
+    _assert_same(("tape", "tok_cnt", "done", "err"), got, want)
+    assert (got[3] == constants.ERR_OVERFLOW).all()
+    assert (got[1] > tcap).all()
+
+
+def test_k2_other_row_count(host):
+    """C = 4 (hash_width 2) takes K2's fold over all MAX_CAND rows, whose
+    rows past C are inert."""
+    p0, inputs = _edge_inputs(1)
+    data, _, run_ends = inputs[:3]
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        data, run_ends, p0.hash_bits, 2))
+    assert candp.shape[1] == 4
+    inputs = (data, candp, *inputs[2:])
+    tcap = parse_scan.tape_capacity(data.shape[1], run_ends.shape[1])
+    got = _k2_host(host[0], inputs, p0.good_len, tcap)
+    want = parse_scan.parse_plain(*inputs, p0.good_len, tcap)
+    _assert_same(("tape", "tok_cnt", "done", "err"), got, want)

@@ -3,7 +3,12 @@ g++ through the test-only harness decode_k1_host.cpp, against the plain
 PyTorch version: the window, block log, wnd_pos, done and err of every
 stream must be equal, on the parity batch, under a window too small for
 one stream, and under a step cap.  This is the CPU check of the CUDA
-kernel's logic."""
+kernel's logic.  The edge streams drive each mechanism of the kernel's
+design: copies at distances under 16, of 16, at the shared ring's reach
+(8192) and beyond it, copies across the ring's wrap, coder words refilled
+across block ends and chunk resets, a DLT block longer than the ring,
+coder arrays cut inside a buffered word, and step caps that land inside
+a copy and inside a literal."""
 import ctypes
 import os
 import shutil
@@ -16,6 +21,8 @@ import torch
 from csc_tpu.golden.encoder import encode_stream
 from csc_tpu_torch import corpus
 from csc_tpu_torch.ops import decode_scan, pipeline
+
+import torch_edge_cases as edges
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csc_tpu_torch", "csrc")
@@ -114,3 +121,67 @@ def test_small_block_log(host_lib, batch):
     host = _host(host_lib, *one, 8192, 10 ** 7, max_blocks=2)
     assert host[5][0] > 2             # 3 typed blocks + EOF in a log of 2
     _assert_same(host, _plain(*one, 8192, 10 ** 7, 2))
+
+
+@pytest.fixture(scope="module")
+def edge():
+    cases = edges.k1_cases()
+    blobs = [encode_stream(p, d) for _, p, d in cases]
+    rc, bc, rce, bce = pipeline._demux([p for _, p, _ in cases], blobs,
+                                       [0] * len(blobs))
+    wnd_size = pipeline._bucket(max(len(d) for _, _, d in cases))
+    return cases, (rc, bc, rce, bce), wnd_size
+
+
+def test_edge_streams(host_lib, edge):
+    cases, arrays, wnd_size = edge
+    steps = 10 ** 7
+    host = _host(host_lib, *arrays, wnd_size, steps)
+    _assert_same(host, _plain(*arrays, wnd_size, steps))
+    wnd, log, pos, done, err, cnt = host
+    for i, (name, _, data) in enumerate(cases):
+        assert done[i] == 1 and err[i] == 0, name
+        assert wnd[i, :pos[i]].tobytes() == data, name
+    names = [c[0] for c in cases]
+    i = names.index("dlt_then_lz")
+    types = set(log[i, :cnt[i], 0].tolist())
+    assert types & {0x10, 0x11, 0x12, 0x13, 0x14} and 0x01 in types
+    assert cnt[names.index("multichunk")] > 5     # chunk resets
+
+
+@pytest.mark.parametrize("which", ["rc", "bc"])
+def test_stream_cut_inside_a_word(host_lib, edge, which):
+    cases, (rc, bc, rce, bce), wnd_size = edge
+    ends = rce if which == "rc" else bce
+    used = np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1)
+    # an odd length that cuts every stream with more coded bytes
+    n = int(np.sort(used)[len(used) // 2]) - 3 | 1
+    if which == "rc":
+        rc = edges.cut(rc, n)
+    else:
+        bc = edges.cut(bc, n)
+    host = _host(host_lib, rc, bc, rce, bce, wnd_size, 10 ** 7)
+    _assert_same(host, _plain(rc, bc, rce, bce, wnd_size, 10 ** 7))
+    err = host[4]
+    assert err[used > n].all() and not err[used + 8 < n].any()
+
+
+@pytest.mark.parametrize("where", ["copy", "literal"])
+def test_step_cap_inside(host_lib, edge, where):
+    cases, arrays, wnd_size = edge
+    one = [a[:1] for a in arrays]           # short_dist: runs, then text
+    cap = edges.caps_inside(one, wnd_size, 0, 4000)[where]
+    for steps in (cap, cap + 1):
+        host = _host(host_lib, *arrays, wnd_size, steps)
+        _assert_same(host, _plain(*arrays, wnd_size, steps))
+        assert not host[3].any()
+
+
+def test_step_cap_at_every_step(host_lib, edge):
+    """A step cap at each of the first 2500 micro-ops of the edge streams
+    (runs, far copies, a DLT block, text with matches and chunk resets)
+    stops the kernel's decoder where it stops the plain version: the
+    quick paths that skip per-bit checks count their micro-ops exactly."""
+    _, arrays, wnd_size = edge
+    for t, want in edges.plain_each_step(arrays, wnd_size, 2500):
+        _assert_same(_host(host_lib, *arrays, wnd_size, t), want)
