@@ -9,6 +9,7 @@ nvcc per kernel, all at once.  The host runtime (csrc/csc_host.cpp: the
 content filters and the block analyzer) is compiled the same way with
 g++.  A failed build raises: nothing falls back to another path.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -94,10 +95,10 @@ def _finish(job, so):
     os.replace(tmp, so)
 
 
-def build_log(name, csrc=CSRC, flags=NVCC_FLAGS):
+def build_log(name, csrc=CSRC):
     """What the compiler said when it built the CUDA kernel `name` (with
     ptxas -v: each kernel's registers, shared memory and spills)."""
-    path = _target(KERNELS[name], name, flags, csrc) + ".log"
+    path = _target(KERNELS[name], name, NVCC_FLAGS, csrc) + ".log"
     if not os.path.exists(path):
         raise RuntimeError(f"no build report of {name} ({path}): build it "
                            f"with build_kernels() first")
@@ -105,11 +106,11 @@ def build_log(name, csrc=CSRC, flags=NVCC_FLAGS):
         return f.read()
 
 
-def sass(name, csrc=CSRC, flags=NVCC_FLAGS):
+def sass(name, csrc=CSRC):
     """The SASS of the built CUDA kernel `name`, as `cuobjdump -sass`
     (beside nvcc) prints it; raises if it cannot be read."""
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    so = _target(KERNELS[name], name, flags, csrc)
+    so = _target(KERNELS[name], name, NVCC_FLAGS, csrc)
     res = subprocess.run([tool, "-sass", so], capture_output=True,
                          text=True)
     if res.returncode != 0 or "Function" not in res.stdout:
@@ -118,18 +119,18 @@ def sass(name, csrc=CSRC, flags=NVCC_FLAGS):
     return res.stdout
 
 
-def resources(name, csrc=CSRC, flags=NVCC_FLAGS):
+def resources(name, csrc=CSRC):
     """What the build of the CUDA kernel `name` says of its first
     kernel: registers, stack frame and spill bytes (ptxas -v), and the
     count of local-memory loads and stores (LDL / STL) in its SASS."""
-    log = build_log(name, csrc, flags)
+    log = build_log(name, csrc)
     regs = re.search(r"Used (\d+) registers", log)
     frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", log)
     if regs is None or frame is None:
         raise RuntimeError(f"the build report of {name} names no register "
                            f"count or stack frame")
-    code = sass(name, csrc, flags)
+    code = sass(name, csrc)
     return {"registers": int(regs.group(1)),
             "stack_frame": int(frame.group(1)),
             "spill_stores": int(frame.group(2)),
@@ -147,12 +148,12 @@ def build(sources, name, compiler=None, flags=NVCC_FLAGS):
     return so
 
 
-def build_kernels(names=tuple(KERNELS), csrc=CSRC, flags=NVCC_FLAGS):
+def build_kernels(names=tuple(KERNELS), csrc=CSRC):
     """Build the named CUDA kernels that are not built yet, one nvcc per
-    kernel, all started together; `csrc`, `flags`: another checkout's
-    sources, other nvcc flags.  Returns {name: .so path}."""
-    paths = {n: _target(KERNELS[n], n, flags, csrc) for n in names}
-    jobs = {n: _start(_nvcc(), flags, KERNELS[n], so, csrc)
+    kernel, all started together; `csrc`: another checkout's sources.
+    Returns {name: .so path}."""
+    paths = {n: _target(KERNELS[n], n, NVCC_FLAGS, csrc) for n in names}
+    jobs = {n: _start(_nvcc(), NVCC_FLAGS, KERNELS[n], so, csrc)
             for n, so in paths.items() if not os.path.exists(so)}
     errors = []
     for n, job in jobs.items():
@@ -165,10 +166,10 @@ def build_kernels(names=tuple(KERNELS), csrc=CSRC, flags=NVCC_FLAGS):
     return paths
 
 
-def load(name, csrc=CSRC, flags=NVCC_FLAGS):
+def load(name, csrc=CSRC):
     """The ctypes library of kernel `name` built from the sources in
-    `csrc` with `flags` (by build_kernels)."""
-    lib = ctypes.CDLL(_target(KERNELS[name], name, flags, csrc))
+    `csrc` (by build_kernels)."""
+    lib = ctypes.CDLL(_target(KERNELS[name], name, NVCC_FLAGS, csrc))
     fn_name, argtypes = _ARGTYPES[name]
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
@@ -190,6 +191,18 @@ def kernel_library(name):
                 smem.argtypes = [_i32, _i32, _i32] + [_i64] * 6
             _libs[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def swapped(name, lib):
+    """Within the block, the wrappers of kernel `name` launch `lib` (a
+    library from `load`, for example another checkout's build)."""
+    saved = kernel_library(name)
+    _libs[name] = lib
+    try:
+        yield
+    finally:
+        _libs[name] = saved
 
 
 def host_library():

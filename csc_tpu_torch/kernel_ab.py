@@ -1,23 +1,20 @@
 """Time K1 and K2 of this checkout against another checkout's, on one
 card, in turns, at the cells of chip_smoke.py.
 
-    python -m csc_tpu_torch.kernel_ab --other DIR [--variant NAME=FLAGS]
-                                      [--json FILE]
+    python -m csc_tpu_torch.kernel_ab --other DIR [--json FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*
 and encode_k2.* are built beside this checkout's and launched through
 this checkout's wrappers on the same inputs (the kernels' C interface is
-the same).  `--variant plit16=-DK1_PLIT16` also builds this checkout's K1
-with extra nvcc flags (comma-separated) and times it as a third build.
-Cells: K1 on the decode headline (128 x 16 KB m1 text) and on the
+the same).  Cells: K1 on the decode headline (128 x 16 KB m1 text) and on the
 extract group (256 x 1 MB m1 text, 4 slices x 64); K2 at m1 and at m2 on
 the encode headline (96 x 16 KB text, filters on) and on the encode task
 (4 x 1 MB m1 text).  The inputs come from this checkout's encode path on
 the card.  Each cell is timed in turns, forward then backward (other,
-this, variant, variant, this, other; CUDA events, the median of `reps`
-calls a turn, the best turn kept), and every build's outputs must equal
-this one's on every field.  Prints, with the card's name and power
+this, this, other; CUDA events, the median of `reps` calls a turn, the
+best turn kept), and the other build's outputs must equal this one's on
+every field.  Prints, with the card's name and power
 limit: a line a cell (ms of each build, ns per step of the longest
 stream), and each build's registers, stack frame, LDL / STL and K1's
 blocks per SM.  Needs a CUDA card.
@@ -61,30 +58,14 @@ def same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-class Swap:
-    """With `Swap(name, lib)`, the wrappers launch `lib`'s kernel (None:
-    this checkout's)."""
-
-    def __init__(self, name, lib):
-        self.name, self.lib = name, lib
-
-    def __enter__(self):
-        self.saved = _build.kernel_library(self.name)
-        if self.lib is not None:
-            _build._libs[self.name] = self.lib
-
-    def __exit__(self, *exc):
-        _build._libs[self.name] = self.saved
-
-
-def turns(name, builds, fn, reps):
-    """fn() timed with each build of kernel `name` ({label: lib, "this":
-    None}), in turns forward then backward; ({label: best ms}, this
-    build's output)."""
-    order = list(builds)
-    ms, outs = {k: [] for k in order}, {}
-    for who in order + order[::-1]:
-        with Swap(name, builds[who]):
+def turns(name, other, fn, reps):
+    """fn() timed with this checkout's kernel `name` and with `other` (a
+    library of it), in turns forward then backward; ({"other": best ms,
+    "this": best ms}, this build's output)."""
+    builds = {"other": other, "this": _build.kernel_library(name)}
+    ms, outs = {k: [] for k in builds}, {}
+    for who in ("other", "this", "this", "other"):
+        with _build.swapped(name, builds[who]):
             t, out = event_ms(fn, reps)
         ms[who].append(t)
         outs[who] = out
@@ -100,11 +81,11 @@ def coded_lengths(ends):
     return np.where(ends < 0x7FFFFFFF, ends, 0).max(axis=1)
 
 
-def k1_cell(props, blobs, sizes, dev, builds, reps):
+def k1_cell(props, blobs, sizes, dev, other, reps):
     rc, bc, rce, bce = pipeline._demux(props, blobs, [0] * len(blobs))
     args = [torch.from_numpy(a).to(dev) for a in (rc, bc, rce, bce)]
     wnd = pipeline._bucket(max(sizes))
-    ms, out = turns("csc_k1", builds, lambda: decode_kernel.decode_k1(
+    ms, out = turns("csc_k1", other, lambda: decode_kernel.decode_k1(
         *args, wnd, NO_STEP_CAP), reps)
     if not (bool(out[3].all()) and not bool(out[4].any())):
         raise RuntimeError("kernel_ab: K1 did not decode every stream")
@@ -126,8 +107,8 @@ def k2_args_of(props, datas, dev):
     return seen["k2_args"], outs
 
 
-def k2_cell(args, sizes, builds, reps):
-    ms, out = turns("csc_k2", builds, lambda: parse_kernel.parse_k2(*args),
+def k2_cell(args, sizes, other, reps):
+    ms, out = turns("csc_k2", other, lambda: parse_kernel.parse_k2(*args),
                     reps)
     tape, tok_cnt = out[0], out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
@@ -145,8 +126,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="LABEL=FLAGS: this K1 built with extra nvcc flags")
     ap.add_argument("--json", help="write the results here too")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -159,27 +138,15 @@ def main(argv=None):
     names = ("csc_k1", "csc_k2")
     other_csrc = os.path.join(os.path.abspath(a.other), "csc_tpu_torch",
                               "csrc")
-    variants = {}
-    for v in a.variant:
-        label, _, flags = v.partition("=")
-        variants[label] = _build.NVCC_FLAGS + flags.split(",")
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
-    for flags in variants.values():
-        _build.build_kernels(("csc_k1",), flags=flags)
-    k1 = {"other": _build.load("csc_k1", other_csrc), "this": None}
-    k1.update({label: _build.load("csc_k1", flags=flags)
-               for label, flags in variants.items()})
-    k2 = {"other": _build.load("csc_k2", other_csrc), "this": None}
+    k1 = _build.load("csc_k1", other_csrc)
+    k2 = _build.load("csc_k2", other_csrc)
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
     res["resources"]["this"]["csc_k1"]["blocks_per_sm"] = \
         decode_kernel.blocks_per_sm()
-    for label, flags in variants.items():
-        r = _build.resources("csc_k1", flags=flags)
-        r["blocks_per_sm"] = decode_kernel.blocks_per_sm(k1[label])
-        res["resources"][label] = {"csc_k1": r}
     for who, r in res["resources"].items():
         print(f"[resources] {who} " + json.dumps(r), flush=True)
 

@@ -66,12 +66,12 @@ def decode_k1(rc, bc, rc_ends, bc_ends, wnd_size, max_steps,
     return wnd, blk_log, out[0], out[1], out[2], out[3]
 
 
-def blocks_per_sm(lib=None):
+def blocks_per_sm():
     """K1's resident blocks per SM on the current card, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them at K1's
-    launch shape (the design's claim: 2); `lib`: another build of K1."""
+    launch shape (the design's claim: 2)."""
     from .. import _build
-    lib = lib or _build.kernel_library("csc_k1")
+    lib = _build.kernel_library("csc_k1")
     fn = lib.csc_k1_blocks_per_sm
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]

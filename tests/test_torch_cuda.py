@@ -4,19 +4,23 @@ parity batch and on a stream whose dictionary is smaller than it, K3
 (encode_k3.cu) with the output capacity cut until ERR_OVERFLOW fires,
 and encode_batch raising on that overflow; K1 and K2 on the edge
 streams of their designs (tests/torch_edge_cases.py), K1's two blocks
-per SM, and a 1 MB stream round-tripped through K2, K3 and K1.  Needs a
+per SM, a 1 MB stream round-tripped through K2, K3 and K1, and the
+A/B tool (csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a
 card; without one every test here skips.  On a machine with a card (it
 needs no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from csc_tpu.golden.encoder import encode_stream
-from csc_tpu_torch import constants, corpus
+from csc_tpu_torch import constants, corpus, kernel_ab
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
                                decode_scan, encode_host, parse_kernel,
                                parse_pre, parse_scan, pipeline, stitch)
@@ -272,3 +276,22 @@ def test_one_mb_round_trips_through_k2_k3_k1(dev):
     assert int(done[0]) == 1 and int(err[0]) == 0
     assert wnd[0, :int(pos[0])].cpu().numpy().tobytes() == data
     assert pipeline.decode_batch([p], [blob], device=dev) == [data]
+
+
+def test_kernel_ab_against_this_checkout(dev, tmp_path):
+    """The A/B tool, with this checkout as the other one: every cell is
+    timed for both builds (whose outputs it holds equal), and both
+    builds' resources are read."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "ab.json"
+    res = kernel_ab.main(["--other", root, "--json", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert sorted(res["cells"]) == sorted([
+        "K1 headline 128 x 16 KB", "K1 extract 256 x 1 MB",
+        "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB"])
+    for cell in res["cells"].values():
+        assert sorted(cell["ms"]) == ["other", "this"]
+        assert all(t > 0 for t in cell["ms"].values())
+    this, other = res["resources"]["this"], res["resources"]["other"]
+    assert this["csc_k1"].pop("blocks_per_sm") == 2
+    assert this == other

@@ -182,6 +182,10 @@ def test_k2_edge_streams(host, level):
 
 @pytest.mark.parametrize("tcap", [1, 7, 40])
 def test_k2_tape_overflow(host, tcap):
+    """A tape too short: tokens past its end rewrite its last entry and
+    err is ERR_OVERFLOW.  Held to the plain version only, since this is
+    the port's own contract: csc_tpu's fast parse has no err field (its
+    pipeline sizes the tape so that it cannot fill)."""
     p0, inputs = _edge_inputs(1)
     got = _k2_host(host[0], inputs, p0.good_len, tcap)
     want = parse_scan.parse_plain(*inputs, p0.good_len, tcap)

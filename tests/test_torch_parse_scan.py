@@ -15,10 +15,18 @@ from csc_tpu.ops import parse_pre as j_pre
 from csc_tpu_torch import constants, corpus
 from csc_tpu_torch.ops import encode_host, parse_pre, parse_scan, pipeline
 
+import torch_edge_cases as edges
+
+
 def _cases(level):
     # dict_lt_input's long repeats reach live extension past EXT_CAP,
-    # rep matches and good_len exits
-    return corpus.encode_cases(level, seed=41)
+    # rep matches and good_len exits; K2's edge streams add extensions
+    # that end around 32-byte strides under limits that are no multiple
+    # of 32, the HT2 quirk, good_len mid-fold and reps before the data
+    # start.  (A full tape is the port's own contract, held to the plain
+    # version in test_torch_encode_kernel_host.py: csc_tpu's fast parse
+    # has no err field, its pipeline sizes the tape so it cannot fill.)
+    return corpus.encode_cases(level, seed=41) + edges.k2_cases(level)
 
 
 def _np(st):
