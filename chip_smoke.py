@@ -7,9 +7,9 @@ Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
   2. build           K1, K2, K3 and the ten spike libraries (csrc/*.cu)
                      with nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K3 and K1's /
-                     K2's registers, stack frame, LDL / STL counts (SASS)
-                     and K1's blocks per SM
+                     together, with ptxas's reports of K1-K3 and K1's,
+                     K2's and K3's registers, stack frame, LDL / STL counts
+                     (SASS) and K1's blocks per SM
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -28,13 +28,15 @@ Phases, each printing its own line; the first failure raises:
  10. parity          K1 against its plain version (on the card) on the
                      parity batch, a corrupted stream among them
  11. plain           each kernel against its plain version on the first
-                     streams of its headline inputs (phases 4 and 5)
+                     streams of its headline inputs (phases 4 and 5), and K3
+                     on its edge tapes (tests/torch_edge_cases.py)
  12. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
                      layouts, at every size the runner times, against its
                      plain version on the card, with
-                     K1-K3's own ns per step of their longest stream
+                     K1-K3's own ns per step of their longest stream (K3:
+                     per tape entry and per modelled bit)
 Every count of launches is read around a main-path run (phases 4-8, 12).
 Phase 11's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each), started once phases 4-8
@@ -55,6 +57,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+sys.path.insert(1, os.path.join(ROOT, "tests"))
 
 from csc_tpu_torch import _build, corpus, spikes  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
@@ -64,6 +67,7 @@ from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E
 from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
+import torch_edge_cases  # noqa: E402
 
 SEED = 20261016
 KB, MB = 1024, 1024 * 1024
@@ -269,6 +273,8 @@ def encode_cell(tag, props, datas, dev, reps):
     stats = k3_out[5].cpu().numpy().astype(np.int64)
     coded_bytes = int(stats[0].sum() + stats[1].sum())
     k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
+    longest["modelled_bits"] = int(bits_scan.modelled_bits(
+        *k3_args[:4]).max())
     return dict(wall=statistics.median(walls), outs=outs, k2_ms=k2_ms,
                 k3_ms=k3_ms, launches=launches, layers=stages.ms(),
                 ratio=sum(len(o) for o in outs) / total, total=total,
@@ -308,6 +314,20 @@ def encode_parity(props, plans, idxs, dev):
     err = max(err, compare("encode parity", "K3", v["k3_out"], want))
     nfields = 1 + len(FIELDS["K2"]) + 4 + len(FIELDS["K3"])
     return outs, nfields, err, k2_plain_s, k3_plain_s
+
+
+def k3_edge_jobs(dev):
+    """K3 on the card on each batch of its edge tapes, and the jobs that
+    hold it to its plain version (on the host CPU) in phase 11."""
+    jobs = []
+    for name, tapes, args, _ in torch_edge_cases.k3_cases():
+        cpu = tuple(torch.from_numpy(t) for t in tapes) + args
+        card = tuple(t.to(dev) for t in cpu[:4]) + args
+        ms, out = event_ms(lambda: bits_kernel.code_k3(*card), 1)
+        jobs.append(dict(tag=f"k3_edges {name}", kernel="K3",
+                         streams=tapes[0].shape[0], args=cpu,
+                         kernel_out=to_cpu(out), kernel_ms=ms))
+    return jobs
 
 
 # ---------------------------------------------------------- phase 11 parts
@@ -392,10 +412,10 @@ def main(procs):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     phase("ptxas", kernel=name, line=line.strip())
-    # K1's and K2's registers, stack frame and local-memory traffic (ptxas
+    # K1-K3's registers, stack frame and local-memory traffic (ptxas
     # -v and cuobjdump -sass; _build.resources raises if either cannot be
     # read), and K1's blocks per SM (the design's two)
-    res = {n: _build.resources(n) for n in ("csc_k1", "csc_k2")}
+    res = {n: _build.resources(n) for n in ("csc_k1", "csc_k2", "csc_k3")}
     res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
     for name, r in res.items():
         phase("resources", kernel=name, **r)
@@ -585,6 +605,7 @@ def main(procs):
           regrow_d_seconds=f"{t4 - t3:.2f}")
 
     # --------------------------- 11 plain (workers on the CPU) start here
+    jobs += k3_edge_jobs(dev)
     procs.extend(start_plain(jobs, sdir))
     phase("plain_start", workers=len(procs),
           jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
@@ -728,7 +749,10 @@ def main(procs):
                            for k in ("positions", "lz_tokens", "tokens")}},
         "K3": {"ns_per_tape_entry": k3_ms * 1e6
                / m1["longest"]["tape_entries"],
-               "longest": {"tape_entries": m1["longest"]["tape_entries"]}}}
+               "ns_per_modelled_bit": k3_ms * 1e6
+               / m1["longest"]["modelled_bits"],
+               "longest": {k: m1["longest"][k]
+                           for k in ("tape_entries", "modelled_bits")}}}
     phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
                         for u, v in d.items() if u != "longest"})
     phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
@@ -749,7 +773,9 @@ def main(procs):
             "csc_tpu_torch/csrc/encode_k2.cu",
             "csc_tpu/ops/pallas_parse.py:112", m1["k2_ms"], enc_on,
             m1["k2_bound"], "encode_headline m1"),
-        row("K3", "K3 phase-B coder", "csc_tpu_torch/csrc/encode_k3.cu",
+        row("K3", "K3 phase-B coder (an expanding warp, a walking lane "
+            "and a coding lane, passes through a shared ring, coded bits "
+            "branch-free)", "csc_tpu_torch/csrc/encode_k3.cu",
             "csc_tpu/ops/pallas_encode.py:107", m1["k3_ms"], enc_on,
             m1["k3_bound"], "encode_headline m1"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))

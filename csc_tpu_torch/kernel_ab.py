@@ -1,22 +1,24 @@
-"""Time K1 and K2 of this checkout against another checkout's, on one
-card, in turns, at the cells of chip_smoke.py.
+"""Time K1, K2 and K3 of this checkout against another checkout's, on
+one card, in turns, at the cells of chip_smoke.py.
 
-    python -m csc_tpu_torch.kernel_ab --other DIR [--json FILE]
+    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3]
+                                      [--json FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
-parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*
-and encode_k2.* are built beside this checkout's and launched through
-this checkout's wrappers on the same inputs (the kernels' C interface is
-the same).  Cells: K1 on the decode headline (128 x 16 KB m1 text) and on the
-extract group (256 x 1 MB m1 text, 4 slices x 64); K2 at m1 and at m2 on
-the encode headline (96 x 16 KB text, filters on) and on the encode task
-(4 x 1 MB m1 text).  The inputs come from this checkout's encode path on
-the card.  Each cell is timed in turns, forward then backward (other,
-this, this, other; CUDA events, the median of `reps` calls a turn, the
-best turn kept), and the other build's outputs must equal this one's on
-every field.  Prints, with the card's name and power
-limit: a line a cell (ms of each build, ns per step of the longest
-stream), and each build's registers, stack frame, LDL / STL and K1's
+parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*,
+encode_k2.* and encode_k3.* are built beside this checkout's and launched
+through this checkout's wrappers on the same inputs (the kernels' C
+interface is the same).  Cells: K1 on the decode headline (128 x 16 KB m1
+text) and on the extract group (256 x 1 MB m1 text, 4 slices x 64); K2
+and K3 at m1 and at m2 on the encode headline (96 x 16 KB text, filters
+on) and on the encode task (4 x 1 MB m1 text).  The inputs come from this
+checkout's encode path on the card.  Each cell is timed in turns, forward
+then backward (other, this, this, other; CUDA events, the median of
+`reps` calls a turn, the best turn kept), and the other build's outputs
+must equal this one's on every field.  Prints, with the card's name and
+power limit: a line a cell (ms of each build, ns per step of the longest
+stream: K3's per tape entry and per modelled bit, a bit coded through a
+probability), and each build's registers, stack frame, LDL / STL and K1's
 blocks per SM.  Needs a CUDA card.
 """
 import argparse
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from . import _build, corpus
-from .constants import K_SENT_A
-from .ops import decode_kernel, parse_kernel, pipeline
+from .constants import K_END, K_SENT_A
+from .ops import (bits_kernel, bits_scan, decode_kernel, parse_kernel,
+                  pipeline)
 from .props import props_init
 
 KB, MB = 1024, 1024 * 1024
@@ -97,14 +100,14 @@ def k1_cell(props, blobs, sizes, dev, other, reps):
                 longest=dict(bytes=max(sizes), coded_bits=bits))
 
 
-def k2_args_of(props, datas, dev):
-    """K2's inputs on the encode path, and the encoded streams."""
+def stage_args(props, datas, dev):
+    """K2's and K3's inputs on the encode path, and the encoded streams."""
     seen = {}
 
     def on_stage(name, **values):
         seen.update(values)
     outs = pipeline.encode_batch(props, datas, device=dev, on_stage=on_stage)
-    return seen["k2_args"], outs
+    return seen["k2_args"], seen["k3_args"], outs
 
 
 def k2_cell(args, sizes, other, reps):
@@ -122,12 +125,32 @@ def k2_cell(args, sizes, other, reps):
                 longest=dict(positions=pos, lz_tokens=lz))
 
 
+def k3_longest(args):
+    """The longest stream's tape entries (up to K_END) and modelled bits,
+    of K3's arguments."""
+    entries = int(((args[0] != K_END).sum(dim=1) + 1).max())
+    bits = int(bits_scan.modelled_bits(*args[:4]).max())
+    return dict(tape_entries=entries, modelled_bits=bits)
+
+
+def k3_cell(args, other, reps):
+    ms, _ = turns("csc_k3", other, lambda: bits_kernel.code_k3(*args), reps)
+    longest = k3_longest(args)
+    return dict(ms=ms, ns_per_tape_entry={
+        k: v * 1e6 / longest["tape_entries"] for k, v in ms.items()},
+        ns_per_modelled_bit={k: v * 1e6 / longest["modelled_bits"]
+                             for k, v in ms.items()}, longest=longest)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--json", help="write the results here too")
+    ap.add_argument("--kernels", default="K1,K2,K3",
+                    help="the kernels whose cells to time")
     a = ap.parse_args(argv)
+    want = set(a.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -135,13 +158,12 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    names = ("csc_k1", "csc_k2")
+    names = ("csc_k1", "csc_k2", "csc_k3")
     other_csrc = os.path.join(os.path.abspath(a.other), "csc_tpu_torch",
                               "csrc")
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
-    k1 = _build.load("csc_k1", other_csrc)
-    k2 = _build.load("csc_k2", other_csrc)
+    k1, k2, k3 = (_build.load(n, other_csrc) for n in names)
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
@@ -158,22 +180,30 @@ def main(argv=None):
     head = [text[i * 16 * KB:(i + 1) * 16 * KB] for i in range(128)]
     cells = {}
     hp = [props_init(16 * KB, 1) for _ in head]
-    _, head_blobs = k2_args_of(hp, head, dev)
-    cells["K1 headline 128 x 16 KB"] = k1_cell(
-        hp, head_blobs, [len(d) for d in head], dev, k1, 5)
+    _, _, head_blobs = stage_args(hp, head, dev)
+    if "K1" in want:
+        cells["K1 headline 128 x 16 KB"] = k1_cell(
+            hp, head_blobs, [len(d) for d in head], dev, k1, 5)
     gp = [props_init(MB, 1) for _ in group]
-    k2_task, group_blobs = k2_args_of(gp, group, dev)
-    cells["K1 extract 256 x 1 MB"] = k1_cell(
-        gp * 64, group_blobs * 64, [len(d) for d in group] * 64, dev,
-        k1, 2)
+    k2_task, k3_task, group_blobs = stage_args(gp, group, dev)
+    if "K1" in want:
+        cells["K1 extract 256 x 1 MB"] = k1_cell(
+            gp * 64, group_blobs * 64, [len(d) for d in group] * 64, dev,
+            k1, 2)
     enc = head[:96]
     for level in (1, 2):
         ep = [props_init(16 * KB, level) for _ in enc]
-        args, _ = k2_args_of(ep, enc, dev)
-        cells[f"K2 m{level} 96 x 16 KB"] = k2_cell(
-            args, [len(d) for d in enc], k2, 5)
-    cells["K2 task 4 x 1 MB"] = k2_cell(k2_task, [len(d) for d in group],
-                                        k2, 2)
+        args2, args3, _ = stage_args(ep, enc, dev)
+        if "K2" in want:
+            cells[f"K2 m{level} 96 x 16 KB"] = k2_cell(
+                args2, [len(d) for d in enc], k2, 5)
+        if "K3" in want:
+            cells[f"K3 m{level} 96 x 16 KB"] = k3_cell(args3, k3, 5)
+    if "K2" in want:
+        cells["K2 task 4 x 1 MB"] = k2_cell(
+            k2_task, [len(d) for d in group], k2, 2)
+    if "K3" in want:
+        cells["K3 task 4 x 1 MB"] = k3_cell(k3_task, k3, 2)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

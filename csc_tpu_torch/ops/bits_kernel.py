@@ -37,6 +37,9 @@ def code_k3(kind, a, b, c, max_rc, max_bc, nmap, nchunk, bsize):
         raise ValueError(f"K3 runs on CUDA tensors (or the plain version "
                          f"on CPU ones), not on {dev}")
 
+    if max(max_rc, max_bc, bsize) >= 1 << 30:
+        raise ValueError("K3 counts bytes in int32: max_rc, max_bc and "
+                         "bsize must be below 2^30")
     from .. import _build
     lib = _build.kernel_library("csc_k3")
     rc_out = torch.zeros((bsz, max_rc), dtype=torch.uint8, device=dev)

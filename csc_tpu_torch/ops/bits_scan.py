@@ -16,7 +16,10 @@ writes clip at the last byte of each buffer while the counters run on,
 as in the reference, so a counter past its capacity flags ERR_OVERFLOW.
 
 `bits_plain` runs it to the end and returns what the kernel
-(csrc/encode_k3.cuh) returns.
+(csrc/encode_k3.cuh) returns.  A tape without K_END is coded to its end,
+done = 0 (csc_tpu's scan re-reads its last token instead: its pipeline
+always ends a tape with K_END).  `modelled_bits` counts the bits each
+tape codes through a probability.
 """
 import numpy as np
 import torch
@@ -555,8 +558,12 @@ def _flush_op(st, new, upd, fsm_a, bsize):
 
 
 def _next_op(st, new, upd, fsm_a):
-    """Fetch the next token and enter its first state."""
-    c = fsm_a == B_NEXT
+    """Fetch the next token and enter its first state; a stream past the
+    end of a tape without K_END stops there with done = 0."""
+    fetch = fsm_a == B_NEXT
+    past = fetch & (st["tok_i"] >= st["tok_kind"].shape[1])
+    upd("fsm", past, B_DONE)
+    c = fetch & ~past
     ti = st["tok_i"].clamp(0, st["tok_kind"].shape[1] - 1)
     kk = _gather(st["tok_kind"], ti)
     a = _gather(st["tok_a"], ti)
@@ -590,10 +597,11 @@ def _next_op(st, new, upd, fsm_a):
 
 
 def run_bits(st, bsize, max_steps):
-    """Step until every stream is done or max_steps; returns (state,
-    steps taken)."""
+    """Step until every stream has stopped (at K_END, or at the end of a
+    tape without it) or max_steps; returns (state, steps taken)."""
     steps = 0
-    while steps < max_steps and not bool((st["done"] == 1).all()):
+    while steps < max_steps and not bool(
+            ((st["fsm"] == B_DONE) & (st["pending"] == 0)).all()):
         st = bits_step(st, bsize)
         steps += 1
     return st, steps
@@ -620,3 +628,41 @@ def bits_plain(kind, a, b, c, max_rc, max_bc, nmap, nchunk, bsize,
         max_steps = 24 * kind.shape[1] + max_rc + max_bc + 65536
     st, _ = run_bits(st, bsize, max_steps)
     return outputs_of(st)
+
+
+def _len_value_bits(lv):
+    return torch.where(lv < 8, 4, torch.where(lv < 16, 5, 9))
+
+
+def _length_bits(vb):
+    """Modelled bits of a wire length: slot bits and tree, and past 143
+    the long-length run, its closing bit and the remainder's."""
+    tail = vb - 143
+    long_ = vb >= 143
+    return _len_value_bits(vb.clamp(max=143)) + torch.where(
+        long_, tail.clamp(min=0) // 143 + 1
+        + _len_value_bits(tail.clamp(min=0) % 143), 0)
+
+
+def modelled_bits(kind, a, b, c):
+    """Bits each tape codes through a probability (a binary decision of
+    the model), up to its first K_END: a literal 9 (flag + tree), an
+    ENTROPY literal 8, a DLT literal 9, K_REP0L1 3, K_REP 5 + its length's,
+    K_RLEN 1 + its length's, a match or sentinel 2 + its length's + its
+    slot tree (3-5) + 4 extra bits past slot 2.  Direct bits are not
+    modelled.  [B] int64."""
+    check_inputs(kind, a, b, c)
+    k = _consts(kind.device)
+    kind, a, b = kind.long(), a.long(), b.long()
+    live = torch.cumsum(kind == K_END, dim=1) == 0
+    lb = _length_bits(b)
+    w = b.clamp(0, 6)
+    slot = (torch.searchsorted(k["dist"], a.contiguous(), right=True)
+            - 1).clamp(0, 31)
+    match = 2 + lb + k["pdist_bits"][w] + torch.where(slot > 2, 4, 0)
+    bits = torch.zeros_like(kind)
+    for kk, v in ((K_LIT, 9), (K_ELIT, 8), (K_DLIT, 9), (K_REP0L1, 3),
+                  (K_REP, 5 + lb), (K_RLEN, 1 + lb), (K_MATCH, match),
+                  (K_SENT, match)):
+        bits = torch.where(kind == kk, v, bits)
+    return (bits * live).sum(dim=1)

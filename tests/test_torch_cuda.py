@@ -3,7 +3,8 @@
 parity batch and on a stream whose dictionary is smaller than it, K3
 (encode_k3.cu) with the output capacity cut until ERR_OVERFLOW fires,
 and encode_batch raising on that overflow; K1 and K2 on the edge
-streams of their designs (tests/torch_edge_cases.py), K1's two blocks
+streams of their designs and K3 on its edge tapes
+(tests/torch_edge_cases.py), K1's two blocks
 per SM, a 1 MB stream round-tripped through K2, K3 and K1, and the
 A/B tool (csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a
 card; without one every test here skips.  On a machine with a card (it
@@ -258,6 +259,24 @@ def test_k2_edge_streams_match_plain(dev, level, tcap):
     assert bool(got[3].any()) == (tcap is not None)
 
 
+@pytest.mark.parametrize("case", [c[0] for c in edges.k3_cases()])
+def test_k3_edge_tapes_match_plain(dev, case):
+    """Every token kind, slot edges of lengths and distances, long runs,
+    flushes, clipped maps and chunk log, capacity cuts, passes that
+    overrun the record ring, a tape without K_END, random tapes."""
+    _, tapes, args, _ = next(c for c in edges.k3_cases() if c[0] == case)
+    launches = bits_kernel.LAUNCHES
+    got = bits_kernel.code_k3(*(torch.from_numpy(t).to(dev) for t in tapes),
+                              *args)
+    torch.cuda.synchronize()
+    assert bits_kernel.LAUNCHES == launches + 1
+    want = bits_scan.bits_plain(*(torch.from_numpy(t) for t in tapes), *args)
+    for name, g, w in zip(("rc", "bc", "rc_map", "bc_map", "chunk_log",
+                           "stats"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=f"{case} {name}")
+
+
 def test_one_mb_round_trips_through_k2_k3_k1(dev):
     """A 1 MB stream is too long for the lockstep plain versions: it must
     come back byte-exact through K2 -> K3 (encode) and K1 (decode), with
@@ -288,10 +307,14 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
     assert json.loads(out.read_text()) == json.loads(json.dumps(res))
     assert sorted(res["cells"]) == sorted([
         "K1 headline 128 x 16 KB", "K1 extract 256 x 1 MB",
-        "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB"])
+        "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB",
+        "K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
+    for name in ("K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB"):
+        longest = res["cells"][name]["longest"]
+        assert longest["modelled_bits"] > longest["tape_entries"] > 0
     this, other = res["resources"]["this"], res["resources"]["other"]
     assert this["csc_k1"].pop("blocks_per_sm") == 2
     assert this == other

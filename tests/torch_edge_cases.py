@@ -1,13 +1,17 @@
-"""Edge streams that drive each mechanism of K1's and K2's designs
-(csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh), shared by the host
-tests of the g++ builds and the card tests: every case is a (name,
-props, data) triple, built from seeds."""
+"""Edge streams that drive each mechanism of K1's, K2's and K3's designs
+(csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh), shared
+by the host tests of the g++ builds and the card tests: every K1 / K2
+case is a (name, props, data) triple, every K3 case a batch of stitched
+tapes with K3's other arguments; all built from seeds."""
 import numpy as np
 import torch
 
 from csc_tpu_torch import corpus, props
-from csc_tpu_torch.constants import F_COPY, F_IDLE, F_LITTREE
-from csc_tpu_torch.ops import decode_scan
+from csc_tpu_torch.constants import (F_COPY, F_IDLE, F_LITTREE, K_DLIT,
+                                     K_ELIT, K_END, K_FLUSH, K_INT, K_LIT,
+                                     K_MATCH, K_RAW, K_REP, K_REP0L1, K_RLEN,
+                                     K_SENT)
+from csc_tpu_torch.ops import bits_scan, decode_scan
 
 
 RING = 8192        # decode_k1.cuh: copies up to this distance read the ring
@@ -126,3 +130,130 @@ def plain_each_step(arrays, wnd_size, steps):
         yield t, [st["wnd"].numpy(), st["blk_log"].numpy()] + [
             regs[ix[n]].to(torch.int32).numpy()
             for n in ("wnd_pos", "done", "err", "blk_cnt")]
+
+
+def dist_table(s):
+    """DIST_TABLE[s] (csc_model.cpp:45-55)."""
+    return s if s < 4 else (1 << (s - 2)) + 1
+
+
+def tapes(streams, width=None):
+    """Token lists (kind, a, b, c) -> four [B, T] int32 tapes, each stream
+    closed by K_END (T = the longest + 1, or `width`)."""
+    t = width or max(len(x) for x in streams) + 1
+    out = np.zeros((4, len(streams), t), np.int32)
+    out[0] = K_END
+    for i, x in enumerate(streams):
+        if x:
+            out[:, i, :len(x)] = np.array(x, np.int64).T
+    return tuple(out)
+
+
+def _k3_edges():
+    """Streams that drive each token kind and each record of K3."""
+    lens = (0, 1, 2, 7, 8, 15, 16, 142, 143, 144, 286, 287, 143 * 40 + 5)
+    kinds = [(K_LIT, 65, 0, 0), (K_LIT, 66, 0, 0), (K_MATCH, 100, 5, 67),
+             (K_REP0L1, 0, 0, 68), (K_REP, 2, 9, 69), (K_REP, 1, 20, 70),
+             (K_REP, 3, 3, 71), (K_SENT, 59, 62, 0), (K_LIT, 72, 0, 0),
+             (K_RAW, 0, 0, 0), (K_RAW, 0x55, 0, 0), (K_RAW, 0xABCD, 16, 0),
+             (K_RAW, 0x1FF, 8, 0), (K_RAW, 7, 3, 0), (K_LIT, 73, 0, 0)]
+    ints = [0, 1] + [v for k in list(range(1, 21)) + [24]
+                     for v in ((1 << k) - 1, (1 << k) + 1)]
+    kinds += [(K_INT, v, 0, 0) for v in ints]
+    kinds += [(K_ELIT, x, 0, 0) for x in (0, 255, 97)]
+    kinds += [(K_DLIT, x, vb, 0) for x, vb in ((3, 0), (200, 1), (0, 127),
+                                               (255, 255), (9, 255))]
+    kinds += [(K_RLEN, 0, vb, 0) for vb in (0, 5, 142, 143, 150)]
+    kinds += [(K_FLUSH, 0, 0, 0), (K_LIT, 74, 0, 0), (K_REP0L1, 0, 0, 75),
+              (K_LIT, 76, 0, 0), (K_SENT, 59, 62, 0), (K_ELIT, 1, 0, 0),
+              (K_LIT, 77, 0, 0), (K_FLUSH, 0, 0, 0)]
+    lengths = [(k, 1 + (vb % 4 if k == K_REP else 4000 + vb), vb, 90)
+               for vb in lens for k in (K_MATCH, K_REP)]
+    lengths += [(K_RLEN, 0, vb, 0) for vb in lens] + [(K_FLUSH, 0, 0, 0)]
+    # a long run of P_LONGLEN bits (2 999 zeros), then a match's (499)
+    long_run = [(K_LIT, 80, 0, 0), (K_RLEN, 0, 143 * 3000 + 17, 0),
+                (K_MATCH, 300, 143 * 500, 81), (K_LIT, 82, 0, 0),
+                (K_FLUSH, 0, 0, 0)]
+    # each slot boundary, dist_table(s) - 1 and dist_table(s), up to 1 MB,
+    # then past 2^22 (the direct bits in two pieces), every wire length
+    dists = [d for s in range(1, 23) for d in (dist_table(s) - 1,
+                                               dist_table(s))]
+    dists += [(1 << 22) + 5, (1 << 24) + 3, (1 << 29) + 1, 0x7FFFFFF0]
+    distances = [(K_MATCH, d, i % 8, i & 0xFF) for i, d in enumerate(dists)]
+    distances += [(K_FLUSH, 0, 0, 0)]
+    # 230 flushes, most back to back, 5 rc bytes each: the chunk log and
+    # the rc map of 16-byte blocks clip at 64 entries
+    flushes = [(K_FLUSH, 0, 0, 0)] * 40 + [(K_LIT, 90, 0, 0)] + \
+        [(K_FLUSH, 0, 0, 0)] * 190
+    # 64 matches of 33 records: a pass of 32 takes 15 of them (CAP 512)
+    overrun = [(K_MATCH, (1 << 22) + 5 + i, 300, i) for i in range(64)]
+    overrun += [(K_LIT, 91, 0, 0), (K_FLUSH, 0, 0, 0)]
+    # bc bytes enough to fill a 64-entry map of 16-byte blocks
+    raw = [(K_RAW, (i * 7919) & 0xFFFF, 16, 0) for i in range(600)]
+    raw += [(K_FLUSH, 0, 0, 0)]
+    return tapes([kinds, lengths, long_run, distances, flushes, overrun,
+                  raw])
+
+
+def _k3_random(rng, nstream=16, ntok=1250):
+    """Seeded random tapes of every kind, 20 000 tokens in all."""
+    kinds = np.array([K_LIT, K_MATCH, K_REP, K_REP0L1, K_SENT, K_ELIT,
+                      K_DLIT, K_RLEN, K_RAW, K_INT, K_FLUSH])
+    weight = np.array([40, 15, 8, 7, 2, 8, 6, 4, 5, 3, 2], float)
+    streams = []
+    for _ in range(nstream):
+        k = rng.choice(kinds, ntok, p=weight / weight.sum())
+        byte = rng.integers(0, 256, ntok)
+        dist = (2.0 ** rng.uniform(0, 23, ntok)).astype(np.int64)
+        wl = np.minimum(rng.geometric(0.15, ntok) - 1, 2000)
+        wl = np.where(rng.random(ntok) < 0.03, rng.integers(143, 2000, ntok),
+                      wl)
+        nb = rng.choice([0, 8, 16], ntok, p=[0.05, 0.5, 0.45])
+        raw = rng.integers(0, 1 << 16, ntok) & ((1 << nb) - 1)
+        ints = (2.0 ** rng.uniform(0, 20, ntok)).astype(np.int64)
+        a = np.select([k == K_MATCH, k == K_SENT, k == K_REP, k == K_RAW,
+                       k == K_INT], [dist, dist, byte & 3, raw, ints], byte)
+        b = np.select([(k == K_MATCH) | (k == K_REP) | (k == K_RLEN)
+                       | (k == K_SENT), k == K_DLIT, k == K_RAW],
+                      [wl, rng.integers(0, 256, ntok), nb], 0)
+        c = rng.integers(0, 256, ntok)
+        streams.append(list(zip(k, a, b, c)))
+    return tapes(streams)
+
+
+def _k3_cuts(rng, n=16):
+    """Capacity cuts at each byte near the coded size: one capacity and
+    prefixes of one tape whose rc sizes (the first n streams, skewed
+    literals after random ones) and bc sizes (the last n, one raw byte
+    more each) step a byte at a time across it."""
+    head = [(K_LIT, int(x), 0, 0) for x in rng.integers(0, 256, 40)]
+    rc_side = [head + [(K_LIT, 101, 0, 0)] * (2 * j) + [(K_FLUSH, 0, 0, 0)]
+               for j in range(n)]
+    bc_side = [head[:4] + [(K_RAW, 0x5A, 8, 0)] * (40 + j)
+               + [(K_FLUSH, 0, 0, 0)] for j in range(n)]
+    tp = tapes(rc_side + bc_side)
+    big = (4096, 4096, 64, 64, 512)
+    stats = bits_scan.bits_plain(*(torch.from_numpy(t) for t in tp),
+                                 *big)[5].numpy()
+    return tp, (int(stats[0, n // 2]), int(stats[1, n + n // 2]), 64, 64,
+                512)
+
+
+def k3_cases():
+    """(name, tapes, args, held_to) batches that every K3 build must code
+    like bits_scan.bits_plain: tapes are four [B, T] int32 numpy arrays,
+    args (max_rc, max_bc, nmap, nchunk, bsize).  held_to "jax": csc_tpu's
+    run_bits takes the batch too (its maps and chunk log hold 64 entries);
+    "port": only the port's contract covers it."""
+    rng = np.random.default_rng(71)
+    edges = _k3_edges()
+    cut_tapes, cut_args = _k3_cuts(rng)
+    # a tape without K_END (the first), beside one that has it
+    body = [(K_LIT, 60 + i, 0, 0) for i in range(20)] + \
+        [(K_MATCH, 700, 30, 1), (K_RAW, 0x3C, 8, 0)]
+    no_end = tapes([body * 2, body], width=2 * len(body))
+    return [("edges", edges, (16384, 4096, 64, 64, 16), "jax"),
+            ("edges_clipped", edges, (16384, 4096, 3, 5, 64), "port"),
+            ("cuts", cut_tapes, cut_args, "jax"),
+            ("random", _k3_random(rng), (32768, 8192, 64, 64, 64), "jax"),
+            ("no_end", no_end, (4096, 4096, 64, 64, 512), "port")]
