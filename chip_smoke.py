@@ -5,11 +5,11 @@
 
 Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
-  2. build           K1, K2, K3 and the ten spike libraries (csrc/*.cu)
-                     with nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K3 and K1's,
-                     K2's and K3's registers, stack frame, LDL / STL counts
-                     (SASS) and K1's blocks per SM
+  2. build           K1-K4 and the ten spike libraries (csrc/*.cu) with
+                     nvcc into build/, one nvcc per source started
+                     together, with ptxas's reports of K1-K4 and their
+                     registers, stack frame, LDL / STL counts (SASS) and
+                     K1's blocks per SM
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -17,30 +17,34 @@ Phases, each printing its own line; the first failure raises:
   5. encode_headline the encode main path: encode_batch of 96 x 16 KB text
                      (filters on) at m1 and m2, its stages, K2 / K3 times,
                      a round trip through K1
-  6. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
-  7. extract         one archiver extract group: 256 x 1 MB m1 text
-  8. cli             `c` then `d` with --backend cuda on a 1 MB file, and
+  6. encode_ap       the optimal parse: encode_batch of 32 x 16 KB text
+                     (filters on) at m3, m4 and m5, its stages, K4 / K3
+                     times, a round trip through K1
+  7. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
+  8. extract         one archiver extract group: 256 x 1 MB m1 text
+  9. cli             `c` then `d` with --backend cuda on a 1 MB file, and
                      `d` of the same stream under a 266 KB dictionary
                      header, which makes decode_batch regrow its window
-  9. encode_parity   on the parity batch (2 KB streams, m1 and m2): the
-                     candidates on the card equal those on the CPU; K2, the
-                     stitch and K3 equal their plain versions (on the card)
- 10. parity          K1 against its plain version (on the card) on the
+ 10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
+                     text streams at m3): the candidates on the card equal
+                     those on the CPU; K2 or K4, the stitch and K3 equal
+                     their plain versions (on the card)
+ 11. parity          K1 against its plain version (on the card) on the
                      parity batch, a corrupted stream among them
- 11. plain           each kernel against its plain version on the first
-                     streams of its headline inputs (phases 4 and 5), and K3
+ 12. plain           each kernel against its plain version on the first
+                     streams of its headline inputs (phases 4-6), and K3
                      on its edge tapes (tests/torch_edge_cases.py)
- 12. spikes          the spike probes' main path, `python -m
+ 13. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
                      layouts, at every size the runner times, against its
                      plain version on the card, with
-                     K1-K3's own ns per step of their longest stream (K3:
+                     K1-K4's own ns per step of their longest stream (K3:
                      per tape entry and per modelled bit)
-Every count of launches is read around a main-path run (phases 4-8, 12).
-Phase 11's plain versions run on the host's CPU in worker processes
-(`chip_smoke.py --plain FILE`, one thread each), started once phases 4-8
-are timed, so they overlap phases 9 and 10; on the card a plain version
+Every count of launches is read around a main-path run (phases 4-9, 13).
+Phase 12's plain versions run on the host's CPU in worker processes
+(`chip_smoke.py --plain FILE`, one thread each), started once phases 4-9
+are timed, so they overlap phases 10 and 11; on the card a plain version
 takes several ms a lockstep step.  The last two lines are the kernels'
 JSON record and the ok line.
 """
@@ -62,8 +66,9 @@ sys.path.insert(1, os.path.join(ROOT, "tests"))
 from csc_tpu_torch import _build, corpus, spikes  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
-                               decode_scan, encode_host, parse_kernel,
-                               parse_pre, parse_scan, pipeline, stitch)
+                               decode_scan, encode_host, parse_ap_kernel,
+                               parse_ap_scan, parse_kernel, parse_pre,
+                               parse_scan, pipeline, stitch)
 from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
@@ -74,18 +79,22 @@ KB, MB = 1024, 1024 * 1024
 PARITY_BYTES = 2 * KB                 # per parity stream
 HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's decode headline shape
 ENC_STREAMS = 96                      # bench.py's encode shape: 96 x 16 KB
+AP_STREAMS = 32                       # bench.py's m3 / m5 shape: 32 x 16 KB
 # headline streams each kernel's plain version runs on (the first ones)
-PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8}
+PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8, "K4": 4}
 PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES, CLI_DICT = MB, 256 * KB
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
+          "K4": ("tape", "tok_cnt", "done", "err"),
           "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
                  "stats")}
 PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
-         "K3": bits_scan.bits_plain}
+         "K3": bits_scan.bits_plain, "K4": parse_ap_scan.parse_ap_plain}
+# arguments of a kernel that are not batch-first (K4's price tables)
+WHOLE = {"K4": (6,)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM non-tensor fp32 peak; int32 is no faster
 
@@ -143,11 +152,11 @@ def compare(tag, kernel, got, want):
     return err
 
 
-def first_args(args, k):
+def first_args(args, k, kernel):
     """A kernel's arguments cut to its first k streams (every tensor
-    argument is batch-first)."""
-    return tuple(a[:k].contiguous() if torch.is_tensor(a) else a
-                 for a in args)
+    argument but those WHOLE names is batch-first)."""
+    return tuple(a[:k].contiguous() if torch.is_tensor(a) and i not in
+                 WHOLE.get(kernel, ()) else a for i, a in enumerate(args))
 
 
 def to_cpu(x):
@@ -195,11 +204,12 @@ class Stages:
 def plain_job(tag, kernel, args, reps):
     """The kernel on the first PLAIN_STREAMS[kernel] streams of `args`
     (the inputs a main path gave it): its time and outputs, and the job
-    that holds them against the plain version in phase 11."""
+    that holds them against the plain version in phase 12."""
     k = PLAIN_STREAMS[kernel]
-    sub = first_args(args, k)
+    sub = first_args(args, k, kernel)
     launch = {"K1": decode_kernel.decode_k1, "K2": parse_kernel.parse_k2,
-              "K3": bits_kernel.code_k3}[kernel]
+              "K3": bits_kernel.code_k3,
+              "K4": parse_ap_kernel.parse_k4}[kernel]
     ms, out = event_ms(lambda: launch(*sub), reps)
     return dict(tag=tag, kernel=kernel, streams=k, args=to_cpu(sub),
                 kernel_out=to_cpu(out), kernel_ms=ms)
@@ -217,17 +227,25 @@ def same_rows(tag, kernel, full, sub, k):
 
 
 # ----------------------------------------------------------- phase 5 parts
+def parse_stage(values):
+    """The parse kernel of an encode pass from its on_stage values: K2 at
+    m1 / m2, K4 at m3-m5; (kernel, its arguments, its outputs)."""
+    kernel = "K4" if "k4_args" in values else "K2"
+    low = kernel.lower()
+    return kernel, values[low + "_args"], values[low + "_out"]
+
+
 def encode_cell(tag, props, datas, dev, reps):
     """The encode main path on one preset group: encode_batch once with
-    the launch counts set to 0 (it must launch K2 and K3), `reps` timed
-    calls, one pass split by stage, a round trip through K1, and K2 / K3
-    timed on the inputs that pass gave them.  Returns the phase's
-    numbers."""
-    parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    the launch counts set to 0 (it must launch its parse kernel, K2 or
+    K4, and K3), `reps` timed calls, one pass split by stage, a round trip
+    through K1, and the parse kernel and K3 timed on the inputs that pass
+    gave them.  Returns the phase's numbers."""
+    parse_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
+    bits_kernel.LAUNCHES = 0
     outs = pipeline.encode_batch(props, datas, device=dev)
-    launches = {"K2": parse_kernel.LAUNCHES, "K3": bits_kernel.LAUNCHES}
-    check(min(launches.values()) >= 1, f"{tag}: the encode path did not "
-          f"launch K2 and K3 ({launches})")
+    counts = {"K2": parse_kernel.LAUNCHES, "K4": parse_ap_kernel.LAUNCHES,
+              "K3": bits_kernel.LAUNCHES}
     walls = []
     for _ in range(reps):
         t0 = time.time()
@@ -243,29 +261,39 @@ def encode_cell(tag, props, datas, dev, reps):
                                  device=dev)
     check(back == datas, f"{tag}: the round trip through K1 differs")
     v = stages.values
-    k2_args, k3_args = v["k2_args"], v["k3_args"]
-    k2_ms, k2_out = event_ms(lambda: parse_kernel.parse_k2(*k2_args), reps)
+    parse, p_args, p_out = parse_stage(v)
+    launches = {parse: counts[parse], "K3": counts["K3"]}
+    check(min(launches.values()) >= 1 and sum(counts.values()) == sum(
+        launches.values()), f"{tag}: the encode path did not launch "
+        f"{parse} and K3 alone ({counts})")
+    k3_args = v["k3_args"]
+    launch = {"K2": parse_kernel.parse_k2, "K4": parse_ap_kernel.parse_k4}
+    p_ms, p_out2 = event_ms(lambda: launch[parse](*p_args), reps)
     k3_ms, k3_out = event_ms(lambda: bits_kernel.code_k3(*k3_args), reps)
-    compare(f"{tag} relaunch", "K2", k2_out, v["k2_out"])
+    compare(f"{tag} relaunch", parse, p_out2, p_out)
     compare(f"{tag} relaunch", "K3", k3_out, v["k3_out"])
     total = sum(len(d) for d in datas)
-    # K2 reads all C candidate words at each position it probes and writes
-    # 8 bytes a token; each parse step emits one token and probes at most
-    # twice, and a step that probes none follows one that probed twice,
-    # so the LZ tokens (kinds below K_SENT_A) are a lower bound on the
-    # probes.  The data bytes are left out: the parse reads them only
-    # where it extends a match.  K3 reads 16 bytes a token up to K_END
+    # The parse reads all C candidate words at each position it probes
+    # and writes 8 bytes a token; every LZ token (kinds below K_SENT_A)
+    # starts at a probed position (K2: each step emits one token and
+    # probes at most twice, and a step that probes none follows one that
+    # probed twice; K4: a token starts at a cell its DP visited), so the
+    # LZ tokens are a lower bound on the probes.  K2 reads the data only
+    # where it extends a match, so its bound leaves the data out; K4's
+    # counts the data read once.  K3 reads 16 bytes a token up to K_END
     # and writes the coded bytes, one operation per coded bit.
-    tape, tok_cnt = k2_out[0], k2_out[1]
+    tape, tok_cnt = p_out[0], p_out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
     probes = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum())
     ntok = int(tok_cnt.sum())
-    c = k2_args[1].shape[1]
-    k2_bound = bound(4 * c * probes + 8 * ntok, (c + 4) * probes)
+    c = p_args[1].shape[1]
+    data_bytes = total if parse == "K4" else 0
+    p_bound = bound(data_bytes + 4 * c * probes + 8 * ntok,
+                    (c + 4) * probes)
     per_tape = (k3_args[0] != K_END).sum(dim=1) + 1
     used = int(per_tape.sum())
-    # the longest stream's steps, for the per-step table (phase 12)
+    # the longest stream's steps, for the per-step table (phase 13)
     per_lz = ((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum(dim=1)
     longest = dict(positions=max(len(d) for d in datas),
                    lz_tokens=int(per_lz.max()), tokens=int(tok_cnt.max()),
@@ -275,34 +303,44 @@ def encode_cell(tag, props, datas, dev, reps):
     k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
     longest["modelled_bits"] = int(bits_scan.modelled_bits(
         *k3_args[:4]).max())
-    return dict(wall=statistics.median(walls), outs=outs, k2_ms=k2_ms,
-                k3_ms=k3_ms, launches=launches, layers=stages.ms(),
-                ratio=sum(len(o) for o in outs) / total, total=total,
-                k2_bound=k2_bound, k3_bound=k3_bound, probes=probes,
-                ntok=ntok, longest=longest, k2_args=k2_args, k2_out=k2_out,
-                k3_args=k3_args, k3_out=k3_out)
+    return dict(wall=statistics.median(walls), outs=outs, parse=parse,
+                parse_ms=p_ms, k3_ms=k3_ms, launches=launches,
+                layers=stages.ms(), ratio=sum(len(o) for o in outs) / total,
+                total=total, parse_bound=p_bound, k3_bound=k3_bound,
+                probes=probes, ntok=ntok, longest=longest,
+                parse_args=p_args, parse_out=p_out, k3_args=k3_args,
+                k3_out=k3_out)
 
 
-# ----------------------------------------------------------- phase 9 parts
+def drop_inputs(cell):
+    """Free a cell's kernel inputs and outputs once its jobs are made."""
+    for key in ("parse_args", "parse_out", "k3_args", "k3_out"):
+        del cell[key]
+
+
+# ---------------------------------------------------------- phase 10 parts
 def encode_parity(props, plans, idxs, dev):
     """One preset group of the parity batch through encode_group, its
     stages held to their counterparts on the same inputs: the candidates
-    and the stitch on the CPU, K2 and K3 against their plain versions on
-    the card.  Returns (streams, fields compared, max abs difference,
-    plain seconds of K2 and K3)."""
+    and the stitch on the CPU, the parse kernel (K2 or K4) and K3 against
+    their plain versions on the card.  Returns (streams, the parse
+    kernel, fields compared, max abs difference, plain seconds of the
+    parse kernel and of K3)."""
     p0 = props[idxs[0]]
     stages = Stages()
     outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
     v = stages.values
-    data, _, run_ends = v["k2_args"][:3]
+    parse, p_args, p_out = parse_stage(v)
+    data, _, run_ends = p_args[:3]
+    width = (p0.hash_width or 8) if parse == "K4" else p0.hash_width
     cand_cpu = parse_pre.precompute_candidates(data.cpu(), run_ends.cpu(),
-                                               p0.hash_bits, p0.hash_width)
+                                               p0.hash_bits, width)
     err = max_diff(v["cand"], cand_cpu)
     check(err == 0, "encode parity: candidates differ from the CPU's")
     t0 = sync_time()
-    want = parse_scan.parse_plain(*v["k2_args"])
-    k2_plain_s = sync_time() - t0
-    err = max(err, compare("encode parity", "K2", v["k2_out"], want))
+    want = PLAIN[parse](*p_args)
+    parse_plain_s = sync_time() - t0
+    err = max(err, compare("encode parity", parse, p_out, want))
     tape, data, run_tables = v["stitch_args"]
     ref = stitch.stitch_tapes(tape.cpu(), data.cpu(), run_tables)
     for name, g, w in zip("kabc", v["k3_args"][:4], ref[:4]):
@@ -312,13 +350,13 @@ def encode_parity(props, plans, idxs, dev):
     want = bits_scan.bits_plain(*v["k3_args"])
     k3_plain_s = sync_time() - t0
     err = max(err, compare("encode parity", "K3", v["k3_out"], want))
-    nfields = 1 + len(FIELDS["K2"]) + 4 + len(FIELDS["K3"])
-    return outs, nfields, err, k2_plain_s, k3_plain_s
+    nfields = 1 + len(FIELDS[parse]) + 4 + len(FIELDS["K3"])
+    return outs, parse, nfields, err, parse_plain_s, k3_plain_s
 
 
 def k3_edge_jobs(dev):
     """K3 on the card on each batch of its edge tapes, and the jobs that
-    hold it to its plain version (on the host CPU) in phase 11."""
+    hold it to its plain version (on the host CPU) in phase 12."""
     jobs = []
     for name, tapes, args, _ in torch_edge_cases.k3_cases():
         cpu = tuple(torch.from_numpy(t) for t in tapes) + args
@@ -330,7 +368,7 @@ def k3_edge_jobs(dev):
     return jobs
 
 
-# ---------------------------------------------------------- phase 11 parts
+# ---------------------------------------------------------- phase 12 parts
 def start_plain(jobs, sdir):
     """One worker process a job, all started together, on the CPU."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
@@ -412,10 +450,11 @@ def main(procs):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     phase("ptxas", kernel=name, line=line.strip())
-    # K1-K3's registers, stack frame and local-memory traffic (ptxas
+    # K1-K4's registers, stack frame and local-memory traffic (ptxas
     # -v and cuobjdump -sass; _build.resources raises if either cannot be
     # read), and K1's blocks per SM (the design's two)
-    res = {n: _build.resources(n) for n in ("csc_k1", "csc_k2", "csc_k3")}
+    res = {n: _build.resources(n)
+           for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4")}
     res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
     for name, r in res.items():
         phase("resources", kernel=name, **r)
@@ -495,8 +534,9 @@ def main(procs):
         tag = f"encode_headline m{level}"
         ep = [props_init(HEAD_BYTES, level) for _ in range(ENC_STREAMS)]
         cell = encode_cell(tag, ep, ed, dev, 5)
-        cells[level] = cell
-        for kernel, args, out in (("K2", cell["k2_args"], cell["k2_out"]),
+        cells[tag] = cell
+        for kernel, args, out in (("K2", cell["parse_args"],
+                                   cell["parse_out"]),
                                   ("K3", cell["k3_args"], cell["k3_out"])):
             jobs.append(plain_job(tag, kernel, args, 5))
             same_rows(tag, kernel, out, jobs[-1]["kernel_out"],
@@ -505,30 +545,55 @@ def main(procs):
         phase("encode_headline", level=f"m{level}", streams=ENC_STREAMS,
               bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
               wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
-              k2_ms=f"{cell['k2_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
-              k2_bound_ms=f"{cell['k2_bound'][0]:.6f}",
+              k2_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              k2_bound_ms=f"{cell['parse_bound'][0]:.6f}",
               k3_bound_ms=f"{cell['k3_bound'][0]:.6f}",
               tokens=cell["ntok"], lz_tokens=cell["probes"],
               ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
               launches_k2=cell["launches"]["K2"],
               launches_k3=cell["launches"]["K3"])
-        for key in ("k2_args", "k2_out", "k3_args", "k3_out"):
-            del cell[key]
+        drop_inputs(cell)
 
-    # ---------------------------------------------------- 6 encode_extract
+    # --------------------------------------------------------- 6 encode_ap
+    # the optimal parse (m3-m5) at bench.py's m3 / m5 shape, 32 x 16 KB
+    # text, filters on (bench.py:241-290), and at m4
+    ad = hd[:AP_STREAMS]
+    for level in (3, 4, 5):
+        tag = f"encode_ap m{level}"
+        ap = [props_init(HEAD_BYTES, level) for _ in range(AP_STREAMS)]
+        cell = encode_cell(tag, ap, ad, dev, 3)
+        cells[tag] = cell
+        if level in (3, 5):
+            jobs.append(plain_job(tag, "K4", cell["parse_args"], 3))
+            same_rows(tag, "K4", cell["parse_out"], jobs[-1]["kernel_out"],
+                      PLAIN_STREAMS["K4"])
+        phase("encode_ap_layers", level=f"m{level}", **cell["layers"])
+        phase("encode_ap", level=f"m{level}", streams=AP_STREAMS,
+              bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
+              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
+              k4_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              k4_bound_ms=f"{cell['parse_bound'][0]:.6f}",
+              tokens=cell["ntok"], lz_tokens=cell["probes"],
+              ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
+              launches_k4=cell["launches"]["K4"],
+              launches_k3=cell["launches"]["K3"])
+        drop_inputs(cell)
+
+    # ---------------------------------------------------- 7 encode_extract
     gp = [props_init(GROUP_BYTES, 1) for _ in group]
     ext = encode_cell("encode_extract", gp, group, dev, 1)
+    cells["encode_extract"] = ext
     group_blobs = ext["outs"]
     phase("encode_extract", streams=len(group), bytes=ext["total"],
           wall_s=f"{ext['wall']:.3f}",
           wall_mbps=f"{ext['total'] / ext['wall'] / 1e6:.2f}",
-          k2_ms=f"{ext['k2_ms']:.1f}", k3_ms=f"{ext['k3_ms']:.1f}",
+          k2_ms=f"{ext['parse_ms']:.1f}", k3_ms=f"{ext['k3_ms']:.1f}",
           ratio=f"{ext['ratio']:.4f}", round_trip="K1 byte-exact",
           launches_k2=ext["launches"]["K2"],
           launches_k3=ext["launches"]["K3"])
-    del ext["k2_args"], ext["k2_out"], ext["k3_args"], ext["k3_out"]
+    drop_inputs(ext)
 
-    # ----------------------------------------------------------- 7 extract
+    # ----------------------------------------------------------- 8 extract
     gps = gp * GROUP_REPEAT
     gb = group_blobs * GROUP_REPEAT
     gd = group * GROUP_REPEAT
@@ -553,7 +618,7 @@ def main(procs):
           kernel_mbps=f"{gbytes / g_ms / 1e3:.2f}",
           launches=k1_launches["extract"])
 
-    # ---------------------------------------------------------------- 8 cli
+    # ---------------------------------------------------------------- 9 cli
     from csc_tpu_torch import cli
     src, enc, dst, reg = (os.path.join(sdir, n) for n in (
         "cli.bin", "cli.csc", "cli.out", "cli_regrow.csc"))
@@ -604,14 +669,14 @@ def main(procs):
           f"{k1_launches['cli_regrow']} K1 launches",
           regrow_d_seconds=f"{t4 - t3:.2f}")
 
-    # --------------------------- 11 plain (workers on the CPU) start here
+    # --------------------------- 12 plain (workers on the CPU) start here
     jobs += k3_edge_jobs(dev)
     procs.extend(start_plain(jobs, sdir))
     phase("plain_start", workers=len(procs),
           jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
                         for j in jobs))
 
-    # ----------------------------------------------------- 9 encode_parity
+    # ---------------------------------------------------- 10 encode_parity
     props = [c[1] for c in par]
     plans = [encode_host.plan_stream(p, d) for _, p, d in par]
     check(len({p.hash_bits for p in props if p.hash_width == 1}) == 1
@@ -619,22 +684,43 @@ def main(procs):
           "parity: one preset per level")
     par_blobs = [None] * len(par)
     max_err = 0
-    plain_card_s = {"K2": 0.0, "K3": 0.0}
+    plain_card_s = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
     for level in (1, 2):
         idxs = [i for i, p in enumerate(props)
                 if (p.hash_width == 1) == (level == 1)]
-        outs, nf, err, k2_plain_s, k3_plain_s = encode_parity(
+        outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
             props, plans, idxs, dev)
         for i, out in zip(idxs, outs):
             par_blobs[i] = out
         max_err = max(max_err, err)
-        plain_card_s["K2"] += k2_plain_s
+        plain_card_s[parse] += p_plain_s
         plain_card_s["K3"] += k3_plain_s
         phase("encode_parity", level=f"m{level}", streams=len(idxs),
               fields_compared=nf, max_abs_err=err,
-              k2_plain_s=f"{k2_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
+              k2_plain_s=f"{p_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
+    # the batch's text and EXE streams at m3: K4 against its plain version
+    ap_props = []
+    for _, p, _ in par[:3]:
+        q = props_init(PARITY_BYTES, 3)
+        q.DLTFilter, q.EXEFilter, q.TXTFilter = (p.DLTFilter, p.EXEFilter,
+                                                 p.TXTFilter)
+        ap_props.append(q)
+    ap_plans = [encode_host.plan_stream(q, d)
+                for q, (_, _, d) in zip(ap_props, par[:3])]
+    outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
+        ap_props, ap_plans, [0, 1, 2], dev)
+    check(parse == "K4", "parity m3: the group did not run K4")
+    back = pipeline.decode_batch(ap_props, outs, device=dev)
+    check(back == [c[2] for c in par[:3]], "parity m3: the round trip "
+          "through K1 differs")
+    max_err = max(max_err, err)
+    plain_card_s["K4"] += p_plain_s
+    plain_card_s["K3"] += k3_plain_s
+    phase("encode_parity", level="m3", streams=3, fields_compared=nf,
+          max_abs_err=err, k4_plain_s=f"{p_plain_s:.3f}",
+          k3_plain_s=f"{k3_plain_s:.3f}")
 
-    # ----------------------------------------------------------- 10 parity
+    # ----------------------------------------------------------- 11 parity
     par_blobs[-1] = corpus.flip(par_blobs[-1])
     args = demux_upload(props, par_blobs, dev)
     wnd_size = pipeline._bucket(max(len(c[2]) for c in par))
@@ -681,15 +767,19 @@ def main(procs):
           flipped_flagged=bool(flagged_k), flipped_identical=flipped_identical,
           block_types=types, plain_seconds=f"{plain_card_s['K1']:.3f}")
 
-    # ------------------------------------------------------------ 11 plain
+    # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs))
-    m1 = cells[1]
+    m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
     launches = {"K1": k1_launches}
-    for kernel in ("K2", "K3"):
-        launches[kernel] = {"encode_headline m1": cells[1]["launches"][kernel],
-                            "encode_headline m2": cells[2]["launches"][kernel],
-                            "encode_extract": ext["launches"][kernel]}
+    for kernel in ("K2", "K3", "K4"):
+        launches[kernel] = {tag: c["launches"][kernel]
+                            for tag, c in cells.items()
+                            if kernel in c["launches"]}
+    card_on = {"K1": "the parity batch", "K2": "the m1 + m2 parity groups",
+               "K3": "the m1 + m2 + m3 parity groups",
+               "K4": "the m3 parity group (the batch's text and EXE "
+                     "streams)"}
 
     def row(kernel, name, source, replaces, ms, on, bnd, tag):
         j = plain[(kernel, tag)]
@@ -703,13 +793,12 @@ def main(procs):
                             f"on one CPU core of the card's host",
                 "kernel_ms_on_those_streams": round(j["kernel_ms"], 4),
                 "plain_card_ms": round(plain_card_s[kernel] * 1e3, 2),
-                "plain_card_on": "the parity batch" if kernel == "K1"
-                else "the m1 + m2 parity groups",
+                "plain_card_on": card_on[kernel],
                 "launches_by_path": launches[kernel],
                 "ns_per_step": k_steps[kernel],
                 "resources": res.get(f"csc_{kernel.lower()}")}
 
-    # ----------------------------------------------------------- 12 spikes
+    # ----------------------------------------------------------- 13 spikes
     t0 = time.time()
     for f in spikes.FILES:
         spikes.LAUNCHES[f] = 0
@@ -738,7 +827,7 @@ def main(procs):
             f"{srow[k]['name']}:a={srow[k]['a_ns']:.1f},"
             f"b={srow[k]['b_ns']:.1f},regs={srow[k]['regs']},"
             f"spill={srow[k]['spill_stores']}" for k in keys))
-    k2_ms, k3_ms = m1["k2_ms"], m1["k3_ms"]
+    k2_ms, k3_ms, k4_ms = m1["parse_ms"], m1["k3_ms"], m3["parse_ms"]
     k_steps = {
         "K1": {"ns_per_decoded_byte": k1_ms * 1e6 / k1_longest["bytes"],
                "ns_per_coded_bit": k1_ms * 1e6 / k1_longest["coded_bits"],
@@ -752,7 +841,11 @@ def main(procs):
                "ns_per_modelled_bit": k3_ms * 1e6
                / m1["longest"]["modelled_bits"],
                "longest": {k: m1["longest"][k]
-                           for k in ("tape_entries", "modelled_bits")}}}
+                           for k in ("tape_entries", "modelled_bits")}},
+        "K4": {"ns_per_position": k4_ms * 1e6 / m3["longest"]["positions"],
+               "ns_per_lz_token": k4_ms * 1e6 / m3["longest"]["lz_tokens"],
+               "longest": {k: m3["longest"][k]
+                           for k in ("positions", "lz_tokens", "tokens")}}}
     phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
                         for u, v in d.items() if u != "longest"})
     phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
@@ -771,13 +864,19 @@ def main(procs):
             "probes' candidate and rep lanes in one round trip, 32-byte "
             "warp extensions, serial fold on shuffled values)",
             "csc_tpu_torch/csrc/encode_k2.cu",
-            "csc_tpu/ops/pallas_parse.py:112", m1["k2_ms"], enc_on,
-            m1["k2_bound"], "encode_headline m1"),
+            "csc_tpu/ops/pallas_parse.py:112", m1["parse_ms"], enc_on,
+            m1["parse_bound"], "encode_headline m1"),
         row("K3", "K3 phase-B coder (an expanding warp, a walking lane "
             "and a coding lane, passes through a shared ring, coded bits "
             "branch-free)", "csc_tpu_torch/csrc/encode_k3.cu",
             "csc_tpu/ops/pallas_encode.py:107", m1["k3_ms"], enc_on,
             m1["k3_bound"], "encode_headline m1"),
+        row("K4", "K4 optimal (AP) parse (one thread a stream: the DP "
+            "cells in device memory, the price tables and a stream of up "
+            "to 64 KB in shared memory)", "csc_tpu_torch/csrc/encode_k4.cu",
+            "csc_tpu/ops/parse_ap.py:208", m3["parse_ms"],
+            f"{AP_STREAMS} x {HEAD_BYTES // KB} KB m3 text", m3["parse_bound"],
+            "encode_ap m3"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

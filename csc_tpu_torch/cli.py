@@ -3,10 +3,9 @@
 The counterpart of csc_tpu/cli.py: the same options, 10-byte property
 header and dict clamp (csc.cpp:101-170).  Both modes run the batched
 pipeline (ops/pipeline.py) on one stream.  --backend cuda (the default)
-runs the kernels (K2 + K3 to encode, K1 to decode) on the first CUDA
-device and raises when there is none; --backend cpu runs their plain
-PyTorch versions on the CPU.  `c` takes levels 1 and 2; levels 3-5 (the
-optimal parse) are not ported yet.
+runs the kernels (K2 or K4, then K3, to encode at levels 1-2 or 3-5; K1
+to decode) on the first CUDA device and raises when there is none;
+--backend cpu runs their plain PyTorch versions on the CPU.
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
     python -m csc_tpu_torch.cli d out.csc back.bin
@@ -46,7 +45,7 @@ def main(argv=None):
     ap.add_argument("input")
     ap.add_argument("output")
     ap.add_argument("-m", type=int, default=2, dest="level",
-                    help="compression level 1..2 (3..5 not ported yet)")
+                    help="compression level 1..5")
     ap.add_argument("-d", type=_parse_size, default=32 * MB, dest="dict_size",
                     help="dictionary size (suffix k/m)")
     ap.add_argument("--fdelta0", action="store_true", help="disable DELTA filter")

@@ -5,9 +5,9 @@ The format constants are this package's own copy of csc_tpu/constants.py
 finder's gates of csc_mf.cpp:245).  The decoder ids mirror
 csc_tpu/ops/decode_scan.py:37-107 and pallas_decode.py:108-110; the
 encoder ids mirror encode_scan.py:36-41, encode_scan_fast.py:34-38,
-encode_bits.py:23-49, parse_pre.py:37 and pallas_encode.py:87-88.  The
-port keeps copies because it imports nothing of csc_tpu; a test holds
-every copy equal to its original.
+encode_bits.py:23-49, parse_pre.py:37, pallas_encode.py:87-88 and
+parse_ap.py:34-50.  The port keeps copies because it imports nothing of
+csc_tpu; a test holds every copy equal to its original.
 """
 KB = 1024
 MB = 1024 * 1024
@@ -181,3 +181,20 @@ NBSTATES = 16
 
 # phase-B per-stream error (pallas_encode.py:87-88)
 ERR_OVERFLOW = 1  # rc or bc output capacity exhausted
+
+# optimal (AP) parse, m3-m5 (parse_ap.py:34-50): the stretch cap
+# (csc_lz.h:43), the DP's unreached price, its fsm and the post-stretch
+# actions the WALK applies at the end node
+AP_LIMIT = 2048
+INF = 0x3FFFFFFF
+AP_BLOCK = 0
+AP_FIND = 1        # node + candidates + extensions + relaxation
+AP_MARK = 2        # backward next-pointer marking
+AP_WALK = 3        # forward token emission
+AP_DONE = 4
+POST_NONE = 0      # AP_LIMIT cap: the next stretch starts at the end node
+POST_LIT = 1       # a lone literal after the path
+POST_MATCH = 2     # a good_len or cap-straddling match after the path
+# K4's per-stream error beside ERR_OVERFLOW (the tape is full): the step
+# budget ran out before K_END
+ERR_STEPS = 2

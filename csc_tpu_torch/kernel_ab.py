@@ -1,25 +1,28 @@
-"""Time K1, K2 and K3 of this checkout against another checkout's, on
-one card, in turns, at the cells of chip_smoke.py.
+"""Time K1-K4 of this checkout against another checkout's, on one card,
+in turns, at the cells of chip_smoke.py.
 
-    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3]
+    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3,K4]
                                       [--json FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*,
-encode_k2.* and encode_k3.* are built beside this checkout's and launched
-through this checkout's wrappers on the same inputs (the kernels' C
-interface is the same).  Cells: K1 on the decode headline (128 x 16 KB m1
-text) and on the extract group (256 x 1 MB m1 text, 4 slices x 64); K2
-and K3 at m1 and at m2 on the encode headline (96 x 16 KB text, filters
-on) and on the encode task (4 x 1 MB m1 text).  The inputs come from this
-checkout's encode path on the card.  Each cell is timed in turns, forward
+encode_k2.*, encode_k3.* and encode_k4.* are built beside this
+checkout's and launched through this checkout's wrappers on the same
+inputs (the kernels' C interface is the same).  Cells: K1 on the decode
+headline (128 x 16 KB m1 text) and on the extract group (256 x 1 MB m1
+text, 4 slices x 64); K2 and K3 at m1 and at m2 on the encode headline
+(96 x 16 KB text, filters on) and on the encode task (4 x 1 MB m1 text);
+K4 at m3 and at m5 on 32 x 16 KB text, filters on (bench.py's m3_text /
+m5_text rows).  The inputs come from this checkout's encode path on the
+card.  Each cell is timed in turns, forward
 then backward (other, this, this, other; CUDA events, the median of
 `reps` calls a turn, the best turn kept), and the other build's outputs
 must equal this one's on every field.  Prints, with the card's name and
 power limit: a line a cell (ms of each build, ns per step of the longest
 stream: K3's per tape entry and per modelled bit, a bit coded through a
-probability), and each build's registers, stack frame, LDL / STL and K1's
-blocks per SM.  Needs a CUDA card.
+probability; K2 and K4 per position and per LZ token), and each build's
+registers, stack frame, LDL / STL and K1's blocks per SM.  Needs a CUDA
+card.
 """
 import argparse
 import json
@@ -33,8 +36,8 @@ import torch
 
 from . import _build, corpus
 from .constants import K_END, K_SENT_A
-from .ops import (bits_kernel, bits_scan, decode_kernel, parse_kernel,
-                  pipeline)
+from .ops import (bits_kernel, bits_scan, decode_kernel, parse_ap_kernel,
+                  parse_kernel, pipeline)
 from .props import props_init
 
 KB, MB = 1024, 1024 * 1024
@@ -101,18 +104,22 @@ def k1_cell(props, blobs, sizes, dev, other, reps):
 
 
 def stage_args(props, datas, dev):
-    """K2's and K3's inputs on the encode path, and the encoded streams."""
+    """The parse kernel's (K2's or K4's) and K3's inputs on the encode
+    path, and the encoded streams."""
     seen = {}
 
     def on_stage(name, **values):
         seen.update(values)
     outs = pipeline.encode_batch(props, datas, device=dev, on_stage=on_stage)
-    return seen["k2_args"], seen["k3_args"], outs
+    return seen.get("k2_args", seen.get("k4_args")), seen["k3_args"], outs
 
 
-def k2_cell(args, sizes, other, reps):
-    ms, out = turns("csc_k2", other, lambda: parse_kernel.parse_k2(*args),
-                    reps)
+def parse_cell(name, args, sizes, other, reps):
+    """A parse kernel's cell (name "csc_k2" or "csc_k4"): ms, and ns per
+    position and per LZ token of the longest stream."""
+    launch = (parse_kernel.parse_k2 if name == "csc_k2"
+              else parse_ap_kernel.parse_k4)
+    ms, out = turns(name, other, lambda: launch(*args), reps)
     tape, tok_cnt = out[0], out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
@@ -147,7 +154,7 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--json", help="write the results here too")
-    ap.add_argument("--kernels", default="K1,K2,K3",
+    ap.add_argument("--kernels", default="K1,K2,K3,K4",
                     help="the kernels whose cells to time")
     a = ap.parse_args(argv)
     want = set(a.kernels.split(","))
@@ -158,12 +165,18 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    names = ("csc_k1", "csc_k2", "csc_k3")
     other_csrc = os.path.join(os.path.abspath(a.other), "csc_tpu_torch",
                               "csrc")
+    # a kernel the other checkout does not have (K4 before its port) is
+    # left out
+    names = tuple(n for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4")
+                  if os.path.exists(os.path.join(other_csrc,
+                                                 _build.KERNELS[n][0])))
+    want &= {"K" + n[-1] for n in names}
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
-    k1, k2, k3 = (_build.load(n, other_csrc) for n in names)
+    other = {n: _build.load(n, other_csrc) for n in names}
+    k1, k2, k3, k4 = (other.get(f"csc_k{i}") for i in range(1, 5))
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
@@ -195,15 +208,21 @@ def main(argv=None):
         ep = [props_init(16 * KB, level) for _ in enc]
         args2, args3, _ = stage_args(ep, enc, dev)
         if "K2" in want:
-            cells[f"K2 m{level} 96 x 16 KB"] = k2_cell(
-                args2, [len(d) for d in enc], k2, 5)
+            cells[f"K2 m{level} 96 x 16 KB"] = parse_cell(
+                "csc_k2", args2, [len(d) for d in enc], k2, 5)
         if "K3" in want:
             cells[f"K3 m{level} 96 x 16 KB"] = k3_cell(args3, k3, 5)
     if "K2" in want:
-        cells["K2 task 4 x 1 MB"] = k2_cell(
-            k2_task, [len(d) for d in group], k2, 2)
+        cells["K2 task 4 x 1 MB"] = parse_cell(
+            "csc_k2", k2_task, [len(d) for d in group], k2, 2)
     if "K3" in want:
         cells["K3 task 4 x 1 MB"] = k3_cell(k3_task, k3, 2)
+    ap_streams = head[:32]
+    for level in (3, 5) if "K4" in want else ():
+        aps = [props_init(16 * KB, level) for _ in ap_streams]
+        args4, _, _ = stage_args(aps, ap_streams, dev)
+        cells[f"K4 m{level} 32 x 16 KB"] = parse_cell(
+            "csc_k4", args4, [len(d) for d in ap_streams], k4, 3)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

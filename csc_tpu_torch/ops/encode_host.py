@@ -254,7 +254,8 @@ def rle_tape(seg):
 def plan_stream(props, data):
     """Analyzer pre-pass: the filtered LZ input and run table of one
     stream, or None when the device encode cannot take it (empty, over
-    MAX_ENCODE, or an lz_mode other than the lazy parse of m1/m2).
+    MAX_ENCODE, or an lz_mode other than the lazy parse of m1/m2 and the
+    optimal parse of m3-m5).
 
     Returns (lz_input: bytes, runs: [(type, filtered_len, declared_size,
     chunk_last, payload)]).  Mirrors CSCEncoder::Compress
@@ -270,7 +271,10 @@ def plan_stream(props, data):
     size = len(data)
     if size == 0 or size > MAX_ENCODE:
         return None
-    if props.lz_mode not in (1, 2) or props.bt_size:
+    # m5's binary-tree finder (bt_size > 0) rides the optimal parse with
+    # width-8 hash chains in its place, as csc_tpu's fast path does
+    # (plan_stream with allow_ap, csc_tpu/ops/encode_host.py:272-279)
+    if props.lz_mode not in (1, 2, 3):
         return None
     use_filters = (props.DLTFilter + props.EXEFilter + props.TXTFilter) > 0
 

@@ -5,23 +5,26 @@ decode: host demux -> upload -> K1 -> host inverse filters.  The
 counterpart of csc_tpu/ops/pipeline.py `decode_batch` (and the host side
 of pallas_decode.py `decode_batch_pallas`).
 
-encode (m1/m2): host plan (analyzer + forward filters) -> candidates
-(parse_pre) -> K2 lazy parse -> stitch -> K3 phase-B coder -> host remux.
-The counterpart of csc_tpu/ops/pipeline.py `encode_batch` on its fast
-path (pipeline.py:335-389).  Where csc_tpu falls back to its host golden
-encoder (a stream the planner rejects, one over the 1 MB device cap, the
-m3-m5 levels, a K3 output overflow) this port raises EncodeError naming
-the stream and the reason: it never encodes on the host.
+encode: host plan (analyzer + forward filters) -> candidates (parse_pre)
+-> K2 lazy parse (m1/m2) or K4 optimal parse (m3-m5) -> stitch -> K3
+phase-B coder -> host remux.  The counterpart of csc_tpu/ops/pipeline.py
+`encode_batch` on its fast path (pipeline.py:335-389 and, at m3-m5,
+391-467).  Where csc_tpu falls back to its host golden encoder (a stream
+the planner rejects, one over the 1 MB device cap, a K3 output overflow)
+this port raises EncodeError naming the stream and the reason: it never
+encodes on the host.
 """
 import numpy as np
 import torch
 
 from .. import constants, native
 from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
-                         MAX_WINDOW, DECODE_ERROR)
-from . import encode_host, framing, parse_pre, stitch
+                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
+from . import encode_host, framing, parse_pre, prices, stitch
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
+from .parse_ap_kernel import parse_k4
+from .parse_ap_scan import max_steps_for
 from .parse_kernel import parse_k2
 from .parse_scan import tape_capacity
 
@@ -164,10 +167,9 @@ def plan_streams(props_list, datas):
     EncodeError for a stream the device path does not take."""
     plans = []
     for i, (props, data) in enumerate(zip(props_list, datas)):
-        if props.lz_mode not in (1, 2) or props.bt_size:
-            raise EncodeError(
-                f"stream {i}: lz_mode {props.lz_mode} (levels m3-m5, the "
-                f"optimal parse) is not ported yet (ROADMAP queue 1 item 5)")
+        if props.lz_mode not in (1, 2, 3):
+            raise EncodeError(f"stream {i}: lz_mode {props.lz_mode} has no "
+                              f"device parse")
         if len(data) > encode_host.MAX_ENCODE:
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is over the "
@@ -185,34 +187,65 @@ def plan_streams(props_list, datas):
 
 
 def _groups(props_list, plans):
-    """Stream indices grouped by preset (a device call runs one preset),
-    each group cut into calls of at most ENCODE_GROUP_BYTES of input."""
+    """(stream indices, width) of each device call: streams grouped by
+    preset (a call runs one preset), each group cut into calls of at most
+    ENCODE_GROUP_BYTES of input.  At m3-m5 a preset's streams are first
+    split by their power-of-two size bucket and the width is csc_tpu's for
+    the bucket (`ap_width`); at m1 / m2 the width is the call's longest
+    stream (None)."""
     by_preset = {}
     for i, plan in enumerate(plans):
         if plan is not None:
             p = props_list[i]
-            by_preset.setdefault((p.hash_bits, p.hash_width, p.good_len,
-                                  p.lz_mode, p.csc_blocksize), []).append(i)
+            key = (p.hash_bits, p.hash_width, p.good_len, p.lz_mode,
+                   p.csc_blocksize)
+            if p.lz_mode == 3:
+                key += (_bucket(len(plan[0])),)
+            by_preset.setdefault(key, []).append(i)
     groups = []
     for key in sorted(by_preset):
+        idxs = sorted(by_preset[key], key=lambda i: len(plans[i][0]))
+        width = ap_width([plans[i] for i in idxs]) if key[3] == 3 else None
         cur, nbytes = [], 0
-        for i in sorted(by_preset[key], key=lambda i: len(plans[i][0])):
+        for i in idxs:
             n = len(plans[i][0])
             if cur and nbytes + n > ENCODE_GROUP_BYTES:
-                groups.append(cur)
+                groups.append((cur, width))
                 cur, nbytes = [], 0
             cur.append(i)
             nbytes += n
-        groups.append(cur)
+        groups.append((cur, width))
     return groups
 
 
-def group_inputs(props_list, plans, idxs, device):
-    """The device inputs of one group: data [B, N] u8, run_ends and
-    run_skip [B, R] i32, sizes and dict_sizes [B] i32."""
+def ap_width(plans):
+    """The cell width the optimal parse of these streams runs at: csc_tpu's
+    group width for them (pipeline.py:266-276, 302-309), the smallest 2^k
+    or 3 * 2^(k-1), at least 1024, that holds the longest
+    (pallas_decode.py `_bucket15`).  The parse's output depends on it: a
+    match into the last column of the cells is undone
+    (ops/parse_ap_scan.py), which touches a stream only when it is exactly
+    that long."""
+    n = max(len(plan[0]) for plan in plans)
+    b = 1024
+    while b < n:
+        if b + b // 2 >= n:
+            return b + b // 2
+        b *= 2
+    return b
+
+
+def group_inputs(props_list, plans, idxs, device, width=None):
+    """The device inputs of one group: data [B, N] u8 (N = width, or the
+    longest stream), run_ends and run_skip [B, R] i32, sizes and
+    dict_sizes [B] i32."""
     lz = [plans[i][0] for i in idxs]
     rts = [plans[i][1] for i in idxs]
     n = max(len(x) for x in lz)
+    if width is not None:
+        if width < n:
+            raise ValueError(f"width {width} < the longest stream, {n}")
+        n = width
     r = max(len(rt) for rt in rts)
     data = np.zeros((len(idxs), n), np.uint8)
     run_ends = np.zeros((len(idxs), r), np.int32)
@@ -255,38 +288,60 @@ def remux_group(props, coded):
         for j in range(len(rc_cnt))]
 
 
-def encode_group(props_list, plans, idxs, device, on_stage=None):
+def encode_group(props_list, plans, idxs, device, on_stage=None,
+                 width=None):
     """Encode the streams `idxs` of a batch, all of one preset, on
-    `device` from their encode_host.plan_stream plans: candidates, K2,
-    stitch, K3, remux.  Returns their raw streams in `idxs` order.
+    `device` from their encode_host.plan_stream plans: candidates, K2 (m1
+    / m2) or K4 (m3-m5), stitch, K3, remux.  Returns their raw streams in
+    `idxs` order.  width: the data width (the longest stream by default;
+    at m3-m5, `ap_width` of the streams).
 
     on_stage, when given, is called as on_stage(name, **values) after each
     stage, so a caller can time the stages and hold each kernel to its
     plain version on the inputs this path gives it:
-      "precompute"  cand ([B, 2C, N] candidates), k2_args (K2's arguments)
-      "k2"          k2_out (K2's outputs)
+      "precompute"  cand ([B, 2C, N] candidates), k2_args or k4_args (the
+                    parse kernel's arguments)
+      "k2" / "k4"   k2_out / k4_out (its outputs)
       "stitch"      stitch_args (the stitch's), k3_args (K3's arguments)
       "k3"          k3_out (K3's outputs)
       "remux"       outs (the raw streams)
     """
     note = on_stage or (lambda name, **values: None)
     p0 = props_list[idxs[0]]
+    ap = p0.lz_mode == 3
+    if ap and width is None:
+        width = ap_width([plans[i] for i in idxs])
     data, run_ends, run_skip, sizes, dicts = group_inputs(
-        props_list, plans, idxs, device)
+        props_list, plans, idxs, device, width)
+    # m5's binary-tree finder is stood in for by width-8 chains
+    # (csc_tpu pipeline.py:391-399)
+    hash_width = (p0.hash_width or 8) if ap else p0.hash_width
     cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
-                                           p0.hash_width)
-    k2_args = (data, parse_pre.pack_candidates(cand), run_ends, run_skip,
-               sizes, dicts, p0.good_len,
-               tape_capacity(data.shape[1], run_ends.shape[1]))
-    note("precompute", cand=cand, k2_args=k2_args)
+                                           hash_width)
+    n = data.shape[1]
+    args = (data, parse_pre.pack_candidates(cand), run_ends, run_skip,
+            sizes, dicts)
+    tcap = tape_capacity(n, run_ends.shape[1])
+    if ap:
+        kernel = "k4"
+        args += (torch.from_numpy(prices.pack_prices(
+            prices.snapshot_prices())).to(device), p0.good_len, tcap,
+            max_steps_for(n))
+    else:
+        kernel = "k2"
+        args += (p0.good_len, tcap)
+    note("precompute", cand=cand, **{kernel + "_args": args})
     del cand
-    k2_out = parse_k2(*k2_args)
-    note("k2", k2_out=k2_out)
-    tape, tok_cnt, done, err = k2_out
+    out = (parse_k4 if ap else parse_k2)(*args)
+    note(kernel, **{kernel + "_out": out})
+    tape, tok_cnt, done, err = out
     tok_cnt, done, err = (t.cpu().numpy() for t in (tok_cnt, done, err))
     bad = [idxs[j] for j in range(len(idxs)) if err[j] or not done[j]]
     if bad:
-        raise EncodeError(f"stream(s) {bad}: the parse did not finish")
+        raise EncodeError(f"stream(s) {bad}: the parse did not finish "
+                          f"(err {sorted({int(e) for e in err})}: "
+                          f"{ERR_OVERFLOW} a full tape, {ERR_STEPS} the "
+                          f"step budget)")
     tape = tape[:, :int(tok_cnt.max())].contiguous()
     run_tables = [plans[i][1] for i in idxs]
     kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
@@ -309,13 +364,13 @@ def encode_group(props_list, plans, idxs, device, on_stage=None):
 
 
 def encode_batch(props_list, datas, *, device=CUDA, on_stage=None):
-    """Encode B independent streams at m1/m2 on `device`.
+    """Encode B independent streams at m1-m5 on `device`.
 
     Returns list[bytes], the raw streams without the property header,
     byte-identical to csc_tpu's encode_batch on its fast path.  Streams
     are grouped by preset (one device call per preset and size group).
     An empty stream is the SIG_EOF chunk alone.  Raises EncodeError for
-    a stream it cannot take (m3-m5, over MAX_ENCODE, longer than its
+    a stream it cannot take (over MAX_ENCODE, longer than its
     dictionary) or that a kernel flags.  on_stage: as encode_group's,
     called once more as on_stage("plan", plans=...) after the host plan.
     """
@@ -331,9 +386,9 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None):
             outs[i] = encode_host.remux_stream(
                 props_list[i].csc_blocksize, b"", b"", [], [],
                 chunk_ends=[])
-    for idxs in _groups(props_list, plans):
+    for idxs, width in _groups(props_list, plans):
         for i, out in zip(idxs, encode_group(props_list, plans, idxs,
-                                              device, on_stage)):
+                                              device, on_stage, width)):
             outs[i] = out
     return outs
 

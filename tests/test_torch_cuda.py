@@ -5,10 +5,12 @@ parity batch and on a stream whose dictionary is smaller than it, K3
 and encode_batch raising on that overflow; K1 and K2 on the edge
 streams of their designs and K3 on its edge tapes
 (tests/torch_edge_cases.py), K1's two blocks
-per SM, a 1 MB stream round-tripped through K2, K3 and K1, and the
-A/B tool (csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a
-card; without one every test here skips.  On a machine with a card (it
-needs no jax):
+per SM, a 1 MB stream round-tripped through K2, K3 and K1; K4
+(encode_k4.cu) at m3, m4 and m5 on its edge streams, with a tape too
+short and a step budget cut, and m3 streams through K4, K3 and K1, equal
+to the CPU's encode; and the A/B tool (csc_tpu_torch/kernel_ab.py) run
+against this checkout.  Needs a card; without one every test here skips.
+On a machine with a card (it needs no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
@@ -20,11 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream
 from csc_tpu_torch import constants, corpus, kernel_ab
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
-                               decode_scan, encode_host, parse_kernel,
-                               parse_pre, parse_scan, pipeline, stitch)
+                               decode_scan, encode_host, parse_ap_kernel,
+                               parse_ap_scan, parse_kernel, parse_pre,
+                               parse_scan, pipeline, prices, stitch)
 from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
 from csc_tpu_torch.props import props_init
 
@@ -308,7 +312,8 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
     assert sorted(res["cells"]) == sorted([
         "K1 headline 128 x 16 KB", "K1 extract 256 x 1 MB",
         "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB",
-        "K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB"])
+        "K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB",
+        "K4 m3 32 x 16 KB", "K4 m5 32 x 16 KB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -318,3 +323,72 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
     this, other = res["resources"]["this"], res["resources"]["other"]
     assert this["csc_k1"].pop("blocks_per_sm") == 2
     assert this == other
+
+
+# ------------------------------------------------- K4, the optimal parse
+def _k4_args(cases, dev, tcap=None, max_steps=None):
+    props = [c[1] for c in cases]
+    plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
+    ins = pipeline.group_inputs(props, plans, list(range(len(cases))), dev)
+    p0 = props[0]
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        ins[0], ins[1], p0.hash_bits, p0.hash_width or 8))
+    pr = torch.from_numpy(prices.pack_prices(prices.snapshot_prices()))
+    n, r = ins[0].shape[1], ins[1].shape[1]
+    return (ins[0], candp, *ins[1:], pr.to(dev), p0.good_len,
+            tcap or parse_scan.tape_capacity(n, r),
+            max_steps or parse_ap_scan.max_steps_for(n))
+
+
+def _k4_against_plain(args):
+    launches = parse_ap_kernel.LAUNCHES
+    got = parse_ap_kernel.parse_k4(*args)
+    torch.cuda.synchronize()
+    assert parse_ap_kernel.LAUNCHES == launches + 1
+    want = parse_ap_scan.parse_ap_plain(*(a.cpu() if torch.is_tensor(a)
+                                          else a for a in args))
+    for name, g, w in zip(("tape", "tok_cnt", "done", "err"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("level", [3, 4, 5])
+def test_k4_matches_plain(dev, level):
+    """The streams the plain version is held to csc_tpu with and K4's
+    edge streams (runs across the sub-block end, extensions past 8
+    rounds at stretch starts, the AP_LIMIT cap, the last column)."""
+    for cases in (edges.ap_cases(level), edges.k4_cases(level)):
+        got = _k4_against_plain(_k4_args(cases, dev))
+        assert bool(got[2].all()) and not bool(got[3].any())
+
+
+@pytest.mark.parametrize("tcap,max_steps", [(7, None), (None, 1234)])
+def test_k4_tape_overflow_and_step_budget(dev, tcap, max_steps):
+    got = _k4_against_plain(_k4_args(edges.k4_cases(3), dev, tcap,
+                                     max_steps))
+    err = constants.ERR_OVERFLOW if tcap else constants.ERR_STEPS
+    assert bool((got[3] == err).any())
+
+
+def test_m3_streams_through_k4_k3_k1_equal_the_cpus(dev):
+    """m3 streams encoded on the card (K4 and K3 launched once each) are
+    the CPU's (the plain versions) byte for byte and decode through K1;
+    a 256 KB stream, too long for the plain versions, round-trips on the
+    card alone."""
+    text = corpus.torch_python_text(1024 * 1024)
+    datas = [text[:3000], text[5000:6500], b"A" * 700 + text[9000:9800]]
+    props = [props_init(len(d), 3) for d in datas]
+    launches = (parse_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES)
+    card = pipeline.encode_batch(props, datas, device=dev)
+    assert (parse_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES) == tuple(
+        n + 1 for n in launches)
+    assert card == pipeline.encode_batch(props, datas,
+                                         device=torch.device("cpu"))
+    assert pipeline.decode_batch(props, card, device=dev) == datas
+    for p, blob, data in zip(props, card, datas):
+        assert decompress_stream(p, blob, 0) == data
+    big = text[512 * 1024:768 * 1024]
+    p = props_init(len(big), 3)
+    blob = pipeline.encode_batch([p], [big], device=dev)[0]
+    assert pipeline.decode_batch([p], [blob], device=dev) == [big]

@@ -12,38 +12,40 @@ emits a stream that the golden decoder, which keeps the reference's
 ring window, rejects; encode_batch refuses such a stream, and the
 port's group encode, run on it directly, is still byte-identical to
 csc_tpu's.  Also: what encode_batch refuses, and the CLI round trip."""
-import os
-
 import pytest
 import torch
 
 from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream as golden_encode
 from csc_tpu_torch import cli, corpus
-from csc_tpu_torch.ops import bits_kernel, encode_host, parse_kernel, parse_pre
+from csc_tpu_torch.ops import (bits_kernel, encode_host, parse_ap_kernel,
+                               parse_kernel, parse_pre)
 from csc_tpu_torch.ops import pipeline
 from csc_tpu_torch.props import props_init
 
 CPU = torch.device("cpu")
 
 
-def encode_cases(level):
-    """The case set of the byte-identity tests at one level."""
-    return corpus.encode_cases(level, seed=71)
+def encode_cases(level, n=2048):
+    """The case set of the byte-identity tests at one level (text and EXE
+    streams of n bytes)."""
+    return corpus.encode_cases(level, n=n, seed=71)
 
 
-def encode_both(level, monkeypatch):
+def encode_both(level, monkeypatch, n=2048):
     """(cases, the port's streams, csc_tpu's streams); the last case,
     dict < input, through the port's group encode."""
     from csc_tpu.ops import pipeline as j_pipeline
-    cases = encode_cases(level)
+    cases = encode_cases(level, n)
     props = [c[1] for c in cases]
     datas = [c[2] for c in cases]
-    k2, k3 = parse_kernel.LAUNCHES, bits_kernel.LAUNCHES
+    launches = (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
+                bits_kernel.LAUNCHES)
     ours = pipeline.encode_batch(props[:-1], datas[:-1], device=CPU)
     plans = [encode_host.plan_stream(props[-1], datas[-1])]
     ours += pipeline.encode_group(props[-1:], plans, [0], CPU)
-    assert (parse_kernel.LAUNCHES, bits_kernel.LAUNCHES) == (k2, k3)
+    assert (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
+            bits_kernel.LAUNCHES) == launches
     monkeypatch.setenv("CSC_ENCODE_PARSE", "fast")
     monkeypatch.setenv("CSC_ENCODE_BITS", "scan")
     ref = j_pipeline.encode_batch(props, datas)
@@ -97,9 +99,12 @@ def test_empty_stream_is_the_eof_chunk():
 
 def test_refuses_what_it_cannot_encode():
     data = corpus.words(500, 1)
-    with pytest.raises(pipeline.EncodeError, match="stream 1.*not ported"):
+    # m3 is encoded now; a stream longer than its dictionary is still
+    # refused there (32 KB dictionary, 40 KB stream)
+    longer = corpus.repetitive(40 * 1024, 2)
+    with pytest.raises(pipeline.EncodeError, match="stream 1.*dictionary"):
         pipeline.encode_batch([props_init(500, 1), props_init(500, 3)],
-                              [data, data], device=CPU)
+                              [data, longer], device=CPU)
     big = b"z" * (encode_host.MAX_ENCODE + 1)
     with pytest.raises(pipeline.EncodeError, match="stream 0.*cap"):
         pipeline.encode_batch([props_init(len(big), 1)], [big], device=CPU)
@@ -143,16 +148,49 @@ def test_on_stage_sees_every_stage_of_the_one_path():
 
 
 def test_cli_round_trip_cpu_and_m3_refusal(tmp_path):
-    data = corpus.words(3000, seed=5)
-    src, enc, dec = (tmp_path / n for n in ("in.bin", "x.csc", "out.bin"))
-    src.write_bytes(data)
-    assert cli.main(["c", "-m", "1", "--backend", "cpu", str(src),
-                     str(enc)]) == 0
-    assert cli.main(["d", "--backend", "cpu", str(enc), str(dec)]) == 0
-    assert dec.read_bytes() == data
-    blob = enc.read_bytes()
+    """The CLI round trip on the CPU at -m 1 and at -m 3, which the CLI
+    refused until the optimal parse was ported: each stream decodes with
+    the port's CLI and with csc_tpu.golden, and -m 3 codes smaller."""
     from csc_tpu.props import read_properties
-    assert decompress_stream(read_properties(blob[:10]), blob, 10) == data
-    with pytest.raises(pipeline.EncodeError, match="not ported"):
-        cli.main(["c", "-m", "3", "--backend", "cpu", str(src), str(enc)])
-    assert os.path.exists(enc)
+    data = corpus.words(3000, seed=5)
+    src, dec = tmp_path / "in.bin", tmp_path / "out.bin"
+    src.write_bytes(data)
+    sizes = {}
+    for level in ("1", "3"):
+        enc = tmp_path / f"x{level}.csc"
+        assert cli.main(["c", "-m", level, "--backend", "cpu", str(src),
+                         str(enc)]) == 0
+        assert cli.main(["d", "--backend", "cpu", str(enc), str(dec)]) == 0
+        assert dec.read_bytes() == data
+        blob = enc.read_bytes()
+        assert decompress_stream(read_properties(blob[:10]), blob,
+                                 10) == data
+        sizes[level] = len(blob)
+    # the optimal parse codes the word salad smaller than m1's lazy one
+    assert sizes["3"] < sizes["1"]
+
+
+def width_case(level, monkeypatch):
+    """(cases, the port's streams, csc_tpu's streams) of a group whose
+    longest stream, text ending in a repeated phrase and one fresh byte,
+    is 1536 bytes: csc_tpu's group width, and the port's (`ap_width`).
+    One column wider, the port's parse of it differs (its last cell takes
+    a match there), so the width is what makes them equal."""
+    from csc_tpu.ops import pipeline as j_pipeline
+    text = corpus.torch_python_text(64 * 1024)
+    tail = text[20100:20112] + b"\x02"
+    data = text[30000:30000 + 1536 - len(tail)] + tail
+    cases = [("width", props_init(1536, level), data),
+             ("shorter", props_init(1000, level), text[40000:41000])]
+    props = [c[1] for c in cases]
+    datas = [c[2] for c in cases]
+    plans = [encode_host.plan_stream(p, d) for _, p, d in cases]
+    assert pipeline._groups(props, plans) == [([1, 0], 1536)]
+    ours = pipeline.encode_batch(props, datas, device=CPU)
+    wider = pipeline.encode_group(props, plans, [0], CPU, width=1537)
+    assert wider[0] != ours[0]
+    monkeypatch.setenv("CSC_ENCODE_PARSE", "fast")
+    monkeypatch.setenv("CSC_ENCODE_BITS", "scan")
+    ref = j_pipeline.encode_batch(props, datas)
+    assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    return cases, ours, ref

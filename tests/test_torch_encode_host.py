@@ -1,7 +1,8 @@
 """The port's encode host side (csc_tpu_torch.ops.encode_host) against
 csc_tpu.ops.encode_host on the CPU: plan_stream's filtered LZ input and
-run table (csc_tpu's fast path plans with allow_nolz=True), the
-CompressRLE skeleton, GetDltBpb, and the MemIO remux."""
+run table at m1-m5 (csc_tpu's fast path plans with allow_nolz=True and
+allow_ap=True), the CompressRLE skeleton, GetDltBpb, and the MemIO
+remux."""
 import numpy as np
 import pytest
 
@@ -18,12 +19,12 @@ def _cases(level):
         ("engtxt", props_init(20000, level), text)]
 
 
-@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
 def test_plan_stream_matches(level):
     kinds = set()
     for name, p, data in _cases(level):
         ours = encode_host.plan_stream(p, data)
-        ref = j_host.plan_stream(p, data, allow_nolz=True)
+        ref = j_host.plan_stream(p, data, allow_nolz=True, allow_ap=True)
         assert ours == ref, name
         kinds |= {run[0] for run in ours[1]}
         if name == "multichunk":
@@ -37,7 +38,11 @@ def test_plan_stream_matches(level):
 def test_plan_stream_rejects_what_the_device_path_does_not_take():
     data = b"x" * 100
     assert encode_host.plan_stream(props_init(100, 1), b"") is None
-    assert encode_host.plan_stream(props_init(100, 3), data) is None
+    odd = props_init(100, 1)
+    odd.lz_mode = 4                      # no device parse has this mode
+    assert encode_host.plan_stream(odd, data) is None
+    assert j_host.plan_stream(odd, data, allow_nolz=True,
+                              allow_ap=True) is None
     big = b"y" * (encode_host.MAX_ENCODE + 1)
     assert encode_host.plan_stream(props_init(len(big), 1), big) is None
 

@@ -18,7 +18,7 @@ from csc_tpu.golden import analyzer as j_analyzer
 from csc_tpu.golden.encoder import encode_stream as golden_encode
 from csc_tpu.ops import encode_bits, encode_scan, encode_scan_fast
 from csc_tpu.ops import framing as j_framing
-from csc_tpu.ops import pallas_encode, parse_pre
+from csc_tpu.ops import pallas_encode, parse_ap, parse_pre
 from csc_tpu_torch import constants, corpus, native, props
 from csc_tpu_torch.ops import encode_host, framing, pipeline
 
@@ -76,6 +76,9 @@ def test_constants_equal_their_originals():
                                 if n.startswith("FB_")),
         parse_pre: ("EXT_CAP",),
         pallas_encode: ("ERR_OVERFLOW",),
+        parse_ap: ("AP_LIMIT", "INF", "AP_BLOCK", "AP_FIND", "AP_MARK",
+                   "AP_WALK", "AP_DONE", "POST_NONE", "POST_LIT",
+                   "POST_MATCH"),
     }
     for mod, names in sources.items():
         assert names

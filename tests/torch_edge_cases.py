@@ -1,8 +1,9 @@
-"""Edge streams that drive each mechanism of K1's, K2's and K3's designs
-(csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh), shared
-by the host tests of the g++ builds and the card tests: every K1 / K2
-case is a (name, props, data) triple, every K3 case a batch of stitched
-tapes with K3's other arguments; all built from seeds."""
+"""Edge streams that drive each mechanism of K1's, K2's, K3's and K4's
+designs (csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh,
+encode_k4.cuh), shared by the host tests of the g++ builds and the card
+tests: every K1 / K2 / K4 case is a (name, props, data) triple, every K3
+case a batch of stitched tapes with K3's other arguments; all built from
+seeds."""
 import numpy as np
 import torch
 
@@ -81,6 +82,66 @@ def k2_cases(level):
     return [("strides", p(len(strides)), bytes(strides)),
             ("capped", p(len(capped)), capped),
             ("fold", p(len(fold)), fold)]
+
+
+def _ap_props(n, level, filters=False):
+    q = props.props_init(max(n, 32 * 1024), level)
+    if not filters:
+        q.DLTFilter = q.EXEFilter = q.TXTFilter = 0
+    return q
+
+
+def four_symbols(n, seed):
+    """Random bytes over 'abcd': matches of 2-8 bytes at almost every
+    position and almost none of 16 or more, so the optimal parse's
+    stretches run on to the AP_LIMIT cap."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, n) + 97).astype(np.uint8).tobytes()
+
+
+def ap_cases(level):
+    """(name, props, data) streams for the optimal parse (m3-m5), held
+    step for step to csc_tpu's and shared by K4's host and card tests:
+    text; a BAD run (a DT_NO_LZ skip) then four-symbol bytes ending in a
+    repeated phrase and one fresh byte, the longest stream, so that its
+    last cell is the last column and a match into it is undone; long
+    runs of one byte around text (rep extensions past 8 rounds at a
+    stretch start, good_len, POST_MATCH); random bytes (lone literals);
+    four-symbol bytes (a stretch ended at the AP_LIMIT cap); one byte."""
+    rng = np.random.default_rng(73)
+    text = corpus.torch_python_text(64 * 1024)
+    sym = four_symbols(1200, 74)
+    mixed = (rng.integers(0, 256, 8192, dtype=np.uint8).tobytes() + sym
+             + sym[300:310] + b"\x01")
+    runs = b"A" * 1500 + text[8000:9000] + b"A" * 1500
+    return [("text", _ap_props(2048, level), text[:2048]),
+            ("mixed_runs", _ap_props(len(mixed), level, True), mixed),
+            ("a_runs", _ap_props(len(runs), level), runs),
+            ("random", _ap_props(1024, level),
+             rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()),
+            ("cap", _ap_props(3000, level), four_symbols(3000, 75)),
+            ("one_byte", _ap_props(1, level), b"x")]
+
+
+def k4_cases(level):
+    """(name, props, data) edge streams for K4 beyond ap_cases: a run of
+    one byte across the 8 KB sub-block end (its lanes cut by the limit)
+    and then text ending in a repeated phrase and one fresh byte, the
+    longest stream (the last position's clamped reads, the last column);
+    two bytes; a short phrase repeated at distances 1-3 (csc_tpu's match
+    distance price at slots 0-2); a 40-byte phrase repeated after a lone
+    byte, so that a stretch starts on a match of 40 bytes (more than 8
+    rounds of extension, under m5's good_len of 48)."""
+    text = corpus.torch_python_text(64 * 1024)
+    run = b"B" * 8500 + text[20000:20700] + text[20100:20112] + b"\x02"
+    phrase = bytes(np.random.default_rng(76).integers(97, 123, 40,
+                                                      dtype=np.uint8))
+    return [("run_then_text", _ap_props(len(run), level), run),
+            ("two_bytes", _ap_props(2, level), b"zz"),
+            ("near", _ap_props(40, level), b"xyz" * 6 + b"#" + b"qq" * 8
+             + b"!"),
+            ("long_rep", _ap_props(200, level), phrase + b"#" + phrase
+             + b"%" + phrase + b"&" + phrase[:30])]
 
 
 def cut(a, n):
