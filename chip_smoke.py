@@ -8,8 +8,11 @@ Phases, each printing its own line; the first failure raises:
   2. build           K1-K4 and the ten spike libraries (csrc/*.cu) with
                      nvcc into build/, one nvcc per source started
                      together, with ptxas's reports of K1-K4 and their
-                     registers, stack frame, LDL / STL counts (SASS) and
-                     K1's blocks per SM
+                     registers, stack frame, LDL / STL counts (SASS),
+                     K1's blocks per SM and K4's shared memory a block
+                     and blocks per SM; it fails unless each of K1-K4
+                     has a 0-byte stack frame and no LDL / STL, K1 holds
+                     two blocks an SM and K4 four or more of 16 KB
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -88,7 +91,7 @@ CLI_BYTES, CLI_DICT = MB, 256 * KB
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
-          "K4": ("tape", "tok_cnt", "done", "err"),
+          "K4": ("tape", "tok_cnt", "done", "err", "finds"),
           "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
                  "stats")}
 PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
@@ -274,18 +277,22 @@ def encode_cell(tag, props, datas, dev, reps):
     compare(f"{tag} relaunch", "K3", k3_out, v["k3_out"])
     total = sum(len(d) for d in datas)
     # The parse reads all C candidate words at each position it probes
-    # and writes 8 bytes a token; every LZ token (kinds below K_SENT_A)
-    # starts at a probed position (K2: each step emits one token and
+    # and writes 8 bytes a token.  K2: every LZ token (kinds below
+    # K_SENT_A) starts at a probed position (each step emits one token and
     # probes at most twice, and a step that probes none follows one that
-    # probed twice; K4: a token starts at a cell its DP visited), so the
-    # LZ tokens are a lower bound on the probes.  K2 reads the data only
-    # where it extends a match, so its bound leaves the data out; K4's
-    # counts the data read once.  K3 reads 16 bytes a token up to K_END
-    # and writes the coded bytes, one operation per coded bit.
+    # probed twice), so the LZ tokens are a lower bound on the probes; it
+    # reads the data only where it extends a match, so its bound leaves
+    # the data out.  K4's lanes run at the FIND positions it counts
+    # (`finds`, held to the plain version's count: not the cap, nor the
+    # positions a post-stretch match covers) and it reads the data once.
+    # K3
+    # reads 16 bytes a token up to K_END and writes the coded bytes, one
+    # operation per coded bit.
     tape, tok_cnt = p_out[0], p_out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
-    probes = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum())
+    lz = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum())
+    probes = int(p_out[4].sum()) if parse == "K4" else lz
     ntok = int(tok_cnt.sum())
     c = p_args[1].shape[1]
     data_bytes = total if parse == "K4" else 0
@@ -307,7 +314,7 @@ def encode_cell(tag, props, datas, dev, reps):
                 parse_ms=p_ms, k3_ms=k3_ms, launches=launches,
                 layers=stages.ms(), ratio=sum(len(o) for o in outs) / total,
                 total=total, parse_bound=p_bound, k3_bound=k3_bound,
-                probes=probes, ntok=ntok, longest=longest,
+                lz=lz, probes=probes, ntok=ntok, longest=longest,
                 parse_args=p_args, parse_out=p_out, k3_args=k3_args,
                 k3_out=k3_out)
 
@@ -456,10 +463,26 @@ def main(procs):
     res = {n: _build.resources(n)
            for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4")}
     res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
+    # K4's shared memory a block and blocks an SM: price tables, the
+    # stretch's cells and a stream's data (16 KB: the m3-m5 cells), or no
+    # data (1 MB: the task); the design keeps several 16 KB streams on
+    # an SM (five), as the encode path's groups of up to 4 096 streams
+    # need
+    for tag, n in (("16k", HEAD_BYTES), ("1m", MB)):
+        res["csc_k4"]["smem_" + tag] = parse_ap_kernel.smem_bytes(n)
+        res["csc_k4"]["blocks_per_sm_" + tag] = \
+            parse_ap_kernel.blocks_per_sm(n)
     for name, r in res.items():
         phase("resources", kernel=name, **r)
     check(res["csc_k1"]["blocks_per_sm"] == 2,
           f"K1 holds {res['csc_k1']['blocks_per_sm']} blocks per SM, not 2")
+    check(res["csc_k4"]["blocks_per_sm_16k"] >= 4,
+          f"K4 holds {res['csc_k4']['blocks_per_sm_16k']} blocks of 16 KB "
+          f"streams per SM, not 4 or more")
+    for name, r in res.items():
+        check(r["stack_frame"] == 0 and r["ldl"] == 0 and r["stl"] == 0,
+              f"{name} has a {r['stack_frame']}-byte stack frame, "
+              f"{r['ldl']} LDL and {r['stl']} STL, not 0")
     sdir = os.path.join(_build.BUILD_DIR, "smoke")
     os.makedirs(sdir, exist_ok=True)
 
@@ -548,7 +571,7 @@ def main(procs):
               k2_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
               k2_bound_ms=f"{cell['parse_bound'][0]:.6f}",
               k3_bound_ms=f"{cell['k3_bound'][0]:.6f}",
-              tokens=cell["ntok"], lz_tokens=cell["probes"],
+              tokens=cell["ntok"], lz_tokens=cell["lz"],
               ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
               launches_k2=cell["launches"]["K2"],
               launches_k3=cell["launches"]["K3"])
@@ -573,7 +596,8 @@ def main(procs):
               wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
               k4_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
               k4_bound_ms=f"{cell['parse_bound'][0]:.6f}",
-              tokens=cell["ntok"], lz_tokens=cell["probes"],
+              tokens=cell["ntok"], lz_tokens=cell["lz"],
+              find_positions=cell["probes"],
               ratio=f"{cell['ratio']:.4f}", round_trip="K1 byte-exact",
               launches_k4=cell["launches"]["K4"],
               launches_k3=cell["launches"]["K3"])
@@ -871,9 +895,13 @@ def main(procs):
             "branch-free)", "csc_tpu_torch/csrc/encode_k3.cu",
             "csc_tpu/ops/pallas_encode.py:107", m1["k3_ms"], enc_on,
             m1["k3_bound"], "encode_headline m1"),
-        row("K4", "K4 optimal (AP) parse (one thread a stream: the DP "
-            "cells in device memory, the price tables and a stream of up "
-            "to 64 KB in shared memory)", "csc_tpu_torch/csrc/encode_k4.cu",
+        row("K4", "K4 optimal (AP) parse (one warp a stream: a candidate "
+            "pass over 32 positions a lane each, the rep lanes, the fold "
+            "and the length grid across the warp; the stretch's back "
+            "pointers in a shared window, its prices and nodes in a "
+            "64-cell shared ring, the price tables and a stream of up to "
+            "64 KB in shared memory, five 16 KB streams an SM)",
+            "csc_tpu_torch/csrc/encode_k4.cu",
             "csc_tpu/ops/parse_ap.py:208", m3["parse_ms"],
             f"{AP_STREAMS} x {HEAD_BYTES // KB} KB m3 text", m3["parse_bound"],
             "encode_ap m3"),

@@ -12,15 +12,24 @@ inputs (the kernels' C interface is the same).  Cells: K1 on the decode
 headline (128 x 16 KB m1 text) and on the extract group (256 x 1 MB m1
 text, 4 slices x 64); K2 and K3 at m1 and at m2 on the encode headline
 (96 x 16 KB text, filters on) and on the encode task (4 x 1 MB m1 text);
-K4 at m3 and at m5 on 32 x 16 KB text, filters on (bench.py's m3_text /
-m5_text rows).  The inputs come from this checkout's encode path on the
-card.  Each cell is timed in turns, forward
-then backward (other, this, this, other; CUDA events, the median of
+K4 at m3, m4 and m5 on 32 x 16 KB text, filters on (bench.py's m3_text /
+m5_text rows, and m4), at m3 on 1 024 and 4 096 x 16 KB text (the
+largest group the encode path gives one launch: 64 MB, ENCODE_GROUP_BYTES)
+and at m3 on the encode task (4 x 1 MB text: the streams that keep
+their data in device memory).  The inputs come from this checkout's
+encode path on the card.  K4 is launched directly, this build with no
+cell copy (as on the encode path) and the other with a [B, 10, N] cell
+scratch, stamps at -1, when its library lacks csc_k4_smem (PR 7's
+one-thread design keeps its DP cells there); the tape and the scratch
+are filled before each timed call, outside its events, and the builds
+are compared on tape, tok_cnt, done and err.
+Each cell is timed in turns, forward then backward (other, this, this, other; CUDA events, the median of
 `reps` calls a turn, the best turn kept), and the other build's outputs
 must equal this one's on every field.  Prints, with the card's name and
 power limit: a line a cell (ms of each build, ns per step of the longest
 stream: K3's per tape entry and per modelled bit, a bit coded through a
-probability; K2 and K4 per position and per LZ token), and each build's
+probability; K2 and K4 per position and per LZ token, and per byte of
+the whole batch), and each build's
 registers, stack frame, LDL / STL and K1's blocks per SM.  Needs a CUDA
 card.
 """
@@ -45,10 +54,13 @@ SEED = 20261016
 NO_STEP_CAP = 1 << 62
 
 
-def event_ms(fn, reps):
-    """Median device ms of fn() over `reps` calls, and the last result."""
+def event_ms(fn, reps, prepare=None):
+    """Median device ms of fn() over `reps` calls, and the last result;
+    prepare() runs before each call, outside the timed events."""
     times, out = [], None
     for _ in range(reps):
+        if prepare is not None:
+            prepare()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(100_000)      # the host's launch latency off
@@ -64,15 +76,17 @@ def same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def turns(name, other, fn, reps):
+def turns(name, other, fn, reps, calls=None):
     """fn() timed with this checkout's kernel `name` and with `other` (a
     library of it), in turns forward then backward; ({"other": best ms,
-    "this": best ms}, this build's output)."""
+    "this": best ms}, this build's output).  calls: instead of fn, per
+    build a (prepare, fn) pair, prepare run untimed before each call."""
     builds = {"other": other, "this": _build.kernel_library(name)}
     ms, outs = {k: [] for k in builds}, {}
     for who in ("other", "this", "this", "other"):
+        prepare, call = calls[who] if calls else (None, fn)
         with _build.swapped(name, builds[who]):
-            t, out = event_ms(fn, reps)
+            t, out = event_ms(call, reps, prepare)
         ms[who].append(t)
         outs[who] = out
     for who, out in outs.items():
@@ -114,12 +128,46 @@ def stage_args(props, datas, dev):
     return seen.get("k2_args", seen.get("k4_args")), seen["k3_args"], outs
 
 
+def k4_calls(args, other):
+    """(prepare, launch) of each build for K4's raw launch on the encode
+    path's arguments: its tape and counters, and the other build's cell
+    scratch when its design keeps its cells there (no csc_k4_smem)."""
+    data, candp, run_ends, run_skip, sizes, dicts, prices, good_len, \
+        tcap, max_steps = args
+    b, n = data.shape
+    dev = data.device
+    calls = {}
+    for who, lib in (("this", _build.kernel_library("csc_k4")),
+                     ("other", other)):
+        tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
+        out = torch.zeros((4, b), dtype=torch.int32, device=dev)
+        scratch = (parse_ap_kernel.new_cells(b, n, dev)
+                   if not hasattr(lib, "csc_k4_smem") else None)
+
+        def prepare(tape=tape, scratch=scratch):
+            tape.zero_()
+            if scratch is not None:
+                scratch.zero_()
+                scratch[:, 1] = -1
+
+        def call(lib=lib, tape=tape, scratch=scratch, out=out):
+            parse_ap_kernel.launch(lib, data, candp, run_ends, run_skip,
+                                   sizes, dicts, prices, good_len, tape,
+                                   max_steps, scratch, out)
+            return tape, out[0], out[1], out[2]
+        calls[who] = (prepare, call)
+    return calls
+
+
 def parse_cell(name, args, sizes, other, reps):
     """A parse kernel's cell (name "csc_k2" or "csc_k4"): ms, and ns per
-    position and per LZ token of the longest stream."""
-    launch = (parse_kernel.parse_k2 if name == "csc_k2"
-              else parse_ap_kernel.parse_k4)
-    ms, out = turns(name, other, lambda: launch(*args), reps)
+    position and per LZ token of the longest stream.  K2 through its
+    wrapper; K4 launched directly (k4_calls)."""
+    if name == "csc_k2":
+        ms, out = turns(name, other,
+                        lambda: parse_kernel.parse_k2(*args), reps)
+    else:
+        ms, out = turns(name, other, None, reps, k4_calls(args, other))
     tape, tok_cnt = out[0], out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
@@ -129,7 +177,9 @@ def parse_cell(name, args, sizes, other, reps):
     return dict(ms=ms, ns_per_position={k: v * 1e6 / pos
                                         for k, v in ms.items()},
                 ns_per_lz_token={k: v * 1e6 / lz for k, v in ms.items()},
-                longest=dict(positions=pos, lz_tokens=lz))
+                ns_per_byte={k: v * 1e6 / sum(sizes) for k, v in ms.items()},
+                streams=len(sizes), longest=dict(positions=pos,
+                                                 lz_tokens=lz))
 
 
 def k3_longest(args):
@@ -180,8 +230,9 @@ def main(argv=None):
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
-    res["resources"]["this"]["csc_k1"]["blocks_per_sm"] = \
-        decode_kernel.blocks_per_sm()
+    if "csc_k1" in names:
+        res["resources"]["this"]["csc_k1"]["blocks_per_sm"] = \
+            decode_kernel.blocks_per_sm()
     for who, r in res["resources"].items():
         print(f"[resources] {who} " + json.dumps(r), flush=True)
 
@@ -218,11 +269,28 @@ def main(argv=None):
     if "K3" in want:
         cells["K3 task 4 x 1 MB"] = k3_cell(k3_task, k3, 2)
     ap_streams = head[:32]
-    for level in (3, 5) if "K4" in want else ():
+    for level in (3, 4, 5) if "K4" in want else ():
         aps = [props_init(16 * KB, level) for _ in ap_streams]
         args4, _, _ = stage_args(aps, ap_streams, dev)
         cells[f"K4 m{level} 32 x 16 KB"] = parse_cell(
             "csc_k4", args4, [len(d) for d in ap_streams], k4, 3)
+    for count in (1024, 4096) if "K4" in want else ():
+        # 16 KB slices of the text, from the start (wrapping at its end)
+        many = [text[i * 16 * KB % (len(text) - 16 * KB):][:16 * KB]
+                for i in range(count)]
+        args4, _, _ = stage_args([props_init(16 * KB, 3) for _ in many],
+                                 many, dev)
+        if args4[0].shape[0] != count:
+            raise RuntimeError(f"kernel_ab: {count} x 16 KB m3 took more "
+                               f"than one K4 launch")
+        cells[f"K4 m3 {count} x 16 KB"] = parse_cell(
+            "csc_k4", args4, [len(d) for d in many], k4, 2)
+        del args4
+    if "K4" in want:
+        args4, _, _ = stage_args([props_init(MB, 3) for _ in group], group,
+                                 dev)
+        cells["K4 task m3 4 x 1 MB"] = parse_cell(
+            "csc_k4", args4, [len(d) for d in group], k4, 1)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

@@ -2,15 +2,22 @@
 counterpart of csc_tpu/ops/parse_ap.py `run_ap_parse` as csc_tpu's
 pipeline drives it at m3-m5.
 
-`parse_k4` checks its tensors, allocates the tape, the counters and the
-per-stream DP scratch (10 int32 rows of N cells a stream, the stamps at
--1), and launches the kernel on the current CUDA stream (one block a
-stream; at most MAX_CAND candidate rows and good_len <= MAX_GOOD_LEN,
-which every preset meets: C = 4 or 10, good_len 16, 24 or 48).  For
-tensors on the CPU it runs the plain PyTorch version
-(ops/parse_ap_scan.py) instead; on any other device it raises.  LAUNCHES
-counts kernel launches.
+`parse_k4` checks its tensors, allocates the tape and the counters, and
+launches the kernel on the current CUDA stream (one warp a stream; at
+most MAX_CAND candidate rows and good_len <= MAX_GOOD_LEN, which every
+preset meets: C = 4 or 10, good_len 16, 24 or 48).  The DP cells live in
+each block's shared memory.  For tensors on the CPU it runs the plain
+PyTorch version (ops/parse_ap_scan.py) instead; on any other device it
+raises.  LAUNCHES counts kernel launches.
+
+`launch` is the raw launch, whose `cells` argument may take a [B, 10, N]
+int32 debug copy of the cells (`new_cells`; rows price, stamp, back,
+ndist, nstate, nxt, nrep[4]) that every cell write updates: the card
+tests hold it against the plain version's cells.  `smem_bytes` and
+`blocks_per_sm` read a block's shared memory and the blocks an SM holds.
 """
+import ctypes
+
 import torch
 
 from . import parse_ap_scan
@@ -19,6 +26,58 @@ LAUNCHES = 0
 MAX_CAND = 12       # encode_k4.cuh
 MAX_GOOD_LEN = 64
 CELL_ROWS = 10      # price, stamp, back, ndist, nstate, nxt, nrep[4]
+
+
+def new_cells(b, n, device):
+    """A [B, 10, N] int32 cell array as the plain version starts it: zeros,
+    the stamps at -1."""
+    cells = torch.zeros((b, CELL_ROWS, n), dtype=torch.int32, device=device)
+    cells[:, 1] = -1
+    return cells
+
+
+def launch(lib, data, candp, run_ends, run_skip, sizes, dict_sizes, prices,
+           good_len, tape, max_steps, cells, out):
+    """csc_k4_launch of library `lib` on the current CUDA stream, into the
+    caller's tape [B, T, 2], out [4, B] (tok_cnt, done, err, finds) and
+    cells (a [B, 10, N] tensor, or None for no copy); raises if the launch
+    fails."""
+    b, n = data.shape
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = lib.csc_k4_launch(
+            data.data_ptr(), candp.data_ptr(), n, candp.shape[1],
+            run_ends.data_ptr(), run_skip.data_ptr(), run_ends.shape[1],
+            sizes.data_ptr(), dict_sizes.data_ptr(), int(good_len),
+            prices.data_ptr(), tape.data_ptr(), tape.shape[1],
+            int(max_steps), None if cells is None else cells.data_ptr(),
+            out.data_ptr(), b, stream)
+    if rc != 0:
+        raise RuntimeError(f"K4 launch failed: cudaError_t {rc}")
+
+
+def smem_bytes(n):
+    """K4's dynamic shared memory a block for streams of n bytes."""
+    from .. import _build
+    fn = _build.kernel_library("csc_k4").csc_k4_smem
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int64]
+    return int(fn(n))
+
+
+def blocks_per_sm(n):
+    """K4's resident blocks (streams) per SM on the current card for
+    streams of n bytes, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    gives them."""
+    from .. import _build
+    fn = _build.kernel_library("csc_k4").csc_k4_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    rc = fn(n, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"K4 occupancy query failed: cudaError_t {rc}")
+    return blocks.value
 
 
 def parse_k4(data, candp, run_ends, run_skip, sizes, dict_sizes, prices,
@@ -32,8 +91,9 @@ def parse_k4(data, candp, run_ends, run_skip, sizes, dict_sizes, prices,
     (prices.pack_prices); max_steps: the lockstep step budget
     (parse_ap_scan.max_steps_for(N) by default).  Returns (tape [B,
     max_tokens, 2] i32 of (kind | wire_len << 3, dist_code), tok_cnt,
-    done, err [B] i32), on data's device; err is ERR_OVERFLOW (the tape
-    filled) or ERR_STEPS (the budget ran out).
+    done, err, finds [B] i32), on data's device; err is ERR_OVERFLOW (the
+    tape filled) or ERR_STEPS (the budget ran out); finds counts the FIND
+    positions at which the lanes ran, each reading its C candidate rows.
     """
     global LAUNCHES
     parse_ap_scan.check_inputs(data, candp, run_ends, run_skip, sizes,
@@ -64,20 +124,9 @@ def parse_k4(data, candp, run_ends, run_skip, sizes, dict_sizes, prices,
 
     from .. import _build
     lib = _build.kernel_library("csc_k4")
-    n = data.shape[1]
     tape = torch.zeros((b, max_tokens, 2), dtype=torch.int32, device=dev)
-    cells = torch.zeros((b, CELL_ROWS, n), dtype=torch.int32, device=dev)
-    cells[:, 1] = -1
-    out = torch.empty((3, b), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.csc_k4_launch(
-            data.data_ptr(), candp.data_ptr(), n, candp.shape[1],
-            run_ends.data_ptr(), run_skip.data_ptr(), run_ends.shape[1],
-            sizes.data_ptr(), dict_sizes.data_ptr(), int(good_len),
-            prices.data_ptr(), tape.data_ptr(), max_tokens, int(max_steps),
-            cells.data_ptr(), out.data_ptr(), b, stream)
-    if rc != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError_t {rc}")
+    out = torch.empty((4, b), dtype=torch.int32, device=dev)
+    launch(lib, data, candp, run_ends, run_skip, sizes, dict_sizes, prices,
+           good_len, tape, max_steps, None, out)
     LAUNCHES += 1
-    return tape, out[0], out[1], out[2]
+    return tape, out[0], out[1], out[2], out[3]

@@ -37,7 +37,8 @@ on them:
 
 `parse_ap_plain` runs it to the end and returns what the kernel
 (csrc/encode_k4.cuh) returns: K2's two-word tape (kind | wire_len << 3,
-dist_code), tok_cnt, done and err.
+dist_code), tok_cnt, done, err and the FIND positions at which the
+lanes ran (`found`).
 """
 import numpy as np
 import torch
@@ -601,12 +602,31 @@ def tape_of(st):
     return tape, cnt, done, err
 
 
+def found(before, after):
+    """[B] int32: 1 where the step from state `before` to `after` finished
+    a FIND position whose lanes ran (read its candidate rows): it relaxed
+    (wpos moved on) or ended the stretch on a literal or a match, not at
+    the cap."""
+    ended = (after["fsm"] == AP_MARK) & (after["post"] != POST_NONE)
+    return ((before["fsm"] == AP_FIND) & (before["done"] == 0)
+            & ((after["wpos"] != before["wpos"]) | ended)).to(torch.int32)
+
+
 def parse_ap_plain(data, candp, run_ends, run_skip, sizes, dict_sizes,
                    prices, good_len, max_tokens, max_steps=None):
-    """K4's function, as lockstep torch ops on data's device."""
+    """K4's function, as lockstep torch ops on data's device: (tape,
+    tok_cnt, done, err, finds [B] int32, the FIND positions at which the
+    lanes ran)."""
     st = make_ap_state(data, candp, run_ends, run_skip, sizes, dict_sizes,
                        prices, max_tokens)
     if max_steps is None:
         max_steps = max_steps_for(data.shape[1])
-    st, _ = run_ap_parse(st, int(good_len), max_steps)
-    return tape_of(st)
+    finds = torch.zeros(data.shape[0], dtype=torch.int32,
+                        device=data.device)
+    steps = 0
+    while steps < max_steps and not bool((st["done"] == 1).all()):
+        before = st
+        st = ap_parse_step(st, int(good_len))
+        finds += found(before, st)
+        steps += 1
+    return tape_of(st) + (finds,)

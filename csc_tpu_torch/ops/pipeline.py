@@ -334,7 +334,7 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     del cand
     out = (parse_k4 if ap else parse_k2)(*args)
     note(kernel, **{kernel + "_out": out})
-    tape, tok_cnt, done, err = out
+    tape, tok_cnt, done, err = out[:4]
     tok_cnt, done, err = (t.cpu().numpy() for t in (tok_cnt, done, err))
     bad = [idxs[j] for j in range(len(idxs)) if err[j] or not done[j]]
     if bad:

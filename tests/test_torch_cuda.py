@@ -7,8 +7,10 @@ streams of their designs and K3 on its edge tapes
 (tests/torch_edge_cases.py), K1's two blocks
 per SM, a 1 MB stream round-tripped through K2, K3 and K1; K4
 (encode_k4.cu) at m3, m4 and m5 on its edge streams, with a tape too
-short and a step budget cut, and m3 streams through K4, K3 and K1, equal
-to the CPU's encode; and the A/B tool (csc_tpu_torch/kernel_ab.py) run
+short and a step budget cut, on its window cases with its debug copy of
+the cells held to the plain version's cells (and without the copy the
+same outputs), and m3 streams through K4, K3 and K1, equal to the CPU's
+encode; and the A/B tool (csc_tpu_torch/kernel_ab.py) run
 against this checkout.  Needs a card; without one every test here skips.
 On a machine with a card (it needs no jax):
 
@@ -24,7 +26,7 @@ import torch
 
 from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream
-from csc_tpu_torch import constants, corpus, kernel_ab
+from csc_tpu_torch import _build, constants, corpus, kernel_ab
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
                                decode_scan, encode_host, parse_ap_kernel,
                                parse_ap_scan, parse_kernel, parse_pre,
@@ -33,6 +35,7 @@ from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
 from csc_tpu_torch.props import props_init
 
 import torch_edge_cases as edges
+from test_torch_parse_ap_host import plain_cells
 
 pytestmark = pytest.mark.cuda
 N = 1536
@@ -313,7 +316,8 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K1 headline 128 x 16 KB", "K1 extract 256 x 1 MB",
         "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB",
         "K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB",
-        "K4 m3 32 x 16 KB", "K4 m5 32 x 16 KB"])
+        "K4 m3 32 x 16 KB", "K4 m4 32 x 16 KB", "K4 m5 32 x 16 KB",
+        "K4 m3 1024 x 16 KB", "K4 m3 4096 x 16 KB", "K4 task m3 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -326,6 +330,9 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
 
 
 # ------------------------------------------------- K4, the optimal parse
+K4_FIELDS = ("tape", "tok_cnt", "done", "err", "finds")
+
+
 def _k4_args(cases, dev, tcap=None, max_steps=None):
     props = [c[1] for c in cases]
     plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
@@ -347,7 +354,7 @@ def _k4_against_plain(args):
     assert parse_ap_kernel.LAUNCHES == launches + 1
     want = parse_ap_scan.parse_ap_plain(*(a.cpu() if torch.is_tensor(a)
                                           else a for a in args))
-    for name, g, w in zip(("tape", "tok_cnt", "done", "err"), got, want):
+    for name, g, w in zip(K4_FIELDS, got, want, strict=True):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=name)
     return got
@@ -369,6 +376,81 @@ def test_k4_tape_overflow_and_step_budget(dev, tcap, max_steps):
                                      max_steps))
     err = constants.ERR_OVERFLOW if tcap else constants.ERR_STEPS
     assert bool((got[3] == err).any())
+
+
+def _k4_cells_against_plain(args, dev, good_len, max_steps=None):
+    """K4 launched on the card with its debug copy of the cells against
+    the plain version's outputs and cells (on the CPU), and K4 through its
+    wrapper with no copy (the encode path's launch) against both; K4's
+    outputs (tape, tok_cnt, done, err, finds)."""
+    n, r = args[0].shape[1], args[2].shape[1]
+    b = args[0].shape[0]
+    tcap = parse_scan.tape_capacity(n, r)
+    max_steps = max_steps or parse_ap_scan.max_steps_for(n)
+    card = tuple(a.to(dev) for a in args)
+    tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((4, b), dtype=torch.int32, device=dev)
+    cells = parse_ap_kernel.new_cells(b, n, dev)
+    parse_ap_kernel.launch(_build.kernel_library("csc_k4"), *card, good_len,
+                           tape, max_steps, cells, out)
+    got = (tape, *out)
+    bare = parse_ap_kernel.parse_k4(*card, good_len, tcap, max_steps)
+    want, want_cells = plain_cells(args, good_len, max_steps)
+    for name, g, w in zip(K4_FIELDS + ("cells",), got + (cells,),
+                          want + (want_cells,), strict=True):
+        np.testing.assert_array_equal(g.cpu().numpy(), np.asarray(w),
+                                      err_msg=name)
+    for name, g, w in zip(K4_FIELDS, bare, got, strict=True):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=f"{name} with no cell copy")
+    return got
+
+
+@pytest.mark.parametrize("case", ["lanes4", "lanes10_24", "lanes10_48",
+                                  "last600", "last601", "top"])
+def test_k4_window_cases_match_plain(dev, case):
+    """The window cases of tests/test_torch_k4_window.py: every lane
+    recording at C = 4 and C = 10, the last column at width n and n + 1,
+    a stretch to the window's top at good_len 48."""
+    if case == "top":
+        c = edges.k4_top_cases()
+        args = _k4_args(c, torch.device("cpu"))[:7]
+        good_len = c[0][1].good_len
+    elif case.startswith("last"):
+        args = edges.k4_lane_inputs(4, width=int(case[4:]), last=True)
+        good_len = 16
+    else:
+        ncand, good_len = {"lanes4": (4, 16), "lanes10_24": (10, 24),
+                           "lanes10_48": (10, 48)}[case]
+        args = edges.k4_lane_inputs(ncand)
+    got = _k4_cells_against_plain(args, dev, good_len)
+    assert bool(got[2].all()) and not bool(got[3].any())
+
+
+def test_k4_step_budget_across_a_long_position(dev):
+    """Every budget from before to after the first position whose
+    candidate extends 120 bytes (4 lockstep steps): tape, counts, err
+    and cells equal the plain version's."""
+    args = edges.k4_lane_inputs(4)
+    errs = set()
+    for t in range(592, 612):
+        got = _k4_cells_against_plain(args, dev, 16, max_steps=t)
+        errs.add(int(got[3][0]))
+    assert errs == {constants.ERR_STEPS}
+
+
+def test_k4_unstaged_stream_matches_plain(dev):
+    """A stream just over 64 KB, whose data K4 reads from device memory
+    rather than staging it in shared memory, cut by a step budget so that
+    the plain version stays short: outputs and cells equal the plain
+    version's."""
+    text = corpus.torch_python_text(256 * 1024)
+    data = text[:66 * 1024 + 300]
+    args = _k4_args([("big", props_init(len(data), 3), data)],
+                    torch.device("cpu"))[:7]
+    assert args[0].shape[1] > 64 * 1024
+    got = _k4_cells_against_plain(args, dev, 16, max_steps=3000)
+    assert int(got[3][0]) == constants.ERR_STEPS and int(got[4][0]) > 500
 
 
 def test_m3_streams_through_k4_k3_k1_equal_the_cpus(dev):

@@ -1,10 +1,12 @@
 """K4's per-stream code (csc_tpu_torch/csrc/encode_k4.cuh), built with g++
 through the test-only harness encode_k4_host.cpp, against the plain
 PyTorch version (csc_tpu_torch.ops.parse_ap_scan) at m3, m4 and m5: the
-tape, tok_cnt, done, err and every DP cell at the end, on the streams
+tape, tok_cnt, done, err, the FIND positions at which the lanes ran
+(finds) and every DP cell at the end, on the streams
 the plain version is held to
 csc_tpu with (tests/torch_edge_cases.py `ap_cases`) and on K4's edge
-streams (`k4_cases`).  Also: a match into the last column is undone at
+streams (`k4_cases`); the cells through the build's debug copy, which
+every cell write of the shared-memory window updates.  Also: a match into the last column is undone at
 the group's width and kept one column wider; random price tables; a
 tape too short
 (ERR_OVERFLOW) and the step budget cut at every step of a short group
@@ -31,7 +33,8 @@ import torch_edge_cases as edges
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csc_tpu_torch", "csrc")
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-FIELDS = ("tape", "tok_cnt", "done", "err")
+FIELDS = ("tape", "tok_cnt", "done", "err", "finds")
+SMEM_DATA = 64 * 1024      # encode_k4.cu's K4_SMEM_DATA
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +49,7 @@ def k4(tmp_path_factory):
     fn = ctypes.CDLL(so).csc_k4_host
     fn.restype = ctypes.c_int
     fn.argtypes = [P, P, I64, I32, P, P, I32, P, P, I32, P, P, I64, I64, P,
-                   P, I32]
+                   P, I32, I64]
     return fn
 
 
@@ -67,23 +70,29 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def k4_host(fn, args, good_len, tcap=None, max_steps=None):
-    """The g++ build's (tape, tok_cnt, done, err) and its cells [B, 10,
-    N] after the parse."""
+def k4_host(fn, args, good_len, tcap=None, max_steps=None, cells=True,
+            stage_max=SMEM_DATA):
+    """The g++ build's (tape, tok_cnt, done, err, finds) and its debug copy of
+    the cells [B, 10, N] after the parse (None with cells=False: no copy,
+    as on the encode path); streams of at most stage_max bytes read their
+    data as staged words, as the kernel's of at most 64 KB do."""
     arrays = [np.ascontiguousarray(t.numpy()) for t in args]
     data, candp, run_ends = arrays[:3]
     b, n = data.shape
     tcap = tcap or parse_scan.tape_capacity(n, run_ends.shape[1])
     max_steps = max_steps or parse_ap_scan.max_steps_for(n)
     tape = np.zeros((b, tcap, 2), np.int32)
-    out = np.zeros((3, b), np.int32)
-    cells = np.zeros((b, CELL_ROWS, n), np.int32)
-    cells[:, 1] = -1
+    out = np.zeros((4, b), np.int32)
+    copy = None
+    if cells:
+        copy = np.zeros((b, CELL_ROWS, n), np.int32)
+        copy[:, 1] = -1
     assert fn(_ptr(data), _ptr(candp), n, candp.shape[1], _ptr(run_ends),
               _ptr(arrays[3]), run_ends.shape[1], _ptr(arrays[4]),
               _ptr(arrays[5]), good_len, _ptr(arrays[6]), _ptr(tape), tcap,
-              max_steps, _ptr(cells), _ptr(out), b) == 0
-    return (tape, out[0], out[1], out[2]), cells
+              max_steps, None if copy is None else _ptr(copy), _ptr(out), b,
+              stage_max) == 0
+    return (tape, out[0], out[1], out[2], out[3]), copy
 
 
 def plain(args, good_len, tcap=None, max_steps=None):
@@ -93,17 +102,27 @@ def plain(args, good_len, tcap=None, max_steps=None):
         max_steps)
 
 
-def plain_cells(args, good_len):
-    """The plain version's outputs and its DP cells at the end, in K4's
-    scratch layout [B, 10, N]."""
+def cells_of(st):
+    """The plain version's cells of state `st`, in K4's debug layout [B,
+    10, N] (rows price, stamp, back, ndist, nstate, nxt, nrep[4])."""
+    return torch.cat([torch.stack([st[name] for name in (
+        "price", "stamp", "back", "ndist", "nstate", "nxt")], dim=1),
+        st["nrep"]], dim=1).to(torch.int32).numpy()
+
+
+def plain_cells(args, good_len, max_steps=None):
+    """The plain version's outputs (finds included) and its DP cells at
+    the end, in K4's cell layout [B, 10, N]."""
     n, r = args[0].shape[1], args[2].shape[1]
     st = parse_ap_scan.make_ap_state(*args, parse_scan.tape_capacity(n, r))
-    st, _ = parse_ap_scan.run_ap_parse(st, good_len,
-                                       parse_ap_scan.max_steps_for(n))
-    cells = torch.cat([torch.stack([st[name] for name in (
-        "price", "stamp", "back", "ndist", "nstate", "nxt")], dim=1),
-        st["nrep"]], dim=1)
-    return parse_ap_scan.tape_of(st), cells.numpy()
+    finds = torch.zeros(args[0].shape[0], dtype=torch.int32)
+    for _ in range(max_steps or parse_ap_scan.max_steps_for(n)):
+        if bool((st["done"] == 1).all()):
+            break
+        before = st
+        st = parse_ap_scan.ap_parse_step(st, good_len)
+        finds += parse_ap_scan.found(before, st)
+    return parse_ap_scan.tape_of(st) + (finds,), cells_of(st)
 
 
 def assert_same(got, want, what):
@@ -201,13 +220,16 @@ def test_k4_step_budget_at_every_step(k4):
     st = parse_ap_scan.make_ap_state(*args, tcap)
     t = 0
     multi = False
+    finds = torch.zeros(len(cases), dtype=torch.int32)
     while not bool((st["done"] == 1).all()):
-        armed = st["armed"].clone()
+        before = st
         st = parse_ap_scan.ap_parse_step(st, good_len)
         t += 1
-        multi |= bool(((armed == 1) & (st["armed"] == 1)).any())
+        multi |= bool(((before["armed"] == 1) & (st["armed"] == 1)).any())
+        finds += parse_ap_scan.found(before, st)
         got, _ = k4_host(k4, args, good_len, max_steps=t)
-        assert_same(got, parse_ap_scan.tape_of(st), f"after {t} steps")
+        assert_same(got, parse_ap_scan.tape_of(st) + (finds,),
+                    f"after {t} steps")
     assert multi and t > 500
     got, _ = k4_host(k4, args, good_len, max_steps=t - 1)
     assert (got[3] == constants.ERR_STEPS).any() and not got[2].all()

@@ -2,7 +2,8 @@
 designs (csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh,
 encode_k4.cuh), shared by the host tests of the g++ builds and the card
 tests: every K1 / K2 / K4 case is a (name, props, data) triple, every K3
-case a batch of stitched tapes with K3's other arguments; all built from
+case a batch of stitched tapes with K3's other arguments, K4's window
+cases K4's own arguments over hand-made candidates; all built from
 seeds."""
 import numpy as np
 import torch
@@ -12,7 +13,7 @@ from csc_tpu_torch.constants import (F_COPY, F_IDLE, F_LITTREE, K_DLIT,
                                      K_ELIT, K_END, K_FLUSH, K_INT, K_LIT,
                                      K_MATCH, K_RAW, K_REP, K_REP0L1, K_RLEN,
                                      K_SENT)
-from csc_tpu_torch.ops import bits_scan, decode_scan
+from csc_tpu_torch.ops import bits_scan, decode_scan, prices
 
 
 RING = 8192        # decode_k1.cuh: copies up to this distance read the ring
@@ -142,6 +143,73 @@ def k4_cases(level):
              + b"!"),
             ("long_rep", _ap_props(200, level), phrase + b"#" + phrase
              + b"%" + phrase + b"&" + phrase[:30])]
+
+
+def k4_top_cases():
+    """(name, props, data) at m5 (good_len 48) for the top of K4's window:
+    four-symbol bytes, whose matches of 2-8 bytes cover every position,
+    so the first stretch runs to offset AP_LIMIT - 1, the last one the
+    stretch-end checks let it reach, and relaxes into it."""
+    return [("top", _ap_props(2100, 5), four_symbols(2100, 77))]
+
+
+# K4's hand-made stream (k4_lane_inputs): four matches of LANE_COPY bytes
+# at LANE_AT set the rep queue to LANE_REPS (most recent first); at
+# LANE_P rep lane k matches 2 + k bytes and candidate row c 6 + c bytes
+# at distance LANE_CAND + 19 c (no two of the copies at LANE_P - d lie a
+# rep distance apart, so the queue stays as it is up to LANE_P)
+LANE_N = 2048
+LANE_COPY = 120
+LANE_AT = (200, 400, 600, 800)
+LANE_REPS = (690, 510, 330, 150)
+LANE_P = 1800
+LANE_CAND = 700
+
+
+def k4_lane_inputs(ncand, width=None, last=False):
+    """K4's arguments (data, candp, run_ends, run_skip, sizes, dict_sizes,
+    prices) of one stream of random bytes over hand-made candidates, on
+    the CPU.  At each of LANE_AT a candidate of LANE_COPY bytes (a FIND
+    position of several 8-round steps, then a match past good_len that
+    ends its stretch) sets the rep queue; at LANE_P every rep lane and
+    every candidate row records, each longer than the one before it (C =
+    ncand rows).  With last=True the stream ends in an 11-byte match
+    whose relaxation lands on the last column (n - 1) at width n = its
+    size (the default width).  Other positions have no candidate: their stretches end at lone
+    literals."""
+    rng = np.random.default_rng(80 + ncand)
+    size = LANE_N if not last else 600
+    width = width or size
+    data = rng.integers(0, 256, size, dtype=np.uint8)
+    cand = np.zeros((ncand, width), np.int32)
+    if last:
+        at = size - 12
+        data[at:at + 11] = data[300:311]
+        data[at + 11] = data[311] ^ 0xFF
+        cand[0, at] = (at - 300) << 5 | 8
+    else:
+        for x, d in zip(LANE_AT, LANE_REPS[::-1]):
+            for j in range(LANE_COPY):
+                data[x + j] = data[x - d + j]
+            data[x + LANE_COPY] = data[x - d + LANE_COPY] ^ 0xFF
+            cand[0, x] = d << 5 | 8
+        p = LANE_P
+        for k, d in enumerate(LANE_REPS):
+            data[p - d:p - d + 2 + k] = data[p:p + 2 + k]
+            data[p - d + 2 + k] = data[p + 2 + k] ^ 0xFF
+        for c in range(ncand):
+            d, ln = LANE_CAND + 19 * c, 6 + c
+            data[p - d:p - d + ln] = data[p:p + ln]
+            data[p - d + ln] = data[p + ln] ^ 0xFF
+            cand[c, p] = d << 5 | min(ln, 8)
+    row = np.zeros((1, width), np.uint8)
+    row[0, :size] = data
+    pr = torch.from_numpy(prices.pack_prices(prices.snapshot_prices()))
+    i32 = torch.int32
+    return (torch.from_numpy(row), torch.from_numpy(cand[None]),
+            torch.tensor([[size]], dtype=i32),
+            torch.tensor([[0]], dtype=i32), torch.tensor([size], dtype=i32),
+            torch.tensor([1 << 20], dtype=i32), pr)
 
 
 def cut(a, n):
