@@ -5,13 +5,15 @@
 
 Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
-  2. build           K1-K4 and the ten spike libraries (csrc/*.cu) with
+  2. build           K1-K5 and the ten spike libraries (csrc/*.cu) with
                      nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K4 and their
+                     together, with ptxas's reports of K1-K5 and their
                      registers, stack frame, LDL / STL counts (SASS),
                      K1's blocks per SM and K4's shared memory a block
                      and blocks per SM; it fails unless each of K1-K4
-                     has a 0-byte stack frame and no LDL / STL, K1 holds
+                     has a 0-byte stack frame and no LDL / STL (K5, one
+                     thread a stream with its candidates in local
+                     memory, is printed, not held), K1 holds
                      two blocks an SM and K4 four or more of 16 KB
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
@@ -24,35 +26,49 @@ Phases, each printing its own line; the first failure raises:
                      (filters on) at m3, m4 and m5, its stages, K4 / K3
                      times, a round trip through K1
   7. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
+  7b. encode_exact   the exact parse: encode_batch(parse="exact") of 96 x
+                     16 KB text (filters on) at m1 and m2 and of the 4 x 1
+                     MB m1 task, its stages (plan, k5, stitch, k3, remux),
+                     K5 / K3 times, a round trip through K1, the fast
+                     parse's ratio on the same streams and whether its
+                     bytes equal the exact ones
   8. extract         one archiver extract group: 256 x 1 MB m1 text
-  9. cli             `c` then `d` with --backend cuda on a 1 MB file, and
-                     `d` of the same stream under a 266 KB dictionary
-                     header, which makes decode_batch regrow its window
+  9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
+                     --parse exact` then `d` on it, and `d` of the first
+                     stream under a 266 KB dictionary header, which makes
+                     decode_batch regrow its window
  10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
-                     text streams at m3): the candidates on the card equal
-                     those on the CPU; K2 or K4, the stitch and K3 equal
-                     their plain versions (on the card)
+                     text streams at m3 and, exactly, at m1 and m2): the
+                     candidates on the card equal those on the CPU; K2, K4
+                     or K5, the stitch and K3 equal their plain versions
+                     (on the card)
  11. parity          K1 against its plain version (on the card) on the
                      parity batch, a corrupted stream among them
  12. plain           each kernel against its plain version on the first
-                     streams of its headline inputs (phases 4-6), and K3
-                     on its edge tapes (tests/torch_edge_cases.py)
+                     streams of its headline inputs (phases 4-7b; K5's
+                     cut by a step budget), K3 on its edge tapes
+                     (tests/torch_edge_cases.py), and K5 against its g++
+                     build (csrc/encode_k5_host.cpp) on the first 8
+                     whole streams of its m1 cell
  13. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
                      layouts, at every size the runner times, against its
                      plain version on the card, with
-                     K1-K4's own ns per step of their longest stream (K3:
-                     per tape entry and per modelled bit)
+                     K1-K5's own ns per step of their longest stream (K3:
+                     per tape entry and per modelled bit; K5: per
+                     position and per lockstep micro-op)
 Every count of launches is read around a main-path run (phases 4-9, 13).
 Phase 12's plain versions run on the host's CPU in worker processes
-(`chip_smoke.py --plain FILE`, one thread each), started once phases 4-9
+(`chip_smoke.py --plain FILE`, one thread each, at a lower priority than
+the main process), started once phases 4-9
 are timed, so they overlap phases 10 and 11; on the card a plain version
 takes several ms a lockstep step.  The last two lines are the kernels'
 JSON record and the ok line.
 """
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -69,13 +85,15 @@ sys.path.insert(1, os.path.join(ROOT, "tests"))
 from csc_tpu_torch import _build, corpus, spikes  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
-                               decode_scan, encode_host, parse_ap_kernel,
-                               parse_ap_scan, parse_kernel, parse_pre,
-                               parse_scan, pipeline, stitch)
+                               decode_scan, encode_host, exact_kernel,
+                               exact_scan, parse_ap_kernel, parse_ap_scan,
+                               parse_kernel, parse_pre, parse_scan, pipeline,
+                               stitch)
 from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
 import torch_edge_cases  # noqa: E402
+from test_torch_exact_host import build_k5_host, k5_host  # noqa: E402
 
 SEED = 20261016
 KB, MB = 1024, 1024 * 1024
@@ -84,7 +102,11 @@ HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's decode headline shape
 ENC_STREAMS = 96                      # bench.py's encode shape: 96 x 16 KB
 AP_STREAMS = 32                       # bench.py's m3 / m5 shape: 32 x 16 KB
 # headline streams each kernel's plain version runs on (the first ones)
-PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8, "K4": 4}
+PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8, "K4": 4, "K5": 4}
+# K5's plain job: its first streams cut by this step budget (about 40 %
+# of a 16 KB m1 stream's micro-ops), K5 launched under the same budget;
+# and the g++ build of K5 on this many whole streams
+K5_PLAIN_STEPS, K5_HOST_STREAMS = 40_000, 8
 PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES, CLI_DICT = MB, 256 * KB
@@ -92,10 +114,15 @@ NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
           "K4": ("tape", "tok_cnt", "done", "err", "finds"),
+          "K5": ("tape", "tok_cnt", "done", "err", "steps"),
           "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
                  "stats")}
 PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
-         "K3": bits_scan.bits_plain, "K4": parse_ap_scan.parse_ap_plain}
+         "K3": bits_scan.bits_plain, "K4": parse_ap_scan.parse_ap_plain,
+         "K5": exact_scan.exact_plain}
+LAUNCH = {"K1": decode_kernel.decode_k1, "K2": parse_kernel.parse_k2,
+          "K3": bits_kernel.code_k3, "K4": parse_ap_kernel.parse_k4,
+          "K5": exact_kernel.parse_k5}
 # arguments of a kernel that are not batch-first (K4's price tables)
 WHOLE = {"K4": (6,)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -206,14 +233,14 @@ class Stages:
 
 def plain_job(tag, kernel, args, reps):
     """The kernel on the first PLAIN_STREAMS[kernel] streams of `args`
-    (the inputs a main path gave it): its time and outputs, and the job
-    that holds them against the plain version in phase 12."""
+    (the inputs a main path gave it; K5 under the budget K5_PLAIN_STEPS):
+    its time and outputs, and the job that holds them against the plain
+    version in phase 12."""
     k = PLAIN_STREAMS[kernel]
     sub = first_args(args, k, kernel)
-    launch = {"K1": decode_kernel.decode_k1, "K2": parse_kernel.parse_k2,
-              "K3": bits_kernel.code_k3,
-              "K4": parse_ap_kernel.parse_k4}[kernel]
-    ms, out = event_ms(lambda: launch(*sub), reps)
+    if kernel == "K5":
+        sub = sub[:-1] + (K5_PLAIN_STEPS,)
+    ms, out = event_ms(lambda: LAUNCH[kernel](*sub), reps)
     return dict(tag=tag, kernel=kernel, streams=k, args=to_cpu(sub),
                 kernel_out=to_cpu(out), kernel_ms=ms)
 
@@ -232,72 +259,80 @@ def same_rows(tag, kernel, full, sub, k):
 # ----------------------------------------------------------- phase 5 parts
 def parse_stage(values):
     """The parse kernel of an encode pass from its on_stage values: K2 at
-    m1 / m2, K4 at m3-m5; (kernel, its arguments, its outputs)."""
-    kernel = "K4" if "k4_args" in values else "K2"
+    m1 / m2, K4 at m3-m5, K5 under the exact parse; (kernel, its
+    arguments, its outputs)."""
+    kernel = ("K5" if "k5_args" in values else
+              "K4" if "k4_args" in values else "K2")
     low = kernel.lower()
     return kernel, values[low + "_args"], values[low + "_out"]
 
 
-def encode_cell(tag, props, datas, dev, reps):
+def encode_cell(tag, props, datas, dev, reps, parse="fast"):
     """The encode main path on one preset group: encode_batch once with
-    the launch counts set to 0 (it must launch its parse kernel, K2 or
-    K4, and K3), `reps` timed calls, one pass split by stage, a round trip
-    through K1, and the parse kernel and K3 timed on the inputs that pass
-    gave them.  Returns the phase's numbers."""
+    the launch counts set to 0 (it must launch its parse kernel, K2, K4
+    or, under parse="exact", K5, and K3), `reps` timed calls, one pass
+    split by stage, a round trip through K1, and the parse kernel and K3
+    timed on the inputs that pass gave them.  Returns the phase's
+    numbers."""
     parse_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
-    bits_kernel.LAUNCHES = 0
-    outs = pipeline.encode_batch(props, datas, device=dev)
+    exact_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    outs = pipeline.encode_batch(props, datas, device=dev, parse=parse)
     counts = {"K2": parse_kernel.LAUNCHES, "K4": parse_ap_kernel.LAUNCHES,
-              "K3": bits_kernel.LAUNCHES}
+              "K5": exact_kernel.LAUNCHES, "K3": bits_kernel.LAUNCHES}
     walls = []
     for _ in range(reps):
         t0 = time.time()
-        again = pipeline.encode_batch(props, datas, device=dev)
+        again = pipeline.encode_batch(props, datas, device=dev, parse=parse)
         walls.append(time.time() - t0)
         check(again == outs, f"{tag}: encode_batch is not deterministic")
     stages = Stages()
-    check(pipeline.encode_batch(props, datas, device=dev,
-                                on_stage=stages) == outs,
+    check(pipeline.encode_batch(props, datas, device=dev, on_stage=stages,
+                                parse=parse) == outs,
           f"{tag}: the staged pass differs from encode_batch")
     back = pipeline.decode_batch(props, outs,
                                  out_sizes=[len(d) for d in datas],
                                  device=dev)
     check(back == datas, f"{tag}: the round trip through K1 differs")
     v = stages.values
-    parse, p_args, p_out = parse_stage(v)
-    launches = {parse: counts[parse], "K3": counts["K3"]}
+    parse_k, p_args, p_out = parse_stage(v)
+    launches = {parse_k: counts[parse_k], "K3": counts["K3"]}
     check(min(launches.values()) >= 1 and sum(counts.values()) == sum(
         launches.values()), f"{tag}: the encode path did not launch "
-        f"{parse} and K3 alone ({counts})")
+        f"{parse_k} and K3 alone ({counts})")
     k3_args = v["k3_args"]
-    launch = {"K2": parse_kernel.parse_k2, "K4": parse_ap_kernel.parse_k4}
-    p_ms, p_out2 = event_ms(lambda: launch[parse](*p_args), reps)
+    p_ms, p_out2 = event_ms(lambda: LAUNCH[parse_k](*p_args), reps)
     k3_ms, k3_out = event_ms(lambda: bits_kernel.code_k3(*k3_args), reps)
-    compare(f"{tag} relaunch", parse, p_out2, p_out)
+    compare(f"{tag} relaunch", parse_k, p_out2, p_out)
     compare(f"{tag} relaunch", "K3", k3_out, v["k3_out"])
     total = sum(len(d) for d in datas)
-    # The parse reads all C candidate words at each position it probes
-    # and writes 8 bytes a token.  K2: every LZ token (kinds below
-    # K_SENT_A) starts at a probed position (each step emits one token and
-    # probes at most twice, and a step that probes none follows one that
-    # probed twice), so the LZ tokens are a lower bound on the probes; it
-    # reads the data only where it extends a match, so its bound leaves
-    # the data out.  K4's lanes run at the FIND positions it counts
-    # (`finds`, held to the plain version's count: not the cap, nor the
-    # positions a post-stretch match covers) and it reads the data once.
-    # K3
-    # reads 16 bytes a token up to K_END and writes the coded bytes, one
-    # operation per coded bit.
     tape, tok_cnt = p_out[0], p_out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
     lz = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live).sum())
-    probes = int(p_out[4].sum()) if parse == "K4" else lz
     ntok = int(tok_cnt.sum())
-    c = p_args[1].shape[1]
-    data_bytes = total if parse == "K4" else 0
-    p_bound = bound(data_bytes + 4 * c * probes + 8 * ntok,
-                    (c + 4) * probes)
+    if parse_k == "K5":
+        # K5 reads the data once and writes 8 bytes a token; it takes one
+        # operation at least for each lockstep micro-op it counts
+        probes = lz
+        p_bound = bound(total + 8 * ntok, int(p_out[4].long().sum()))
+    else:
+        # The parse reads all C candidate words at each position it
+        # probes and writes 8 bytes a token.  K2: every LZ token (kinds
+        # below K_SENT_A) starts at a probed position (each step emits
+        # one token and probes at most twice, and a step that probes none
+        # follows one that probed twice), so the LZ tokens are a lower
+        # bound on the probes; it reads the data only where it extends a
+        # match, so its bound leaves the data out.  K4's lanes run at the
+        # FIND positions it counts (`finds`, held to the plain version's
+        # count: not the cap, nor the positions a post-stretch match
+        # covers) and it reads the data once.
+        probes = int(p_out[4].sum()) if parse_k == "K4" else lz
+        c = p_args[1].shape[1]
+        data_bytes = total if parse_k == "K4" else 0
+        p_bound = bound(data_bytes + 4 * c * probes + 8 * ntok,
+                        (c + 4) * probes)
+    # K3 reads 16 bytes a token up to K_END and writes the coded bytes,
+    # one operation per coded bit.
     per_tape = (k3_args[0] != K_END).sum(dim=1) + 1
     used = int(per_tape.sum())
     # the longest stream's steps, for the per-step table (phase 13)
@@ -305,12 +340,14 @@ def encode_cell(tag, props, datas, dev, reps):
     longest = dict(positions=max(len(d) for d in datas),
                    lz_tokens=int(per_lz.max()), tokens=int(tok_cnt.max()),
                    tape_entries=int(per_tape.max()))
+    if parse_k == "K5":
+        longest["micro_ops"] = int(p_out[4].max())
     stats = k3_out[5].cpu().numpy().astype(np.int64)
     coded_bytes = int(stats[0].sum() + stats[1].sum())
     k3_bound = bound(16 * used + coded_bytes, 8 * coded_bytes)
     longest["modelled_bits"] = int(bits_scan.modelled_bits(
         *k3_args[:4]).max())
-    return dict(wall=statistics.median(walls), outs=outs, parse=parse,
+    return dict(wall=statistics.median(walls), outs=outs, parse=parse_k,
                 parse_ms=p_ms, k3_ms=k3_ms, launches=launches,
                 layers=stages.ms(), ratio=sum(len(o) for o in outs) / total,
                 total=total, parse_bound=p_bound, k3_bound=k3_bound,
@@ -326,28 +363,31 @@ def drop_inputs(cell):
 
 
 # ---------------------------------------------------------- phase 10 parts
-def encode_parity(props, plans, idxs, dev):
+def encode_parity(props, plans, idxs, dev, parse="fast"):
     """One preset group of the parity batch through encode_group, its
     stages held to their counterparts on the same inputs: the candidates
-    and the stitch on the CPU, the parse kernel (K2 or K4) and K3 against
-    their plain versions on the card.  Returns (streams, the parse
-    kernel, fields compared, max abs difference, plain seconds of the
-    parse kernel and of K3)."""
+    (of K2 and K4) and the stitch on the CPU, the parse kernel (K2, K4
+    or, under parse="exact", K5) and K3 against their plain versions on
+    the card.  Returns (streams, the parse kernel, fields compared, max
+    abs difference, plain seconds of the parse kernel and of K3)."""
     p0 = props[idxs[0]]
     stages = Stages()
-    outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
+    outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages,
+                                 parse=parse)
     v = stages.values
-    parse, p_args, p_out = parse_stage(v)
-    data, _, run_ends = p_args[:3]
-    width = (p0.hash_width or 8) if parse == "K4" else p0.hash_width
-    cand_cpu = parse_pre.precompute_candidates(data.cpu(), run_ends.cpu(),
-                                               p0.hash_bits, width)
-    err = max_diff(v["cand"], cand_cpu)
-    check(err == 0, "encode parity: candidates differ from the CPU's")
+    kernel, p_args, p_out = parse_stage(v)
+    err = 0
+    if kernel != "K5":
+        data, _, run_ends = p_args[:3]
+        width = (p0.hash_width or 8) if kernel == "K4" else p0.hash_width
+        cand_cpu = parse_pre.precompute_candidates(
+            data.cpu(), run_ends.cpu(), p0.hash_bits, width)
+        err = max_diff(v["cand"], cand_cpu)
+        check(err == 0, "encode parity: candidates differ from the CPU's")
     t0 = sync_time()
-    want = PLAIN[parse](*p_args)
+    want = PLAIN[kernel](*p_args)
     parse_plain_s = sync_time() - t0
-    err = max(err, compare("encode parity", parse, p_out, want))
+    err = max(err, compare("encode parity", kernel, p_out, want))
     tape, data, run_tables = v["stitch_args"]
     ref = stitch.stitch_tapes(tape.cpu(), data.cpu(), run_tables)
     for name, g, w in zip("kabc", v["k3_args"][:4], ref[:4]):
@@ -357,8 +397,8 @@ def encode_parity(props, plans, idxs, dev):
     want = bits_scan.bits_plain(*v["k3_args"])
     k3_plain_s = sync_time() - t0
     err = max(err, compare("encode parity", "K3", v["k3_out"], want))
-    nfields = 1 + len(FIELDS[parse]) + 4 + len(FIELDS["K3"])
-    return outs, parse, nfields, err, parse_plain_s, k3_plain_s
+    nfields = (kernel != "K5") + len(FIELDS[kernel]) + 4 + len(FIELDS["K3"])
+    return outs, kernel, nfields, err, parse_plain_s, k3_plain_s
 
 
 def k3_edge_jobs(dev):
@@ -424,6 +464,9 @@ def plain_worker(path):
     on its CPU inputs, one thread; writes its outputs and seconds to
     FILE.out."""
     torch.set_num_threads(1)
+    # below the main process, whose plain versions on the card (phases 10
+    # and 11) are bound by its one core's kernel launches
+    os.nice(10)
     job = torch.load(path)
     t0 = time.time()
     out = PLAIN[job["kernel"]](*job["args"])
@@ -457,11 +500,11 @@ def main(procs):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     phase("ptxas", kernel=name, line=line.strip())
-    # K1-K4's registers, stack frame and local-memory traffic (ptxas
+    # K1-K5's registers, stack frame and local-memory traffic (ptxas
     # -v and cuobjdump -sass; _build.resources raises if either cannot be
     # read), and K1's blocks per SM (the design's two)
     res = {n: _build.resources(n)
-           for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4")}
+           for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4", "csc_k5")}
     res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
     # K4's shared memory a block and blocks an SM: price tables, the
     # stretch's cells and a stream's data (16 KB: the m3-m5 cells), or no
@@ -480,6 +523,8 @@ def main(procs):
           f"K4 holds {res['csc_k4']['blocks_per_sm_16k']} blocks of 16 KB "
           f"streams per SM, not 4 or more")
     for name, r in res.items():
+        if name == "csc_k5":     # its candidate slots may sit in local memory
+            continue
         check(r["stack_frame"] == 0 and r["ldl"] == 0 and r["stl"] == 0,
               f"{name} has a {r['stack_frame']}-byte stack frame, "
               f"{r['ldl']} LDL and {r['stl']} STL, not 0")
@@ -617,6 +662,50 @@ def main(procs):
           launches_k3=ext["launches"]["K3"])
     drop_inputs(ext)
 
+    # ----------------------------------------------------- 7b encode_exact
+    # the exact parse (K5) at the encode shape, 96 x 16 KB text, filters
+    # on, m1 and m2, and on the 4 x 1 MB m1 task: the fast parse's
+    # streams of the same inputs beside it (phases 5 and 7)
+    exact_cells = (("m1", [props_init(HEAD_BYTES, 1) for _ in ed], ed,
+                    "encode_headline m1", 5),
+                   ("m2", [props_init(HEAD_BYTES, 2) for _ in ed], ed,
+                    "encode_headline m2", 5),
+                   ("task", gp, group, "encode_extract", 1))
+    for name, ep, datas, fast_tag, reps in exact_cells:
+        tag = f"encode_exact {name}"
+        cell = encode_cell(tag, ep, datas, dev, reps, parse="exact")
+        cells[tag] = cell
+        if name == "m1":
+            jobs.append(plain_job(tag, "K5", cell["parse_args"], 3))
+            # K5's g++ build (csrc/encode_k5_host.cpp, the CPU tests'
+            # harness) on the first streams, whole
+            host = k5_host(build_k5_host(pathlib.Path(sdir)), to_cpu(
+                first_args(cell["parse_args"], K5_HOST_STREAMS, "K5")))
+            k5_host_err = compare(f"{tag} (first {K5_HOST_STREAMS} "
+                                  f"streams) against K5's g++ build", "K5",
+                                  [t[:K5_HOST_STREAMS]
+                                   for t in cell["parse_out"]],
+                                  [torch.from_numpy(h) for h in host])
+        fast = cells[fast_tag]
+        phase("encode_exact_layers", cell=name, **cell["layers"])
+        phase("encode_exact", cell=name, streams=len(datas),
+              bytes=cell["total"], wall_median_s=f"{cell['wall']:.4f}",
+              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
+              k5_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              k5_bound_ms=f"{cell['parse_bound'][0]:.6f}",
+              tokens=cell["ntok"], lz_tokens=cell["lz"],
+              micro_ops_longest=cell["longest"]["micro_ops"],
+              ratio=f"{cell['ratio']:.6f}",
+              fast_ratio=f"{fast['ratio']:.6f}",
+              bytes_equal_fast=cell["outs"] == fast["outs"],
+              round_trip="K1 byte-exact",
+              launches_k5=cell["launches"]["K5"],
+              launches_k3=cell["launches"]["K3"])
+        drop_inputs(cell)
+    phase("k5_host", streams=K5_HOST_STREAMS, fields_compared=len(
+        FIELDS["K5"]), max_abs_err=k5_host_err, build="csrc/"
+        "encode_k5_host.cpp with g++, the full step budget")
+
     # ----------------------------------------------------------- 8 extract
     gps = gp * GROUP_REPEAT
     gb = group_blobs * GROUP_REPEAT
@@ -664,9 +753,30 @@ def main(procs):
         check(f.read() == cli_data, "cli: decoded bytes differ")
     with open(enc, "rb") as f:
         blob = f.read()
+    # the exact parse through the CLI: K5 and K3, then K1
+    exact_kernel.LAUNCHES = parse_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    enc_x = os.path.join(sdir, "cli_exact.csc")
+    t5 = time.time()
+    check(cli.main(["c", "-m", "1", "--parse", "exact", "--backend", "cuda",
+                    src, enc_x]) == 0, "cli c --parse exact failed")
+    t6 = time.time()
+    k5_cli_launches = exact_kernel.LAUNCHES
+    check(k5_cli_launches >= 1 and bits_kernel.LAUNCHES >= 1
+          and parse_kernel.LAUNCHES == 0,
+          "cli c --parse exact did not launch K5 and K3 alone")
+    decode_kernel.LAUNCHES = 0
+    check(cli.main(["d", "--backend", "cuda", enc_x, dst]) == 0,
+          "cli d of the exact stream failed")
+    t7 = time.time()
+    k1_launches["cli_d_exact"] = decode_kernel.LAUNCHES
+    check(k1_launches["cli_d_exact"] >= 1, "cli d did not launch K1")
+    with open(dst, "rb") as f:
+        check(f.read() == cli_data, "cli: the exact stream decodes wrong")
+    with open(enc_x, "rb") as f:
+        blob_x = f.read()
     p_enc = props_init(len(cli_data), 1)
-    check(blob[:10] == write_properties(p_enc), "cli: unexpected property "
-          "header")
+    check(blob[:10] == write_properties(p_enc) and blob_x[:10] == blob[:10],
+          "cli: unexpected property header")
     # the same stream under a 266 KB dictionary header (csc_blocksize and
     # raw_blocksize unchanged): K1's window starts at the dictionary, the
     # 1 MB output outgrows it, and decode_batch regrows the window and
@@ -691,7 +801,9 @@ def main(procs):
           d_seconds=f"{t2 - t1:.2f}", compressed=len(blob),
           regrow=f"dict {p_reg.dict_size} -> {len(cli_data)} bytes, "
           f"{k1_launches['cli_regrow']} K1 launches",
-          regrow_d_seconds=f"{t4 - t3:.2f}")
+          regrow_d_seconds=f"{t4 - t3:.2f}",
+          exact_c_seconds=f"{t6 - t5:.2f}", exact_d_seconds=f"{t7 - t6:.2f}",
+          exact_compressed=len(blob_x))
 
     # --------------------------- 12 plain (workers on the CPU) start here
     jobs += k3_edge_jobs(dev)
@@ -743,6 +855,31 @@ def main(procs):
     phase("encode_parity", level="m3", streams=3, fields_compared=nf,
           max_abs_err=err, k4_plain_s=f"{p_plain_s:.3f}",
           k3_plain_s=f"{k3_plain_s:.3f}")
+    # the same streams under the exact parse at m1 and m2: K5 against its
+    # plain version, then a round trip through K1
+    plain_card_s["K5"] = 0.0
+    for level in (1, 2):
+        x_props = []
+        for _, p, _ in par[:3]:
+            q = props_init(PARITY_BYTES, level)
+            q.DLTFilter, q.EXEFilter, q.TXTFilter = (p.DLTFilter, p.EXEFilter,
+                                                     p.TXTFilter)
+            x_props.append(q)
+        x_plans = pipeline.plan_streams(x_props, [c[2] for c in par[:3]],
+                                        "exact")
+        outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
+            x_props, x_plans, [0, 1, 2], dev, parse="exact")
+        check(parse == "K5", f"parity exact m{level}: the group did not "
+              f"run K5")
+        back = pipeline.decode_batch(x_props, outs, device=dev)
+        check(back == [c[2] for c in par[:3]], f"parity exact m{level}: "
+              f"the round trip through K1 differs")
+        max_err = max(max_err, err)
+        plain_card_s["K5"] += p_plain_s
+        plain_card_s["K3"] += k3_plain_s
+        phase("encode_parity", level=f"m{level} exact", streams=3,
+              fields_compared=nf, max_abs_err=err,
+              k5_plain_s=f"{p_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
 
     # ----------------------------------------------------------- 11 parity
     par_blobs[-1] = corpus.flip(par_blobs[-1])
@@ -792,29 +929,35 @@ def main(procs):
           block_types=types, plain_seconds=f"{plain_card_s['K1']:.3f}")
 
     # ------------------------------------------------------------ 12 plain
-    max_err = max(max_err, finish_plain(jobs, procs))
+    max_err = max(max_err, finish_plain(jobs, procs), k5_host_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
+    x1 = cells["encode_exact m1"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
     launches = {"K1": k1_launches}
-    for kernel in ("K2", "K3", "K4"):
+    for kernel in ("K2", "K3", "K4", "K5"):
         launches[kernel] = {tag: c["launches"][kernel]
                             for tag, c in cells.items()
                             if kernel in c["launches"]}
+    launches["K5"]["cli_c_exact"] = k5_cli_launches
     card_on = {"K1": "the parity batch", "K2": "the m1 + m2 parity groups",
-               "K3": "the m1 + m2 + m3 parity groups",
+               "K3": "the m1 + m2 + m3 + exact m1 + m2 parity groups",
                "K4": "the m3 parity group (the batch's text and EXE "
-                     "streams)"}
+                     "streams)",
+               "K5": "the exact m1 + m2 parity groups (the batch's text "
+                     "and EXE streams)"}
 
     def row(kernel, name, source, replaces, ms, on, bnd, tag):
         j = plain[(kernel, tag)]
+        cut = (f", cut at {K5_PLAIN_STEPS} lockstep steps (K5 launched "
+               f"under the same budget)" if kernel == "K5" else "")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[kernel][tag],
                 "max_abs_err": max_err, "ms": round(ms, 4),
                 "plain_ms": round(j["plain_s"] * 1e3, 2),
                 "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
                 "library_ms": None, "ms_on": on,
-                "plain_on": f"the first {j['streams']} of those streams, "
-                            f"on one CPU core of the card's host",
+                "plain_on": f"the first {j['streams']} of those streams"
+                            f"{cut}, on one CPU core of the card's host",
                 "kernel_ms_on_those_streams": round(j["kernel_ms"], 4),
                 "plain_card_ms": round(plain_card_s[kernel] * 1e3, 2),
                 "plain_card_on": card_on[kernel],
@@ -869,7 +1012,13 @@ def main(procs):
         "K4": {"ns_per_position": k4_ms * 1e6 / m3["longest"]["positions"],
                "ns_per_lz_token": k4_ms * 1e6 / m3["longest"]["lz_tokens"],
                "longest": {k: m3["longest"][k]
-                           for k in ("positions", "lz_tokens", "tokens")}}}
+                           for k in ("positions", "lz_tokens", "tokens")}},
+        "K5": {"ns_per_position": x1["parse_ms"] * 1e6
+               / x1["longest"]["positions"],
+               "ns_per_micro_op": x1["parse_ms"] * 1e6
+               / x1["longest"]["micro_ops"],
+               "longest": {k: x1["longest"][k]
+                           for k in ("positions", "micro_ops", "tokens")}}}
     phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
                         for u, v in d.items() if u != "longest"})
     phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
@@ -905,6 +1054,13 @@ def main(procs):
             "csc_tpu/ops/parse_ap.py:208", m3["parse_ms"],
             f"{AP_STREAMS} x {HEAD_BYTES // KB} KB m3 text", m3["parse_bound"],
             "encode_ap m3"),
+        row("K5", "K5 exact m1/m2 parse (one thread a stream: the "
+            "reference's finder and lazy parser in natural loops over live "
+            "hash tables in device memory, the lockstep micro-ops counted "
+            "as it goes)", "csc_tpu_torch/csrc/encode_k5.cu",
+            "csc_tpu/ops/encode_scan.py:179", x1["parse_ms"],
+            f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text, exact parse",
+            x1["parse_bound"], "encode_exact m1"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

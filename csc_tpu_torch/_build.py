@@ -30,6 +30,7 @@ KERNELS = {
     "csc_k2": ["encode_k2.cu", "encode_k2.cuh"],
     "csc_k3": ["encode_k3.cu", "encode_k3.cuh"],
     "csc_k4": ["encode_k4.cu", "encode_k4.cuh"],
+    "csc_k5": ["encode_k5.cu", "encode_k5.cuh"],
 }
 # the spike probes (csc_tpu_torch/spikes): one library per spike file
 SPIKE_FILES = ("carry", "dma", "gather", "marginal", "mxu_stage", "pallas",
@@ -50,6 +51,9 @@ _ARGTYPES = {
     "csc_k4": ("csc_k4_launch", [_p, _p, _i64, _i32, _p, _p, _i32, _p, _p,
                                  _i32, _p, _p, _i64, _i64, _p, _p, _i32,
                                  _p]),
+    "csc_k5": ("csc_k5_launch", [_p, _i64, _p, _i32, _p, _p, _i32, _i32,
+                                 _i32, _i32, _p, _p, _p, _p, _i64, _i64, _p,
+                                 _i32, _p]),
 }
 _ARGTYPES.update({f"spike_{f}": (f"spike_{f}_launch",
                                  [_i32, _i32, _i32] + [_p] * 9 + [_i64] * 6
@@ -182,7 +186,7 @@ def load(name, csrc=CSRC):
 
 
 def kernel_library(name):
-    """The ctypes library of one kernel ("csc_k1" .. "csc_k4",
+    """The ctypes library of one kernel ("csc_k1" .. "csc_k5",
     "spike_<file>"), built on first use."""
     with _lock:
         lib = _libs.get(name)

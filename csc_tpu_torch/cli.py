@@ -5,9 +5,13 @@ header and dict clamp (csc.cpp:101-170).  Both modes run the batched
 pipeline (ops/pipeline.py) on one stream.  --backend cuda (the default)
 runs the kernels (K2 or K4, then K3, to encode at levels 1-2 or 3-5; K1
 to decode) on the first CUDA device and raises when there is none;
---backend cpu runs their plain PyTorch versions on the CPU.
+--backend cpu runs their plain PyTorch versions on the CPU.  --parse
+exact (levels 1-2) encodes with K5, the exact parse, in K2's place: the
+reference encoder's own bytes, as csc_tpu's CLI gives them under
+CSC_ENCODE_PARSE=exact (this CLI reads no environment variable for it).
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
+    python -m csc_tpu_torch.cli c -m 2 --parse exact in.bin out.csc
     python -m csc_tpu_torch.cli d out.csc back.bin
 """
 import argparse
@@ -52,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--fexe0", action="store_true", help="disable EXE filter")
     ap.add_argument("--ftxt0", action="store_true", help="disable TXT filter")
     ap.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--parse", choices=["fast", "exact"], default="fast",
+                    help="c: the fast parse, or the exact parse of m1/m2 "
+                    "(the reference encoder's bytes)")
     args = ap.parse_args(argv)
     device = _device(args.backend)
     from .ops.pipeline import decode_stream, encode_stream
@@ -71,8 +78,8 @@ def main(argv=None):
             props.TXTFilter = 0
         print("Estimated memory usage: %d MB"
               % (est_mem_usage(props) // 1048576), file=sys.stderr)
-        out = write_properties(props) + encode_stream(props, data,
-                                                      device=device)
+        out = write_properties(props) + encode_stream(
+            props, data, device=device, parse=args.parse)
         with open(args.output, "wb") as f:
             f.write(out)
         dt = time.time() - t0

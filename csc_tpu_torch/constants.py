@@ -4,7 +4,7 @@ The format constants are this package's own copy of csc_tpu/constants.py
 (csc_typedef.h:7-40, the slot tables of csc_model.cpp:45-62, the match
 finder's gates of csc_mf.cpp:245).  The decoder ids mirror
 csc_tpu/ops/decode_scan.py:37-107 and pallas_decode.py:108-110; the
-encoder ids mirror encode_scan.py:36-41, encode_scan_fast.py:34-38,
+encoder ids mirror encode_scan.py:31-57, encode_scan_fast.py:34-38,
 encode_bits.py:23-49, parse_pre.py:37, pallas_encode.py:87-88 and
 parse_ap.py:34-50.  The port keeps copies because it imports nothing of
 csc_tpu; a test holds every copy equal to its original.
@@ -198,3 +198,21 @@ POST_MATCH = 2     # a good_len or cap-straddling match after the path
 # K4's per-stream error beside ERR_OVERFLOW (the tape is full): the step
 # budget ran out before K_END
 ERR_STEPS = 2
+
+# exact m1/m2 parse (encode_scan.py:31-57): the hash tables' sizes, the
+# candidate slots of one find, the fsm states and the probe phases
+HT2_SIZE = 16 * 1024
+HT3_SIZE = 64 * 1024
+NCAND = 20         # rep0len1 + 4 reps + ht2 + ht3 + 8 * ht6, with slack
+E_DONE = 0
+E_BLOCK = 1        # sub-block / run / stream bookkeeping
+E_PREP = 2         # hashes of the probe position, probe set-up
+E_PROBE = 3        # one candidate: distance gate, validity, precheck
+E_EXT = 4          # a 4-byte word of match extension
+E_DECIDE = 5       # FindMatch's pick and the lazy decision
+E_INS = 6          # one SlidePos insertion
+PH_REP0 = 0        # .. rep 3 = 3
+PH_HT2 = 4
+PH_HT3 = 5
+PH_HT6 = 6         # the row's slot in its own register
+PH_DONE = 7

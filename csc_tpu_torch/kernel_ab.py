@@ -1,37 +1,37 @@
-"""Time K1-K4 of this checkout against another checkout's, on one card,
+"""Time K1-K5 of this checkout against another checkout's, on one card,
 in turns, at the cells of chip_smoke.py.
 
-    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3,K4]
+    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3,K4,K5]
                                       [--json FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*,
-encode_k2.*, encode_k3.* and encode_k4.* are built beside this
-checkout's and launched through this checkout's wrappers on the same
-inputs (the kernels' C interface is the same).  Cells: K1 on the decode
-headline (128 x 16 KB m1 text) and on the extract group (256 x 1 MB m1
-text, 4 slices x 64); K2 and K3 at m1 and at m2 on the encode headline
-(96 x 16 KB text, filters on) and on the encode task (4 x 1 MB m1 text);
-K4 at m3, m4 and m5 on 32 x 16 KB text, filters on (bench.py's m3_text /
-m5_text rows, and m4), at m3 on 1 024 and 4 096 x 16 KB text (the
-largest group the encode path gives one launch: 64 MB, ENCODE_GROUP_BYTES)
-and at m3 on the encode task (4 x 1 MB text: the streams that keep
-their data in device memory).  The inputs come from this checkout's
-encode path on the card.  K4 is launched directly, this build with no
-cell copy (as on the encode path) and the other with a [B, 10, N] cell
-scratch, stamps at -1, when its library lacks csc_k4_smem (PR 7's
-one-thread design keeps its DP cells there); the tape and the scratch
-are filled before each timed call, outside its events, and the builds
-are compared on tape, tok_cnt, done and err.
-Each cell is timed in turns, forward then backward (other, this, this, other; CUDA events, the median of
-`reps` calls a turn, the best turn kept), and the other build's outputs
-must equal this one's on every field.  Prints, with the card's name and
-power limit: a line a cell (ms of each build, ns per step of the longest
-stream: K3's per tape entry and per modelled bit, a bit coded through a
-probability; K2 and K4 per position and per LZ token, and per byte of
-the whole batch), and each build's
-registers, stack frame, LDL / STL and K1's blocks per SM.  Needs a CUDA
-card.
+encode_k2.* .. encode_k5.* are built beside this checkout's and launched
+through this checkout's wrappers on the same inputs (the kernels' C
+interface is the same); a kernel the other checkout lacks is left out.
+Cells: K1 on the decode headline (128 x 16 KB m1 text) and on the
+extract group (256 x 1 MB m1 text, 4 slices x 64); K2 and K3 at m1 and at
+m2 on the encode headline (96 x 16 KB text, filters on) and on the encode
+task (4 x 1 MB m1 text); K4 at m3, m4 and m5 on 32 x 16 KB text, filters
+on (bench.py's m3_text / m5_text rows, and m4), at m3 on 1 024 and 4 096
+x 16 KB text (the largest group the encode path gives one launch: 64 MB,
+ENCODE_GROUP_BYTES) and at m3 on the encode task (4 x 1 MB text: the
+streams that keep their data in device memory); K5 (the exact parse) at
+m1 and m2 on the encode headline, at m1 on 1 024 x 16 KB text (the encode
+path's large group) and on the encode task.  The inputs come from this
+checkout's encode path on the card.  K4 and K5 are launched directly,
+with no debug copy (as on the encode path): the tape and K5's hash
+tables are zeroed before each timed call, outside its events, and the
+builds are compared on tape, tok_cnt, done and err (K5: and steps).
+Each cell is timed in turns, forward then backward (other, this, this,
+other; CUDA events, the median of `reps` calls a turn, the best turn
+kept), and the other build's outputs must equal this one's on every
+field.  Prints, with the card's name and power limit: a line a cell (ms
+of each build, ns per step of the longest stream: K3's per tape entry
+and per modelled bit, a bit coded through a probability; K2, K4 and K5
+per position and per LZ token, K5 also per lockstep micro-op, and per
+byte of the whole batch), and each build's registers, stack frame, LDL /
+STL and K1's blocks per SM.  Needs a CUDA card.
 """
 import argparse
 import json
@@ -45,8 +45,8 @@ import torch
 
 from . import _build, corpus
 from .constants import K_END, K_SENT_A
-from .ops import (bits_kernel, bits_scan, decode_kernel, parse_ap_kernel,
-                  parse_kernel, pipeline)
+from .ops import (bits_kernel, bits_scan, decode_kernel, exact_kernel,
+                  parse_ap_kernel, parse_kernel, pipeline)
 from .props import props_init
 
 KB, MB = 1024, 1024 * 1024
@@ -117,69 +117,98 @@ def k1_cell(props, blobs, sizes, dev, other, reps):
                 longest=dict(bytes=max(sizes), coded_bits=bits))
 
 
-def stage_args(props, datas, dev):
-    """The parse kernel's (K2's or K4's) and K3's inputs on the encode
-    path, and the encoded streams."""
+def stage_args(props, datas, dev, parse="fast"):
+    """The parse kernel's (K2's, K4's or K5's) and K3's inputs on the
+    encode path, and the encoded streams."""
     seen = {}
 
     def on_stage(name, **values):
         seen.update(values)
-    outs = pipeline.encode_batch(props, datas, device=dev, on_stage=on_stage)
-    return seen.get("k2_args", seen.get("k4_args")), seen["k3_args"], outs
+    outs = pipeline.encode_batch(props, datas, device=dev, on_stage=on_stage,
+                                 parse=parse)
+    args = seen.get("k2_args", seen.get("k4_args", seen.get("k5_args")))
+    return args, seen["k3_args"], outs
 
 
 def k4_calls(args, other):
     """(prepare, launch) of each build for K4's raw launch on the encode
-    path's arguments: its tape and counters, and the other build's cell
-    scratch when its design keeps its cells there (no csc_k4_smem)."""
+    path's arguments: its tape and counters."""
     data, candp, run_ends, run_skip, sizes, dicts, prices, good_len, \
         tcap, max_steps = args
-    b, n = data.shape
+    b = data.shape[0]
     dev = data.device
     calls = {}
     for who, lib in (("this", _build.kernel_library("csc_k4")),
                      ("other", other)):
         tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
         out = torch.zeros((4, b), dtype=torch.int32, device=dev)
-        scratch = (parse_ap_kernel.new_cells(b, n, dev)
-                   if not hasattr(lib, "csc_k4_smem") else None)
 
-        def prepare(tape=tape, scratch=scratch):
-            tape.zero_()
-            if scratch is not None:
-                scratch.zero_()
-                scratch[:, 1] = -1
-
-        def call(lib=lib, tape=tape, scratch=scratch, out=out):
+        def call(lib=lib, tape=tape, out=out):
             parse_ap_kernel.launch(lib, data, candp, run_ends, run_skip,
                                    sizes, dicts, prices, good_len, tape,
-                                   max_steps, scratch, out)
+                                   max_steps, None, out)
             return tape, out[0], out[1], out[2]
+        calls[who] = (tape.zero_, call)
+    return calls
+
+
+def k5_calls(args, other):
+    """(prepare, launch) of each build for K5's raw launch on the encode
+    path's arguments: its tape, zeroed hash tables and counters."""
+    data, run_ends, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
+        tcap, max_steps = args
+    b = data.shape[0]
+    dev = data.device
+    calls = {}
+    for who, lib in (("this", _build.kernel_library("csc_k5")),
+                     ("other", other)):
+        tables = exact_kernel.new_tables(b, hash_bits, hash_width, dev)
+        tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
+        out = torch.zeros((4, b), dtype=torch.int32, device=dev)
+
+        def prepare(tables=tables, tape=tape):
+            for t in tables + (tape,):
+                t.zero_()
+
+        def call(lib=lib, tables=tables, tape=tape, out=out):
+            exact_kernel.launch(lib, data, run_ends, sizes, dicts, hash_bits,
+                                hash_width, good_len, lazy, tables, tape,
+                                max_steps, out)
+            return tape, out[0], out[1], out[2], out[3]
         calls[who] = (prepare, call)
     return calls
 
 
 def parse_cell(name, args, sizes, other, reps):
-    """A parse kernel's cell (name "csc_k2" or "csc_k4"): ms, and ns per
-    position and per LZ token of the longest stream.  K2 through its
-    wrapper; K4 launched directly (k4_calls)."""
+    """A parse kernel's cell (name "csc_k2", "csc_k4" or "csc_k5"): ms,
+    and ns per position and per LZ token of the longest stream (K5: and
+    per lockstep micro-op).  K2 through its wrapper; K4 and K5 launched
+    directly (k4_calls, k5_calls)."""
     if name == "csc_k2":
         ms, out = turns(name, other,
                         lambda: parse_kernel.parse_k2(*args), reps)
     else:
-        ms, out = turns(name, other, None, reps, k4_calls(args, other))
+        calls = (k4_calls if name == "csc_k4" else k5_calls)(args, other)
+        ms, out = turns(name, other, None, reps, calls)
     tape, tok_cnt = out[0], out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
             < tok_cnt[:, None])
     lz = int(((tape[..., 0] & 7) < K_SENT_A).logical_and(live)
              .sum(dim=1).max())
     pos = max(sizes)
-    return dict(ms=ms, ns_per_position={k: v * 1e6 / pos
+    cell = dict(ms=ms, ns_per_position={k: v * 1e6 / pos
                                         for k, v in ms.items()},
                 ns_per_lz_token={k: v * 1e6 / lz for k, v in ms.items()},
                 ns_per_byte={k: v * 1e6 / sum(sizes) for k, v in ms.items()},
                 streams=len(sizes), longest=dict(positions=pos,
                                                  lz_tokens=lz))
+    if name == "csc_k5":
+        if not (bool(out[2].all()) and not bool(out[3].any())):
+            raise RuntimeError("kernel_ab: K5 did not finish every stream")
+        ops = int(out[4].max())
+        cell["longest"]["micro_ops"] = ops
+        cell["ns_per_micro_op"] = {k: v * 1e6 / ops for k, v in ms.items()}
+    return cell
 
 
 def k3_longest(args):
@@ -204,7 +233,7 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--json", help="write the results here too")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4",
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5",
                     help="the kernels whose cells to time")
     a = ap.parse_args(argv)
     want = set(a.kernels.split(","))
@@ -217,16 +246,17 @@ def main(argv=None):
     print(smi, flush=True)
     other_csrc = os.path.join(os.path.abspath(a.other), "csc_tpu_torch",
                               "csrc")
-    # a kernel the other checkout does not have (K4 before its port) is
+    # a kernel the other checkout does not have (K5 before its port) is
     # left out
-    names = tuple(n for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4")
+    names = tuple(n for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4",
+                              "csc_k5")
                   if os.path.exists(os.path.join(other_csrc,
                                                  _build.KERNELS[n][0])))
     want &= {"K" + n[-1] for n in names}
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
     other = {n: _build.load(n, other_csrc) for n in names}
-    k1, k2, k3, k4 = (other.get(f"csc_k{i}") for i in range(1, 5))
+    k1, k2, k3, k4, k5 = (other.get(f"csc_k{i}") for i in range(1, 6))
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
@@ -291,6 +321,25 @@ def main(argv=None):
                                  dev)
         cells["K4 task m3 4 x 1 MB"] = parse_cell(
             "csc_k4", args4, [len(d) for d in group], k4, 1)
+    if "K5" in want:
+        for level in (1, 2):
+            args5, _, _ = stage_args([props_init(16 * KB, level)
+                                      for _ in enc], enc, dev, "exact")
+            cells[f"K5 m{level} 96 x 16 KB"] = parse_cell(
+                "csc_k5", args5, [len(d) for d in enc], k5, 3)
+        many = [text[i * 16 * KB % (len(text) - 16 * KB):][:16 * KB]
+                for i in range(1024)]
+        args5, _, _ = stage_args([props_init(16 * KB, 1) for _ in many],
+                                 many, dev, "exact")
+        if args5[0].shape[0] != len(many):
+            raise RuntimeError("kernel_ab: 1 024 x 16 KB m1 took more than "
+                               "one K5 launch")
+        cells["K5 m1 1024 x 16 KB"] = parse_cell(
+            "csc_k5", args5, [len(d) for d in many], k5, 1)
+        del args5
+        args5, _, _ = stage_args(gp, group, dev, "exact")
+        cells["K5 task m1 4 x 1 MB"] = parse_cell(
+            "csc_k5", args5, [len(d) for d in group], k5, 1)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

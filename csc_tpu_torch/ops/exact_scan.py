@@ -1,0 +1,543 @@
+"""Plain PyTorch version of the K5 exact m1/m2 parse: B streams parsed in
+lockstep with live hash tables, one micro-op a stream a step.
+
+A torch port of csc_tpu/ops/encode_scan.py (`make_encode_state`,
+`encode_parse_step`, `_mask_lookahead`, `_best_candidate`, `_emit_token`,
+`_scatter_rowvals`, `run_parse`), field for field and step for step: the
+exact emulation of csc_mf.cpp's HT2 / HT3 / HT6 finders (candidate gates,
+MTF row updates, the stride-4 insertion skip) and csc_lz.cpp's lazy parser
+(compress_normal, csc_lz.cpp:156-199) for lz_mode 1 and 2.  A stream walks
+E_BLOCK (8 KB sub-blocks and runs, K_SENT_A, K_END) -> E_PREP (hashes of
+the probe position, masked at the sub-block end) -> E_PROBE (the four
+reps, HT2, HT3 and the HT6 row, one a step; the finish step inserts the
+position) with E_EXT (4 bytes of match extension a step) -> E_DECIDE
+(FindMatch's pick, SecondMatchBetter, the lazy second probe at wpos + 1)
+-> E_INS (SlidePos, one insertion a step, four positions a step while
+128 remain).  The state holds the JAX state's fields (`state_from_numpy`
+/ `state_to_numpy` carry it across), every register in int64; the hash
+tables, the candidate slots and the tape are updated in place.  One
+register is the port's own: `steps`, each stream's count of the steps in
+which it was active, which K5 counts too; it is left out of the
+comparison with csc_tpu's state.
+
+`exact_plain` runs it under a step budget and returns what the kernel
+(csrc/encode_k5.cuh) returns: K2's two-word tape (kind | wire_len << 3,
+dist_code), tok_cnt, done, err and steps.
+"""
+import numpy as np
+import torch
+
+from ..constants import (MF_DIST_BOUND, K_LIT, K_MATCH, K_REP, K_REP0L1,
+                         K_END, K_SENT_A, HT2_SIZE, HT3_SIZE, NCAND, E_DONE,
+                         E_BLOCK, E_PREP, E_PROBE, E_EXT, E_DECIDE, E_INS,
+                         PH_REP0, PH_HT2, PH_HT3, PH_HT6, PH_DONE, MASK32)
+from . import parse_ap_scan
+from .parse_pre import _H6_MUL_HI, _H6_MUL_LO, _low_bytes_mask, _mul32, \
+    words4
+from .parse_scan import second_better
+
+_BOUND = list(MF_DIST_BOUND) + [0x7FFFFFFF]
+_REGS = ["size", "vld_rge", "pos", "wpos", "run_idx", "run_end", "fsm",
+         "blk_off", "blk_len", "blk_i", "phase", "ht6_k", "minlen", "cnt",
+         "dist", "h2", "h3", "h6", "ext_dist", "ext_len", "ext_climit",
+         "probe_limit", "have_u1", "u1_len", "u1_dist", "probe2",
+         "ins_base", "ins_i", "ins_len", "ins_limit", "lasth6", "tok_cnt",
+         "done"]
+_TABLES = ["reps", "ht2", "ht3", "ht6", "cand_len", "cand_dist"]
+_TAPE = ["tok_kind", "tok_a", "tok_b", "tok_c"]
+SUB_BLOCK = 8 * 1024
+
+
+def check_inputs(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
+                 good_len):
+    """Raise on inputs K5 and this version do not take."""
+    b = data.shape[0] if data.dim() == 2 else -1
+    want = (("data", data, torch.uint8, 2),
+            ("run_ends", run_ends, torch.int32, 2),
+            ("sizes", sizes, torch.int32, 1),
+            ("dict_sizes", dict_sizes, torch.int32, 1))
+    for name, t, dt, nd in want:
+        if t.dtype != dt or t.dim() != nd or t.shape[0] != b:
+            raise ValueError(f"{name}: want {nd}-d {dt} with {b} rows, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != data.device:
+            raise ValueError(f"{name} on {t.device}, data on {data.device}")
+    if run_ends.shape[1] < 1:
+        raise ValueError("run_ends must be [B, R >= 1]")
+    if not 1 <= hash_width <= 8 or not 1 <= hash_bits <= 24:
+        raise ValueError(f"hash_width must be in [1, 8] and hash_bits in "
+                         f"[1, 24], got {hash_width}, {hash_bits}")
+    if good_len < 2:
+        raise ValueError(f"good_len must be >= 2, got {good_len}")
+
+
+def table_sizes(hash_bits, hash_width):
+    """Entries of the three per-stream hash tables (ht2, ht3, ht6)."""
+    return HT2_SIZE, HT3_SIZE, hash_width << hash_bits
+
+
+def _words2(data):
+    d = torch.nn.functional.pad(data.long(), (0, 8))
+    n = data.shape[1]
+    return d[:, :n] | (d[:, 1:n + 1] << 8)
+
+
+def make_exact_state(data, run_ends, sizes, dict_sizes, hash_bits,
+                     hash_width, good_len, lazy, max_tokens):
+    """Initial state on data's device (make_encode_state's fields) and its
+    cfg."""
+    check_inputs(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
+                 good_len)
+    b, dev = data.shape[0], data.device
+    z = torch.zeros(b, dtype=torch.int64, device=dev)
+    st = {name: z.clone() for name in _REGS + ["steps"]}
+    st["size"] = sizes.long()
+    st["vld_rge"] = dict_sizes.long() - 8 * 1024 - 4
+    st["pos"] = st["vld_rge"].clone()
+    st["run_end"] = run_ends[:, 0].long()
+    st["fsm"] += E_BLOCK
+    st["data"] = data
+    st["in4"] = words4(data)
+    st["in2"] = _words2(data)
+    st["run_ends"] = run_ends
+    st["reps"] = dict_sizes.long()[:, None].repeat(1, 4)
+    for name, size in zip(("ht2", "ht3", "ht6"),
+                          table_sizes(hash_bits, hash_width)):
+        st[name] = torch.zeros((b, size), dtype=torch.int64, device=dev)
+    for name in ("cand_len", "cand_dist"):
+        st[name] = torch.zeros((b, NCAND), dtype=torch.int64, device=dev)
+    for name in _TAPE:
+        st[name] = torch.zeros((b, max_tokens), dtype=torch.int64,
+                               device=dev)
+    return st, dict(hash_bits=int(hash_bits), hash_width=int(hash_width),
+                    good_len=int(good_len), lazy=1 if lazy else 0)
+
+
+def state_from_numpy(st, device):
+    """encode_scan's state (numpy or jax arrays) -> this module's state on
+    `device`, `steps` at 0."""
+    dev = torch.device(device)
+
+    def t(name, dtype=torch.int64):
+        return torch.as_tensor(np.array(st[name]), device=dev).to(dtype)
+    out = {name: t(name) for name in _REGS + _TABLES + _TAPE
+           + ["in4", "in2"]}
+    out["data"] = t("data", torch.uint8)
+    out["run_ends"] = t("run_ends", torch.int32)
+    out["steps"] = torch.zeros_like(out["done"])
+    return out
+
+
+def state_to_numpy(st):
+    """This module's state -> encode_scan's field names and dtypes (no
+    `steps`)."""
+    out = {}
+    for name in _REGS + _TABLES + _TAPE + ["run_ends"]:
+        v = st[name].cpu().numpy()
+        if v.dtype == np.int64 and v.size and (
+                v.min() < -2 ** 31 or v.max() >= 2 ** 31):
+            raise OverflowError(f"{name} leaves int32's range")
+        out[name] = v.astype(np.int32)
+    out["data"] = st["data"].cpu().numpy().copy()
+    for name in ("in4", "in2"):
+        out[name] = st[name].cpu().numpy().astype(np.uint32)
+    return out
+
+
+def _gather(tbl, idx):
+    """tbl[b, idx[b]], the index clipped into the row (csc_tpu's gathers
+    either clip or, where they read past the row, are masked after)."""
+    return tbl.gather(1, idx.clamp(0, tbl.shape[1] - 1)[:, None])[:, 0] \
+        .long()
+
+
+def _put(tbl, pos, mask, val):
+    """tbl[b, pos[b]] = val[b] where mask, in place (`_scatter1`)."""
+    pos = pos[:, None]
+    cur = tbl.gather(1, pos)[:, 0]
+    tbl.scatter_(1, pos, torch.where(mask, val, cur)[:, None])
+
+
+def _hashes(in2, in4, p, rem, hash_bits):
+    """h2, h3, h6 of position p, the bytes at and after the sub-block end
+    (rem bytes ahead) read as zeros (`_mask_lookahead`: the reference's
+    window holds only the sub-blocks copied so far, csc_lz.cpp:63-67)."""
+    v2 = _gather(in2, p) & _low_bytes_mask(rem, 2)
+    v4 = _gather(in4, p) & _low_bytes_mask(rem, 4)
+    v2b = _gather(in2, p + 4) & _low_bytes_mask(rem - 4, 2)
+    h2 = (v2 * 65521) & 0x3FFF
+    b0 = v2 & 0xFF
+    b1 = (v2 >> 8) & 0xFF
+    b2 = (v4 >> 16) & 0xFF
+    h3 = ((b0 << 8) ^ (b1 << 5) ^ b2) & 0xFFFF
+    h6 = _mul32(v4 ^ (v2b << 13), _H6_MUL_HI, _H6_MUL_LO) >> (32 - hash_bits)
+    return h2, h3, h6
+
+
+def _eq_bytes(x):
+    return torch.where(
+        x == 0, 4, torch.where(
+            (x & 0xFF) != 0, 0, torch.where(
+                (x & 0xFFFF) != 0, 1, torch.where(
+                    (x & 0xFFFFFF) != 0, 2, 3))))
+
+
+class _Step:
+    """One lockstep step: `st` the state before it, `new` the state after
+    (registers replaced, tables written in place); each phase reads its
+    streams' registers from `st`."""
+
+    def __init__(self, st, cfg):
+        self.st, self.cfg = st, cfg
+        self.new = dict(st)
+
+    def upd(self, name, cond, val):
+        self.new[name] = torch.where(cond, val, self.new[name])
+
+    def block(self, c):
+        st, upd = self.st, self.upd
+        tape_w = st["tok_kind"].shape[1]
+        tok = st["tok_cnt"]
+        # the run-end and stream-end markers land only inside the tape
+        # (encode_scan.py:208, 223); emitted tokens clip (:569)
+        tok_ok = tok < tape_w
+        tpos = tok.clamp(0, tape_w - 1)
+        need_new = c & (st["blk_i"] >= st["blk_len"])
+        nboff = st["blk_off"] + st["blk_len"]
+        run_done = need_new & (nboff >= st["run_end"]) & (st["blk_len"] > 0)
+        _put(st["tok_kind"], tpos, run_done & tok_ok,
+             torch.full_like(tok, K_SENT_A))
+        upd("tok_cnt", run_done, tok + 1)
+        nridx = st["run_idx"] + 1
+        upd("run_idx", run_done, nridx)
+        upd("run_end", run_done, _gather(st["run_ends"], nridx))
+        upd("blk_off", run_done, nboff)
+        upd("blk_len", run_done, 0)
+        upd("blk_i", run_done, 0)
+        upd("have_u1", run_done, 0)
+
+        fresh = need_new & ~run_done
+        stream_end = fresh & (nboff >= st["size"])
+        _put(st["tok_kind"], tpos, stream_end & tok_ok,
+             torch.full_like(tok, K_END))
+        upd("tok_cnt", stream_end, tok + 1)
+        upd("done", stream_end, 1)
+        upd("fsm", stream_end, E_DONE)
+        start_blk = fresh & ~stream_end
+        upd("blk_off", start_blk, nboff)
+        upd("blk_len", start_blk,
+            torch.clamp(st["run_end"] - nboff, max=SUB_BLOCK))
+        upd("blk_i", start_blk, 0)
+        upd("have_u1", start_blk, 0)
+        go = (c & ~need_new) | start_blk
+        # a pending first pick (have_u1) skips the find
+        upd("fsm", go & (st["have_u1"] == 1), E_DECIDE)
+        upd("fsm", go & (st["have_u1"] == 0), E_PREP)
+        upd("probe2", go & (st["have_u1"] == 0), 0)
+
+    def prep(self, c):
+        st, upd = self.st, self.upd
+        ppos = st["wpos"] + st["probe2"]
+        h2, h3, h6 = _hashes(st["in2"], st["in4"], ppos,
+                             st["blk_off"] + st["blk_len"] - ppos,
+                             self.cfg["hash_bits"])
+        upd("h2", c, h2)
+        upd("h3", c, h3)
+        upd("h6", c, h6)
+        upd("minlen", c, 1)
+        upd("cnt", c, 0)
+        upd("dist", c, 0)
+        upd("probe_limit", c, st["blk_len"] - st["blk_i"] - st["probe2"])
+        upd("phase", c, PH_REP0)
+        upd("ht6_k", c, 0)
+        upd("fsm", c, E_PROBE)
+
+    def probe(self, c):
+        st, upd = self.st, self.upd
+        w = self.cfg["hash_width"]
+        ph = st["phase"]
+        pos = st["pos"]
+        ppos = st["wpos"] + st["probe2"]
+        dist_u = st["dist"] & MASK32       # -1: every later gate fails
+        ht6base = st["h6"] * w
+        is_rep = c & (ph <= 3)
+        is_ht2 = c & (ph == PH_HT2)
+        is_ht3 = c & (ph == PH_HT3)
+        is_ht6 = c & (ph == PH_HT6)
+        fin = c & (ph == PH_DONE)
+        probing = is_rep | is_ht2 | is_ht3 | is_ht6
+        if bool(probing.any()):
+            cand = torch.where(
+                ph <= 3, _gather(st["reps"], ph.clamp(0, 3)), torch.where(
+                    ph == PH_HT2, pos - _gather(st["ht2"], st["h2"]),
+                    torch.where(
+                        ph == PH_HT3, pos - _gather(st["ht3"], st["h3"]),
+                        torch.where(ph == PH_HT6, pos - _gather(
+                            st["ht6"], ht6base + st["ht6_k"].clamp(0, w - 1)),
+                            0))))
+            cand_u = cand & MASK32
+            # distance gates (csc_mf.cpp:303,334,456), unsigned
+            gate_ok = torch.where(ph <= 3, True, cand_u > dist_u)
+            vld_ok = cand_u < (st["vld_rge"] & MASK32)
+            # an HT probe takes the candidate's distance once gated in,
+            # valid or not (csc_mf.cpp:304,335,457)
+            upd("dist", (is_ht2 | is_ht3 | is_ht6) & gate_ok, cand)
+            # HT2 wraparound quirk (csc_mf.cpp:306): distance == position
+            climit = torch.where(is_ht2 & (cand == ppos), 0,
+                                 st["probe_limit"])
+            ml = st["minlen"]
+            pb = _gather(st["data"], ppos + ml)
+            cb = _gather(st["data"], ppos - cand + ml)
+            pre_ok = (ml < climit) & (pb == cb)
+            do_ext = gate_ok & vld_ok & pre_ok & probing
+            upd("ext_dist", do_ext, cand)
+            upd("ext_len", do_ext, 0)
+            upd("ext_climit", do_ext, climit)
+            upd("fsm", do_ext, E_EXT)
+            skip = probing & ~do_ext
+            nk = st["ht6_k"] + 1
+            nph = torch.where(
+                ph <= 3, ph + 1, torch.where(
+                    ph == PH_HT2, PH_HT3, torch.where(
+                        ph == PH_HT3, PH_HT6, torch.where(
+                            nk < w, ph, PH_DONE))))
+            upd("ht6_k", skip & is_ht6, nk)
+            upd("phase", skip, nph)
+        if bool(fin.any()):
+            # find_match's tail (csc_mf.cpp:365,487-491): insert the
+            # position into HT2 and HT3, MTF-shift it into its HT6 row
+            _put(st["ht2"], st["h2"], fin, pos)
+            _put(st["ht3"], st["h3"], fin, pos)
+            row_idx = ht6base[:, None] + torch.arange(w, device=pos.device)
+            row = st["ht6"].gather(1, row_idx)
+            shifted = torch.cat([pos[:, None], row[:, :w - 1]], dim=1)
+            st["ht6"].scatter_(1, row_idx,
+                               torch.where(fin[:, None], shifted, row))
+            upd("pos", fin, pos + 1)
+            upd("fsm", fin, E_DECIDE)
+
+    def ext(self, c):
+        st, upd = self.st, self.upd
+        w = self.cfg["hash_width"]
+        in4 = st["in4"]
+        ppos = st["wpos"] + st["probe2"]
+        el = st["ext_len"]
+        x = _gather(in4, ppos + el) ^ _gather(in4, ppos - st["ext_dist"]
+                                              + el)
+        eq = _eq_bytes(x)
+        adv = torch.minimum(eq, st["ext_climit"] - el)
+        nel = el + adv
+        cont = c & (eq == 4) & (adv == 4) & (nel < st["ext_climit"])
+        upd("ext_len", c, nel)
+        done = c & ~cont
+        ph = st["phase"]
+        is_rep = ph <= 3
+        cnt = st["cnt"]
+        # rep0len1 (csc_mf.cpp:281-287)
+        r01 = done & (ph == 0) & (nel > 0)
+        tpos = cnt.clamp(0, NCAND - 1)
+        one = torch.ones_like(cnt)
+        _put(st["cand_len"], tpos, r01, one)
+        _put(st["cand_dist"], tpos, r01, one)
+        cnt = torch.where(r01 & (cnt + 2 < NCAND), cnt + 1, cnt)
+        better = done & (nel > st["minlen"])
+        bound = torch.as_tensor(_BOUND, device=nel.device)[nel.clamp(0, 7)]
+        rec = better & (is_rep | (nel > 6) | (st["ext_dist"] < bound))
+        upd("minlen", better, nel)
+        tpos = cnt.clamp(0, NCAND - 1)
+        _put(st["cand_len"], tpos, rec, nel)
+        _put(st["cand_dist"], tpos, rec,
+             torch.where(is_rep, ph + 1, st["ext_dist"] + 4))
+        cnt = torch.where(rec & (cnt + 2 < NCAND), cnt + 1, cnt)
+        upd("cnt", done, cnt)
+        gl_exit = better & (nel >= self.cfg["good_len"])
+        upd("dist", gl_exit, -1)
+        nk = st["ht6_k"] + 1
+        nph = torch.where(
+            is_rep, ph + 1, torch.where(
+                ph == PH_HT2, PH_HT3, torch.where(
+                    ph == PH_HT3, PH_HT6, torch.where(nk < w, ph, PH_DONE))))
+        upd("ht6_k", done & (ph == PH_HT6), nk)
+        # good_len at a rep: on to HT2, whose gate the sentinel fails
+        # (csc_mf.cpp:294-298)
+        nph = torch.where(gl_exit & is_rep, PH_HT2, nph)
+        upd("phase", done, nph)
+        upd("fsm", done, E_PROBE)
+
+    def decide(self, c):
+        st, upd = self.st, self.upd
+        wpos = st["wpos"]
+        u_len, u_dist = best_candidate(st["cand_len"], st["cand_dist"],
+                                       st["cnt"])
+        probe2 = st["probe2"] == 1
+        first = c & ~probe2
+        held = st["have_u1"] == 1
+        u1_len = torch.where(held, st["u1_len"], u_len)
+        u1_dist = torch.where(held, st["u1_dist"], u_dist)
+        take_now = first & ((u1_len == 1) | (self.cfg["lazy"] == 0)
+                            | (u1_len >= self.cfg["good_len"]))
+        go2 = first & ~take_now
+        upd("u1_len", go2, u1_len)
+        upd("u1_dist", go2, u1_dist)
+        upd("probe2", go2, 1)
+        upd("fsm", go2, E_PREP)
+
+        second = c & probe2
+        smb = second_better(st["u1_len"], st["u1_dist"], u_len, u_dist)
+        lit = second & smb
+        mt = second & ~smb
+        # the token: u1 now, a literal, or u1 after the second probe
+        em = take_now | lit | mt
+        em_len = torch.where(take_now, u1_len,
+                             torch.where(lit, 1, st["u1_len"]))
+        em_dist = torch.where(take_now, u1_dist,
+                              torch.where(lit, 0, st["u1_dist"]))
+        self.emit(em, em_len, em_dist)
+        # take_now slides from wpos; a match after the second probe from
+        # wpos + 1 (that position is in the tables already)
+        slide = take_now | mt
+        upd("ins_base", slide, torch.where(mt, wpos + 1, wpos))
+        upd("ins_i", slide, 1)
+        upd("ins_len", slide, torch.where(mt, em_len - 1, em_len))
+        upd("ins_limit", slide, st["blk_len"] - st["blk_i"]
+            - torch.where(mt, 1, 0))
+        upd("lasth6", slide, 0)
+        upd("blk_i", em, st["blk_i"] + em_len)
+        upd("wpos", em, wpos + em_len)
+        upd("have_u1", slide, 0)
+        upd("probe2", lit | mt, 0)
+        upd("fsm", slide, E_INS)
+        upd("u1_len", lit, u_len)
+        upd("u1_dist", lit, u_dist)
+        upd("have_u1", lit, 1)
+        upd("fsm", lit, E_BLOCK)
+
+    def emit(self, mask, u_len, u_dist):
+        """`_emit_token`: one token (encode_nonlit coords, csc_lz.cpp:127-
+        154) at the clipped tape position, and the rep queue update."""
+        st, new = self.st, self.new
+        wpos = st["wpos"]
+        tape_w = st["tok_kind"].shape[1]
+        tpos = st["tok_cnt"].clamp(0, tape_w - 1)
+        is_lit = u_dist == 0
+        is_r01 = (u_dist == 1) & (u_len == 1)
+        is_rep = (u_dist <= 4) & ~is_lit & ~is_r01
+        is_match = u_dist > 4
+        kind = torch.where(is_lit, K_LIT, torch.where(
+            is_r01, K_REP0L1, torch.where(is_rep, K_REP, K_MATCH)))
+        a = torch.where(is_lit, _gather(st["data"], wpos), torch.where(
+            is_r01, 0, torch.where(is_rep, u_dist - 1, u_dist - 5)))
+        b = torch.where(is_rep | is_match, u_len - 2, 0)
+        # SetLiteralCtx(last byte) after the token (csc_lz.cpp:172,192)
+        last = _gather(st["data"], wpos + u_len - 1)
+        for name, val in zip(_TAPE, (kind, a, b, last)):
+            _put(st[name], tpos, mask, val)
+        self.upd("tok_cnt", mask, st["tok_cnt"] + 1)
+        reps = st["reps"]
+        rd = reps.gather(1, (u_dist - 1).clamp(0, 3)[:, None])
+        cols = torch.arange(4, device=reps.device)[None, :]
+        rot = torch.where(cols <= (u_dist - 1)[:, None],
+                          torch.cat([rd, reps[:, :3]], dim=1), reps)
+        push = torch.cat([(u_dist - 4)[:, None], reps[:, :3]], dim=1)
+        reps2 = torch.where((mask & is_rep)[:, None], rot, reps)
+        new["reps"] = torch.where((mask & is_match)[:, None], push, reps2)
+
+    def ins(self, c):
+        st, upd = self.st, self.upd
+        w = self.cfg["hash_width"]
+        pos = st["pos"]
+        done = c & (st["ins_i"] >= st["ins_len"])
+        upd("fsm", done, E_BLOCK)
+        ins = c & ~done
+        if not bool(ins.any()):
+            return
+        ipos = st["ins_base"] + st["ins_i"]
+        h2, h3, h6 = _hashes(st["in2"], st["in4"], ipos,
+                             st["blk_off"] + st["blk_len"] - ipos,
+                             self.cfg["hash_bits"])
+        _put(st["ht2"], h2, ins, pos)
+        _put(st["ht3"], h3, ins, pos)
+        # stride-4 fast path (csc_mf.cpp:145): no HT6 while i + 128 < len
+        fast = ins & (st["ins_i"] + 128 < st["ins_len"])
+        slow = ins & ~fast
+        row_idx = (h6 * w)[:, None] + torch.arange(w, device=pos.device)
+        row = st["ht6"].gather(1, row_idx)
+        # the row shifts only for a hash other than the last one inserted
+        shift = (slow & (h6 != st["lasth6"]))[:, None]
+        row2 = torch.where(shift, torch.cat([row[:, :1], row[:, :w - 1]],
+                                            dim=1), row)
+        row2 = torch.where(slow[:, None], torch.cat([pos[:, None],
+                                                     row2[:, 1:]], dim=1),
+                           row2)
+        st["ht6"].scatter_(1, row_idx, row2)
+        upd("lasth6", slow, h6)
+        step = torch.where(fast, 4, 1)
+        upd("ins_i", ins, st["ins_i"] + step)
+        upd("pos", ins, pos + step)
+
+
+def best_candidate(cand_len, cand_dist, cnt):
+    """FindMatch's pick (csc_mf.cpp:497-524) over the first cnt slots:
+    the first, then each later one SecondMatchBetter prefers; (1, 0)
+    (a literal) when there is none."""
+    best_len = torch.ones_like(cnt)
+    best_dist = torch.zeros_like(cnt)
+    have = torch.zeros_like(cnt, dtype=torch.bool)
+    for i in range(NCAND):
+        valid = i < cnt
+        l2, d2 = cand_len[:, i], cand_dist[:, i]
+        take = valid & (~have | second_better(best_len, best_dist, l2, d2))
+        best_len = torch.where(take, l2, best_len)
+        best_dist = torch.where(take, d2, best_dist)
+        have = have | valid
+    return best_len, best_dist
+
+
+def encode_parse_step(st, cfg):
+    """One lockstep micro-op of every live stream."""
+    s = _Step(st, cfg)
+    active = st["done"] == 0
+    fsm = st["fsm"]
+    for state, phase in ((E_BLOCK, s.block), (E_PREP, s.prep),
+                         (E_PROBE, s.probe), (E_EXT, s.ext),
+                         (E_DECIDE, s.decide), (E_INS, s.ins)):
+        c = active & (fsm == state)
+        if bool(c.any()):
+            phase(c)
+    s.new["steps"] = st["steps"] + active.long()
+    return s.new
+
+
+def run_parse(st, cfg, max_steps):
+    """Step until every stream is done or max_steps; returns (state,
+    steps taken)."""
+    steps = 0
+    while steps < max_steps and not bool((st["done"] == 1).all()):
+        st = encode_parse_step(st, cfg)
+        steps += 1
+    return st, steps
+
+
+def max_steps_for(n):
+    """csc_tpu's step budget of a group of width n (pipeline.py:439)."""
+    return 64 * n + 4096
+
+
+def tape_of(st):
+    """K5's outputs from a state: (tape [B, T, 2] int32, tok_cnt, done,
+    err, steps [B] int32); err is ERR_OVERFLOW when the tape filled, else
+    ERR_STEPS when the stream is not done."""
+    return parse_ap_scan.tape_of(st) + (st["steps"].to(torch.int32),)
+
+
+def exact_plain(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
+                good_len, lazy, max_tokens, max_steps=None):
+    """K5's function, as lockstep torch ops on data's device."""
+    st, cfg = make_exact_state(data, run_ends, sizes, dict_sizes,
+                               hash_bits, hash_width, good_len, lazy,
+                               max_tokens)
+    if max_steps is None:
+        max_steps = max_steps_for(data.shape[1])
+    st, _ = run_parse(st, cfg, max_steps)
+    return tape_of(st)
+

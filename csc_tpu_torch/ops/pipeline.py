@@ -9,20 +9,26 @@ encode: host plan (analyzer + forward filters) -> candidates (parse_pre)
 -> K2 lazy parse (m1/m2) or K4 optimal parse (m3-m5) -> stitch -> K3
 phase-B coder -> host remux.  The counterpart of csc_tpu/ops/pipeline.py
 `encode_batch` on its fast path (pipeline.py:335-389 and, at m3-m5,
-391-467).  Where csc_tpu falls back to its host golden encoder (a stream
-the planner rejects, one over the 1 MB device cap, a K3 output overflow)
-this port raises EncodeError naming the stream and the reason: it never
-encodes on the host.
+391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1 and
+m2 only): host plan -> K5, the exact parse with live hash tables -> stitch
+-> K3 -> remux, byte-identical to the reference encoder (csc_tpu's
+pipeline.py:229-262, 277, 307-325, 433-497 with its host stitch).  Where
+csc_tpu falls back to its host golden encoder (a stream the planner
+rejects, one over the 1 MB device cap, a K3 output overflow; under exact
+also a BAD / ENTROPY / DLT run) this port raises EncodeError naming the
+stream and the reason: it never encodes on the host.
 """
 import numpy as np
 import torch
 
 from .. import constants, native
-from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
-                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
-from . import encode_host, framing, parse_pre, prices, stitch
+from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, DT_ENTROPY, DT_BAD,
+                         DT_DLT, SIG_EOF, ERR_CORRUPT, ERR_OVERFLOW,
+                         ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
+from . import encode_host, exact_scan, framing, parse_pre, prices, stitch
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
+from .exact_kernel import parse_k5
 from .parse_ap_kernel import parse_k4
 from .parse_ap_scan import max_steps_for
 from .parse_kernel import parse_k2
@@ -30,8 +36,10 @@ from .parse_scan import tape_capacity
 
 CUDA = torch.device("cuda")
 # LZ input bytes per device encode call: bounds the candidate arrays
-# (20 int32 rows per position at m2) and the precompute's temporaries
+# (20 int32 rows per position at m2) and the precompute's temporaries,
+# and under the exact parse the hash tables (576 KB a 16 KB stream at m1)
 ENCODE_GROUP_BYTES = 64 * 1024 * 1024
+PARSES = ("fast", "exact")
 
 
 class DecodeError(Exception):
@@ -162,9 +170,30 @@ def decode_stream(props, blob, pos=0, *, device=CUDA):
 
 
 # ================================================================= encode
-def plan_streams(props_list, datas):
+def _exact_refusal(props, plan):
+    """Why the exact parse does not take a stream, which csc_tpu encodes
+    with its golden encoder there (pipeline.py:229-262), or None."""
+    if props.lz_mode == 3 or props.bt_size:
+        return (f"the exact parse takes lz_mode 1 and 2 (m1, m2), not "
+                f"lz_mode {props.lz_mode}")
+    off = 0
+    for t, n, *_ in plan[1] if plan else ():
+        if t >= DT_NO_LZ:
+            name = ("DT_DLT" if t >= DT_DLT else
+                    {DT_BAD: "DT_BAD", DT_ENTROPY: "DT_ENTROPY"}.get(
+                        t, f"type {t}"))
+            return (f"a {name} run ({n} bytes at offset {off}); the exact "
+                    f"parse codes LZ runs only")
+        off += n
+    return None
+
+
+def plan_streams(props_list, datas, parse="fast"):
     """Per-stream (lz_input, run_table), or None for an empty stream;
-    EncodeError for a stream the device path does not take."""
+    EncodeError for a stream the device path does not take (under
+    parse="exact" also for one `_exact_refusal` names)."""
+    if parse not in PARSES:
+        raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
     for i, (props, data) in enumerate(zip(props_list, datas)):
         if props.lz_mode not in (1, 2, 3):
@@ -175,24 +204,31 @@ def plan_streams(props_list, datas):
                 f"stream {i}: {len(data)} bytes is over the "
                 f"{encode_host.MAX_ENCODE}-byte device encode cap; split it")
         if len(data) > props.dict_size:
-            # the candidates treat the stream as one window with no wrap
-            # (csc_tpu parse_pre.py:6); past the dictionary the reference
-            # decoder's ring rejects the matches that cross its end
+            # the parse treats the stream as one window with no wrap
+            # (csc_tpu parse_pre.py:6, encode_scan.py:15-18); past the
+            # dictionary the reference decoder's ring rejects the matches
+            # that cross its end
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is more than its "
-                f"{props.dict_size}-byte dictionary; the fast parse needs "
+                f"{props.dict_size}-byte dictionary; the device parse needs "
                 f"the dictionary to cover the stream")
-        plans.append(encode_host.plan_stream(props, data) if data else None)
+        plan = encode_host.plan_stream(props, data) if data else None
+        reason = _exact_refusal(props, plan) if parse == "exact" else None
+        if reason:
+            raise EncodeError(f"stream {i}: {reason}; csc_tpu encodes it "
+                              f"with its golden encoder")
+        plans.append(plan)
     return plans
 
 
-def _groups(props_list, plans):
+def _groups(props_list, plans, parse="fast"):
     """(stream indices, width) of each device call: streams grouped by
     preset (a call runs one preset), each group cut into calls of at most
     ENCODE_GROUP_BYTES of input.  At m3-m5 a preset's streams are first
     split by their power-of-two size bucket and the width is csc_tpu's for
-    the bucket (`ap_width`); at m1 / m2 the width is the call's longest
-    stream (None)."""
+    the bucket (`ap_width`); under the exact parse the width is csc_tpu's
+    for the preset's streams, `ap_width` too (pipeline.py:307); at m1 / m2 on
+    the fast parse it is the call's longest stream (None)."""
     by_preset = {}
     for i, plan in enumerate(plans):
         if plan is not None:
@@ -205,7 +241,8 @@ def _groups(props_list, plans):
     groups = []
     for key in sorted(by_preset):
         idxs = sorted(by_preset[key], key=lambda i: len(plans[i][0]))
-        width = ap_width([plans[i] for i in idxs]) if key[3] == 3 else None
+        width = (ap_width([plans[i] for i in idxs])
+                 if parse == "exact" or key[3] == 3 else None)
         cur, nbytes = [], 0
         for i in idxs:
             n = len(plans[i][0])
@@ -289,12 +326,14 @@ def remux_group(props, coded):
 
 
 def encode_group(props_list, plans, idxs, device, on_stage=None,
-                 width=None):
+                 width=None, parse="fast"):
     """Encode the streams `idxs` of a batch, all of one preset, on
     `device` from their encode_host.plan_stream plans: candidates, K2 (m1
-    / m2) or K4 (m3-m5), stitch, K3, remux.  Returns their raw streams in
-    `idxs` order.  width: the data width (the longest stream by default;
-    at m3-m5, `ap_width` of the streams).
+    / m2) or K4 (m3-m5), stitch, K3, remux; under parse="exact" K5 (m1 /
+    m2), with no candidates, in the parse's place.  Returns their raw
+    streams in `idxs` order.  width: the data width (the longest stream
+    by default; at m3-m5 and under the exact parse, `ap_width` of the
+    streams).
 
     on_stage, when given, is called as on_stage(name, **values) after each
     stage, so a caller can time the stages and hold each kernel to its
@@ -302,6 +341,8 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
       "precompute"  cand ([B, 2C, N] candidates), k2_args or k4_args (the
                     parse kernel's arguments)
       "k2" / "k4"   k2_out / k4_out (its outputs)
+      "k5"          under the exact parse, in place of the two above:
+                    k5_args and k5_out (K5's arguments and outputs)
       "stitch"      stitch_args (the stitch's), k3_args (K3's arguments)
       "k3"          k3_out (K3's outputs)
       "remux"       outs (the raw streams)
@@ -309,31 +350,44 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     note = on_stage or (lambda name, **values: None)
     p0 = props_list[idxs[0]]
     ap = p0.lz_mode == 3
-    if ap and width is None:
+    exact = parse == "exact"
+    for i in idxs if exact else ():
+        reason = _exact_refusal(props_list[i], plans[i])
+        if reason:
+            raise EncodeError(f"stream {i}: {reason}")
+    if (ap or exact) and width is None:
         width = ap_width([plans[i] for i in idxs])
     data, run_ends, run_skip, sizes, dicts = group_inputs(
         props_list, plans, idxs, device, width)
-    # m5's binary-tree finder is stood in for by width-8 chains
-    # (csc_tpu pipeline.py:391-399)
-    hash_width = (p0.hash_width or 8) if ap else p0.hash_width
-    cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
-                                           hash_width)
     n = data.shape[1]
-    args = (data, parse_pre.pack_candidates(cand), run_ends, run_skip,
-            sizes, dicts)
     tcap = tape_capacity(n, run_ends.shape[1])
-    if ap:
-        kernel = "k4"
-        args += (torch.from_numpy(prices.pack_prices(
-            prices.snapshot_prices())).to(device), p0.good_len, tcap,
-            max_steps_for(n))
+    if exact:
+        # the exact parse probes its own hash tables: no candidates
+        args = (data, run_ends, sizes, dicts, p0.hash_bits, p0.hash_width,
+                p0.good_len, p0.lz_mode == 2, tcap,
+                exact_scan.max_steps_for(n))
+        out = parse_k5(*args)
+        note("k5", k5_args=args, k5_out=out)
     else:
-        kernel = "k2"
-        args += (p0.good_len, tcap)
-    note("precompute", cand=cand, **{kernel + "_args": args})
-    del cand
-    out = (parse_k4 if ap else parse_k2)(*args)
-    note(kernel, **{kernel + "_out": out})
+        # m5's binary-tree finder is stood in for by width-8 chains
+        # (csc_tpu pipeline.py:391-399)
+        hash_width = (p0.hash_width or 8) if ap else p0.hash_width
+        cand = parse_pre.precompute_candidates(data, run_ends, p0.hash_bits,
+                                               hash_width)
+        args = (data, parse_pre.pack_candidates(cand), run_ends, run_skip,
+                sizes, dicts)
+        if ap:
+            kernel = "k4"
+            args += (torch.from_numpy(prices.pack_prices(
+                prices.snapshot_prices())).to(device), p0.good_len, tcap,
+                max_steps_for(n))
+        else:
+            kernel = "k2"
+            args += (p0.good_len, tcap)
+        note("precompute", cand=cand, **{kernel + "_args": args})
+        del cand
+        out = (parse_k4 if ap else parse_k2)(*args)
+        note(kernel, **{kernel + "_out": out})
     tape, tok_cnt, done, err = out[:4]
     tok_cnt, done, err = (t.cpu().numpy() for t in (tok_cnt, done, err))
     bad = [idxs[j] for j in range(len(idxs)) if err[j] or not done[j]]
@@ -363,21 +417,25 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     return outs
 
 
-def encode_batch(props_list, datas, *, device=CUDA, on_stage=None):
+def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
+                 parse="fast"):
     """Encode B independent streams at m1-m5 on `device`.
 
-    Returns list[bytes], the raw streams without the property header,
-    byte-identical to csc_tpu's encode_batch on its fast path.  Streams
-    are grouped by preset (one device call per preset and size group).
-    An empty stream is the SIG_EOF chunk alone.  Raises EncodeError for
-    a stream it cannot take (over MAX_ENCODE, longer than its
-    dictionary) or that a kernel flags.  on_stage: as encode_group's,
-    called once more as on_stage("plan", plans=...) after the host plan.
+    parse="fast" (the default) returns list[bytes], the raw streams
+    without the property header, byte-identical to csc_tpu's encode_batch
+    on its fast path; parse="exact" (m1 and m2) returns the reference
+    encoder's own bytes, as csc_tpu's under CSC_ENCODE_PARSE=exact.
+    Streams are grouped by preset (one device call per preset and size
+    group).  An empty stream is the SIG_EOF chunk alone.  Raises
+    EncodeError for a stream it cannot take (over MAX_ENCODE, longer than
+    its dictionary; under exact also m3-m5 and BAD / ENTROPY / DLT runs)
+    or that a kernel flags.  on_stage: as encode_group's, called once more
+    as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)
     if len(props_list) != len(datas):
         raise ValueError("one props per stream")
-    plans = plan_streams(props_list, datas)
+    plans = plan_streams(props_list, datas, parse)
     if on_stage:
         on_stage("plan", plans=plans)
     outs = [None] * len(datas)
@@ -386,13 +444,14 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None):
             outs[i] = encode_host.remux_stream(
                 props_list[i].csc_blocksize, b"", b"", [], [],
                 chunk_ends=[])
-    for idxs, width in _groups(props_list, plans):
+    for idxs, width in _groups(props_list, plans, parse):
         for i, out in zip(idxs, encode_group(props_list, plans, idxs,
-                                              device, on_stage, width)):
+                                              device, on_stage, width,
+                                              parse)):
             outs[i] = out
     return outs
 
 
-def encode_stream(props, data, *, device=CUDA):
+def encode_stream(props, data, *, device=CUDA, parse="fast"):
     """Single-stream encode through the batched path (B=1)."""
-    return encode_batch([props], [data], device=device)[0]
+    return encode_batch([props], [data], device=device, parse=parse)[0]

@@ -10,8 +10,11 @@ per SM, a 1 MB stream round-tripped through K2, K3 and K1; K4
 short and a step budget cut, on its window cases with its debug copy of
 the cells held to the plain version's cells (and without the copy the
 same outputs), and m3 streams through K4, K3 and K1, equal to the CPU's
-encode; and the A/B tool (csc_tpu_torch/kernel_ab.py) run
-against this checkout.  Needs a card; without one every test here skips.
+encode; K5 (encode_k5.cu, the exact parse) at m1, m2 and lz_mode 1 on its
+edge streams, with a tape too short and step budgets cut, a CUDA tensor
+reaching K5 and never the plain version, and exact streams through K5,
+K3 and K1 equal to the CPU's and golden's bytes; and the A/B tool
+(csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a card; without one every test here skips.
 On a machine with a card (it needs no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -28,13 +31,15 @@ from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream
 from csc_tpu_torch import _build, constants, corpus, kernel_ab
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
-                               decode_scan, encode_host, parse_ap_kernel,
-                               parse_ap_scan, parse_kernel, parse_pre,
-                               parse_scan, pipeline, prices, stitch)
+                               decode_scan, encode_host, exact_kernel,
+                               exact_scan, parse_ap_kernel, parse_ap_scan,
+                               parse_kernel, parse_pre, parse_scan, pipeline,
+                               prices, stitch)
 from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
 from csc_tpu_torch.props import props_init
 
 import torch_edge_cases as edges
+from test_torch_exact_host import exact_args
 from test_torch_parse_ap_host import plain_cells
 
 pytestmark = pytest.mark.cuda
@@ -317,7 +322,9 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K2 m1 96 x 16 KB", "K2 m2 96 x 16 KB", "K2 task 4 x 1 MB",
         "K3 m1 96 x 16 KB", "K3 m2 96 x 16 KB", "K3 task 4 x 1 MB",
         "K4 m3 32 x 16 KB", "K4 m4 32 x 16 KB", "K4 m5 32 x 16 KB",
-        "K4 m3 1024 x 16 KB", "K4 m3 4096 x 16 KB", "K4 task m3 4 x 1 MB"])
+        "K4 m3 1024 x 16 KB", "K4 m3 4096 x 16 KB", "K4 task m3 4 x 1 MB",
+        "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
+        "K5 task m1 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -473,4 +480,92 @@ def test_m3_streams_through_k4_k3_k1_equal_the_cpus(dev):
     big = text[512 * 1024:768 * 1024]
     p = props_init(len(big), 3)
     blob = pipeline.encode_batch([p], [big], device=dev)[0]
+    assert pipeline.decode_batch([p], [blob], device=dev) == [big]
+
+
+# --------------------------------------------------- K5, the exact parse
+K5_FIELDS = ("tape", "tok_cnt", "done", "err", "steps")
+
+
+def _k5_against_plain(args, dev):
+    """K5 on the card against the plain version (on the CPU) on the same
+    arguments, every field."""
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    got = exact_kernel.parse_k5(*card)
+    want = exact_scan.exact_plain(*args)
+    for name, g, w in zip(K5_FIELDS, got, want, strict=True):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("level,lz_mode", [(1, None), (2, None), (1, 1)])
+def test_k5_matches_plain(dev, level, lz_mode):
+    """The edge streams of the exact parse (tests/torch_edge_cases.py
+    `exact_cases`): tape, tok_cnt, done, err and steps."""
+    got = _k5_against_plain(exact_args(edges.exact_cases(level, lz_mode)),
+                            dev)
+    assert bool(got[2].all()) and not bool(got[3].any())
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_k5_step_budget(dev, level):
+    """A tape too short (ERR_OVERFLOW) and step budgets cut across a
+    short group: K5 stops at the token where the lockstep version stops
+    (ERR_STEPS, steps = the budget)."""
+    cases = edges.exact_small_cases(level)
+    got = _k5_against_plain(exact_args(cases, tcap=32), dev)
+    assert (got[3] == constants.ERR_OVERFLOW).any()
+    full = exact_args(cases)
+    total = int(exact_scan.exact_plain(*full)[4].max())
+    for budget in (0, 1, 7, total // 3, total // 2, total - 1, total):
+        got = _k5_against_plain(full[:9] + (budget,), dev)
+        assert bool((got[3] == constants.ERR_STEPS).any()) == (
+            budget < total)
+
+
+def test_k5_launches_on_a_cuda_tensor(dev, monkeypatch):
+    """parse_k5 on CUDA tensors launches K5 (LAUNCHES counts it) and never
+    runs the plain version; on another device it raises."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+    args = exact_args(edges.exact_small_cases(1))
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    monkeypatch.setattr(exact_scan, "exact_plain", plain)
+    before = exact_kernel.LAUNCHES
+    got = exact_kernel.parse_k5(*card)
+    assert exact_kernel.LAUNCHES == before + 1
+    assert got[0].device.type == "cuda" and bool(got[2].all())
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError, match="CUDA"):
+        exact_kernel.parse_k5(*meta)
+
+
+def test_exact_streams_through_k5_k3_k1(dev):
+    """Exact m1 and m2 streams encoded on the card (K5 and K3 launched
+    once each) are the CPU's (the plain versions) and golden's byte for
+    byte and decode through K1; a 96 KB stream, too long for the plain
+    versions, is golden's and round-trips on the card alone."""
+    text = corpus.torch_python_text(1024 * 1024)
+    exe = corpus.torch_library_exe()
+    datas = [text[:3000], exe[len(exe) // 2:len(exe) // 2 + 2000],
+             b"A" * 700 + text[9000:9800]]
+    for level in (1, 2):
+        props = [props_init(len(d), level) for d in datas]
+        launches = (exact_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+                    parse_kernel.LAUNCHES)
+        card = pipeline.encode_batch(props, datas, device=dev,
+                                     parse="exact")
+        assert (exact_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+                parse_kernel.LAUNCHES) == (launches[0] + 1, launches[1] + 1,
+                                           launches[2])
+        assert card == pipeline.encode_batch(
+            props, datas, device=torch.device("cpu"), parse="exact")
+        assert pipeline.decode_batch(props, card, device=dev) == datas
+        for p, blob, data in zip(props, card, datas):
+            assert blob == encode_stream(p, data)
+    big = text[300 * 1024:396 * 1024]
+    p = props_init(len(big), 1)
+    blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
+    assert blob == encode_stream(p, big)
     assert pipeline.decode_batch([p], [blob], device=dev) == [big]

@@ -35,6 +35,8 @@ p = props_init(len(data), 1)
 cpu = torch.device("cpu")
 blob = pipeline.encode_stream(p, data, device=cpu)
 assert pipeline.decode_stream(p, blob, device=cpu) == data
+blob = pipeline.encode_stream(p, data, device=cpu, parse="exact")
+assert pipeline.decode_stream(p, blob, device=cpu) == data
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "csc_tpu")))
 """
@@ -67,7 +69,9 @@ def test_constants_equal_their_originals():
         assert getattr(constants, name) == getattr(j_constants, name), name
     sources = {
         encode_scan: ("K_LIT", "K_MATCH", "K_REP", "K_REP0L1", "K_SENT_A",
-                      "K_END"),
+                      "K_END", "HT2_SIZE", "HT3_SIZE", "NCAND") + tuple(
+                          n for n in dir(encode_scan)
+                          if n.startswith(("E_", "PH_"))),
         encode_bits: ("K_RAW", "K_ELIT", "K_DLIT", "K_RLEN", "K_INT",
                       "K_SENT", "K_FLUSH") + tuple(
                           n for n in dir(encode_bits)

@@ -1,7 +1,8 @@
-"""Edge streams that drive each mechanism of K1's, K2's, K3's and K4's
-designs (csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh,
-encode_k4.cuh), shared by the host tests of the g++ builds and the card
-tests: every K1 / K2 / K4 case is a (name, props, data) triple, every K3
+"""Edge streams that drive each mechanism of K1's to K5's designs
+(csc_tpu_torch/csrc/decode_k1.cuh, encode_k2.cuh, encode_k3.cuh,
+encode_k4.cuh, encode_k5.cuh), shared by the host tests of the g++ builds
+and the card tests: every K1 / K2 / K4 / K5 case is a (name, props, data)
+triple, every K3
 case a batch of stitched tapes with K3's other arguments, K4's window
 cases K4's own arguments over hand-made candidates; all built from
 seeds."""
@@ -143,6 +144,98 @@ def k4_cases(level):
              + b"!"),
             ("long_rep", _ap_props(200, level), phrase + b"#" + phrase
              + b"%" + phrase + b"&" + phrase[:30])]
+
+
+def _exact_props(level, lz_mode=None, raw_blocksize=None):
+    """One preset a group: a 32 KB dictionary (hash_bits 16 at m1, 14 at
+    m2), filters off."""
+    q = props.props_init(32 * 1024, level)
+    q.DLTFilter = q.EXEFilter = q.TXTFilter = 0
+    if lz_mode is not None:
+        q.lz_mode = lz_mode
+    if raw_blocksize:
+        q.raw_blocksize = raw_blocksize
+    return q
+
+
+def exact_cases(level, lz_mode=None):
+    """(name, props, data) streams that drive each mechanism of the exact
+    parse (csc_tpu's encode_scan; K5, csrc/encode_k5.cuh), one preset:
+    m1 or m2, or with lz_mode 1 (no lazy second probe, no level preset).
+
+      text        a torch source slice: literals, matches, reps, both lazy
+                  outcomes, rep0len1; it opens with a phrase it repeats at
+                  once (a candidate at distance == position: HT2's quirk)
+      subblock    long-match text across the 8 KB sub-block end (matches
+                  cut at the limit); the sub-block's last byte starts an
+                  8-byte phrase found nowhere else, repeated later: that
+                  position's hashes read zeros past the end, so the
+                  repeat finds no match there
+      byte_run    one byte 1 500 times: HT2's quirk at position 1, then
+                  a match of 1 498 bytes slid four positions a step
+      zeros       text, 700 zero bytes, text: after each token the first
+                  slow insertion hashes to 0, which the reset lasth6
+                  equals, so its HT6 row does not shift
+      good_len    a 60-byte phrase three times, 20-byte gaps: good_len at
+                  an HT probe (every later gate fails on the -1 sentinel
+                  but takes its step), then at rep 0 (on to HT2)
+      three_symbols  random bytes over three symbols: short matches slid
+                  one position a step, the first insertion after a token
+                  often hashing like the last one before it (m2: the row
+                  shifts, since each token resets lasth6 to 0)
+      many        a phrase whose older copies share longer prefixes with
+                  its last: HT2, then the HT6 row's copies each longer,
+                  recorded one after another (15 records is the most a
+                  find can make at width 8: 1 + 4 reps + HT2 + HT3 + 8,
+                  so the slot clip at cnt + 2 == NCAND stays unreached;
+                  and rep0len1's record never wins: the precheck at minlen
+                  1 makes rep 0's match 2 bytes or more, which the pick
+                  prefers, in the reference too)
+      multichunk  1 KB raw blocks: a K_SENT_A at each run end
+      one_byte    a literal, K_SENT_A, K_END
+    """
+    rng = np.random.default_rng(97)
+    text = corpus.torch_python_text(64 * 1024)
+
+    def block(n):                 # bytes no earlier block repeats
+        return rng.integers(97, 123, n, dtype=np.uint8).tobytes()
+    head = text[:40]
+    opening = head + head + text[40:1400]
+    unique = bytes(range(0xF1, 0xF9))
+    sub = (corpus.repetitive(8191, 98) + unique + corpus.repetitive(900, 99)
+           + b"#%" + unique + corpus.repetitive(300, 100))
+    zeros = text[3000:3500] + b"\0" * 700 + text[3500:3800]
+    y = block(60)
+    gap1, gap2 = block(20), block(20)
+    good = y + gap1 + y + gap2[:20] + y + block(8)
+    z = block(40)
+    many = bytearray()
+    for k in range(9, 0, -1):     # older copies share more of z
+        many += z[:4 + 4 * k] + b"#" + block(6)
+    many += z + block(4)
+    multi = corpus.repetitive(2600, 99)
+
+    def p(raw_blocksize=None):
+        return _exact_props(level, lz_mode, raw_blocksize)
+    return [("text", p(), opening),
+            ("subblock", p(), sub),
+            ("byte_run", p(), b"a" * 1500),
+            ("zeros", p(), zeros),
+            ("three_symbols", p(), (np.random.default_rng(17).integers(
+                0, 3, 1200) + 120).astype(np.uint8).tobytes()),
+            ("good_len", p(), good),
+            ("many", p(), bytes(many)),
+            ("multichunk", p(1024), multi),
+            ("one_byte", p(), b"x")]
+
+
+def exact_small_cases(level):
+    """A short group of the exact parse for cuts at every step: text with
+    reps and a 300-byte repeat slid four positions a step."""
+    text = corpus.torch_python_text(64 * 1024)
+    q = _exact_props(level)
+    return [("short_text", q, text[5000:5200] + text[5000:5300] + b"!"),
+            ("short_run", q, b"xy" * 90 + b"z")]
 
 
 def k4_top_cases():
