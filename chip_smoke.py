@@ -9,12 +9,13 @@ Phases, each printing its own line; the first failure raises:
                      nvcc into build/, one nvcc per source started
                      together, with ptxas's reports of K1-K5 and their
                      registers, stack frame, LDL / STL counts (SASS),
-                     K1's blocks per SM and K4's shared memory a block
-                     and blocks per SM; it fails unless each of K1-K4
-                     has a 0-byte stack frame and no LDL / STL (K5, one
-                     thread a stream with its candidates in local
-                     memory, is printed, not held), K1 holds
-                     two blocks an SM and K4 four or more of 16 KB
+                     K1's blocks per SM and K4's and K5's shared memory
+                     a block and blocks per SM; it fails unless each of
+                     K1-K5 has a 0-byte stack frame and no LDL / STL, K1
+                     holds two blocks an SM, K4 four or more of 16 KB
+                     and K5 eight or more of 16 KB; K5's phase-clock
+                     build (-DK5_PHASES, csc_tpu_torch/k5_phases.py)
+                     alongside
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -31,7 +32,9 @@ Phases, each printing its own line; the first failure raises:
                      MB m1 task, its stages (plan, k5, stitch, k3, remux),
                      K5 / K3 times, a round trip through K1, the fast
                      parse's ratio on the same streams and whether its
-                     bytes equal the exact ones
+                     bytes equal the exact ones; at m1, K5's phase-clock
+                     build on the same inputs, its outputs equal to K5's
+                     and its split of block 0's cycles
   8. extract         one archiver extract group: 256 x 1 MB m1 text
   9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
                      --parse exact` then `d` on it, and `d` of the first
@@ -74,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -82,7 +86,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 sys.path.insert(1, os.path.join(ROOT, "tests"))
 
-from csc_tpu_torch import _build, corpus, spikes  # noqa: E402
+from csc_tpu_torch import _build, corpus, k5_phases, spikes  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, exact_kernel,
@@ -489,8 +493,12 @@ def main(procs):
 
     # ------------------------------------------------------------- 2 build
     t0 = time.time()
-    _build.build_kernels()
-    phase("build", kernels=",".join(_build.KERNELS),
+    with ThreadPoolExecutor(1) as pool:
+        # K5's phase-clock build, its nvcc beside the others
+        k5ph = pool.submit(k5_phases.library)
+        _build.build_kernels()
+        k5ph_lib = k5ph.result()
+    phase("build", kernels=",".join(_build.KERNELS) + ",csc_k5_phases",
           seconds=f"{time.time() - t0:.2f}")
     for name in _build.KERNELS:
         log = _build.build_log(name)
@@ -511,10 +519,16 @@ def main(procs):
     # data (1 MB: the task); the design keeps several 16 KB streams on
     # an SM (five), as the encode path's groups of up to 4 096 streams
     # need
+    # K5's likewise: a stream's staged data (16 KB), or none (1 MB); the
+    # design keeps eight or more 16 KB streams on an SM, so that the
+    # 1 024-stream group is resident at once
     for tag, n in (("16k", HEAD_BYTES), ("1m", MB)):
         res["csc_k4"]["smem_" + tag] = parse_ap_kernel.smem_bytes(n)
         res["csc_k4"]["blocks_per_sm_" + tag] = \
             parse_ap_kernel.blocks_per_sm(n)
+        res["csc_k5"]["smem_" + tag] = exact_kernel.smem_bytes(n)
+        res["csc_k5"]["blocks_per_sm_" + tag] = \
+            exact_kernel.blocks_per_sm(n)
     for name, r in res.items():
         phase("resources", kernel=name, **r)
     check(res["csc_k1"]["blocks_per_sm"] == 2,
@@ -522,9 +536,10 @@ def main(procs):
     check(res["csc_k4"]["blocks_per_sm_16k"] >= 4,
           f"K4 holds {res['csc_k4']['blocks_per_sm_16k']} blocks of 16 KB "
           f"streams per SM, not 4 or more")
+    check(res["csc_k5"]["blocks_per_sm_16k"] >= 8,
+          f"K5 holds {res['csc_k5']['blocks_per_sm_16k']} blocks of 16 KB "
+          f"streams per SM, not 8 or more")
     for name, r in res.items():
-        if name == "csc_k5":     # its candidate slots may sit in local memory
-            continue
         check(r["stack_frame"] == 0 and r["ldl"] == 0 and r["stl"] == 0,
               f"{name} has a {r['stack_frame']}-byte stack frame, "
               f"{r['ldl']} LDL and {r['stl']} STL, not 0")
@@ -686,6 +701,19 @@ def main(procs):
                                   [t[:K5_HOST_STREAMS]
                                    for t in cell["parse_out"]],
                                   [torch.from_numpy(h) for h in host])
+            # the phase-clock build (-DK5_PHASES) parses alike; its
+            # launch counts in no main path
+            ph_out, ph = k5_phases.run(k5ph_lib, cell["parse_args"])
+            k5_phases_err = compare(f"{tag} against K5's phase-clock "
+                                    f"build", "K5", ph_out,
+                                    cell["parse_out"])
+            ph_cyc = dict(zip(k5_phases.PHASES, ph))
+            ph_total = sum(ph_cyc.values())
+            phase("k5_phases", cell=name, max_abs_err=k5_phases_err,
+                  block0_cycles=ph_total,
+                  **dict(zip(k5_phases.COUNTS, ph[len(ph_cyc):])),
+                  **{k: f"{c / ph_total:.4f}" for k, c in ph_cyc.items()})
+            del ph_out
         fast = cells[fast_tag]
         phase("encode_exact_layers", cell=name, **cell["layers"])
         phase("encode_exact", cell=name, streams=len(datas),
@@ -929,7 +957,8 @@ def main(procs):
           block_types=types, plain_seconds=f"{plain_card_s['K1']:.3f}")
 
     # ------------------------------------------------------------ 12 plain
-    max_err = max(max_err, finish_plain(jobs, procs), k5_host_err)
+    max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
+                  k5_phases_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
@@ -1054,10 +1083,12 @@ def main(procs):
             "csc_tpu/ops/parse_ap.py:208", m3["parse_ms"],
             f"{AP_STREAMS} x {HEAD_BYTES // KB} KB m3 text", m3["parse_bound"],
             "encode_ap m3"),
-        row("K5", "K5 exact m1/m2 parse (one thread a stream: the "
-            "reference's finder and lazy parser in natural loops over live "
-            "hash tables in device memory, the lockstep micro-ops counted "
-            "as it goes)", "csc_tpu_torch/csrc/encode_k5.cu",
+        row("K5", "K5 exact m1/m2 parse (one warp a stream: the "
+            "reference's finder and lazy parser over live hash tables in "
+            "device memory, a find's probes, extensions and fold across "
+            "the lanes, a slide 32 insertions a pass, a stream of up to "
+            "64 KB in shared memory, the lockstep micro-ops counted in "
+            "closed form)", "csc_tpu_torch/csrc/encode_k5.cu",
             "csc_tpu/ops/encode_scan.py:179", x1["parse_ms"],
             f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text, exact parse",
             x1["parse_bound"], "encode_exact m1"),

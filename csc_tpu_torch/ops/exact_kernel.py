@@ -5,14 +5,17 @@ pipeline drives it under CSC_ENCODE_PARSE=exact.
 `parse_k5` checks its tensors, allocates the per-stream hash tables (int32
 zeros: ht2 [B, 16384], ht3 [B, 65536], ht6 [B, hash_width << hash_bits]),
 the tape and the counters, and launches the kernel on the current CUDA
-stream, one thread a stream.  The tables take 64 KB + 256 KB + 4 *
-(hash_width << hash_bits) bytes a stream: 576 KB for a 16 KB stream at m1
-(hash_bits 16, width 1), so about 2.4 GB for the encode path's largest
-group of 16 KB streams (64 MB, 4 096 streams); 8.3 MB for a 1 MB stream
-at m1 (hash_bits 21).  For tensors on the CPU it runs the plain PyTorch
-version (ops/exact_scan.py) instead; on any other device it raises.
-LAUNCHES counts kernel launches.
+stream, one warp (a block) a stream; a stream of at most 64 KB is staged
+in the block's shared memory (`smem_bytes`, `blocks_per_sm`).  The tables
+take 64 KB + 256 KB + 4 * (hash_width << hash_bits) bytes a stream: 576
+KB for a 16 KB stream at m1 (hash_bits 16, width 1), so about 2.4 GB for
+the encode path's largest group of 16 KB streams (64 MB, 4 096 streams);
+8.3 MB for a 1 MB stream at m1 (hash_bits 21).  For tensors on the CPU it
+runs the plain PyTorch version (ops/exact_scan.py) instead; on any other
+device it raises.  LAUNCHES counts kernel launches.
 """
+import ctypes
+
 import torch
 
 from . import exact_scan
@@ -37,6 +40,31 @@ def launch(lib, data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
             tape.shape[1], int(max_steps), out.data_ptr(), b, stream)
     if rc != 0:
         raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
+
+
+def smem_bytes(n):
+    """K5's dynamic shared memory a block for streams of n bytes (0 past
+    the 64 KB staging cut)."""
+    from .. import _build
+    fn = _build.kernel_library("csc_k5").csc_k5_smem
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int64]
+    return int(fn(n))
+
+
+def blocks_per_sm(n):
+    """K5's resident blocks (streams) per SM on the current card for
+    streams of n bytes, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    gives them."""
+    from .. import _build
+    fn = _build.kernel_library("csc_k5").csc_k5_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    rc = fn(n, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"K5 occupancy query failed: cudaError_t {rc}")
+    return blocks.value
 
 
 def new_tables(b, hash_bits, hash_width, device):

@@ -11,8 +11,10 @@ short and a step budget cut, on its window cases with its debug copy of
 the cells held to the plain version's cells (and without the copy the
 same outputs), and m3 streams through K4, K3 and K1, equal to the CPU's
 encode; K5 (encode_k5.cu, the exact parse) at m1, m2 and lz_mode 1 on its
-edge streams, with a tape too short and step budgets cut, a CUDA tensor
-reaching K5 and never the plain version, and exact streams through K5,
+edge streams, with a tape too short and step budgets cut, on the 4 x 1
+MB m1 task under a budget, launched twice on the same 96 streams, a
+CUDA tensor reaching K5 and never the plain version, and exact streams
+through K5,
 K3 and K1 equal to the CPU's and golden's bytes; and the A/B tool
 (csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a card; without one every test here skips.
 On a machine with a card (it needs no jax):
@@ -539,6 +541,64 @@ def test_k5_launches_on_a_cuda_tensor(dev, monkeypatch):
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
     with pytest.raises(ValueError, match="CUDA"):
         exact_kernel.parse_k5(*meta)
+
+
+def test_k5_data_off_a_word_boundary(dev):
+    """Data of whole words a row in a contiguous view that starts one
+    byte past a word: K5 stages it byte by byte (no misaligned word
+    load) and gives the plain version's every field."""
+    cases = edges.exact_small_cases(1)
+    n = exact_args(cases)[0].shape[1]
+    args = exact_args(cases, width=n + (-n) % 4)
+    data = args[0]
+    buf = torch.zeros(data.numel() + 1, dtype=torch.uint8, device=dev)
+    view = buf[1:].view(data.shape)
+    view.copy_(data)
+    assert view.is_contiguous() and view.data_ptr() % 4 == 1
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args[1:])
+    got = exact_kernel.parse_k5(view, *card)
+    want = exact_scan.exact_plain(*args)
+    for name, g, w in zip(K5_FIELDS, got, want, strict=True):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+# chip_smoke.py's budget for K5's plain job: about 40 % of a 16 KB m1
+# stream's micro-ops, a few hundred tokens into a 1 MB one
+K5_PLAIN_STEPS = 40_000
+
+
+def test_k5_task_matches_plain_under_a_budget(dev):
+    """The 4 x 1 MB m1 task (data past K5's 64 KB staging, read from
+    device memory) cut at K5_PLAIN_STEPS: every field of the plain
+    version's."""
+    text = corpus.torch_python_text(8 * 1024 * 1024)
+    mb = 1024 * 1024
+    cases = [("task", props_init(mb, 1), text[i * mb:(i + 1) * mb])
+             for i in range(4)]
+    args = exact_args(cases, max_steps=K5_PLAIN_STEPS)
+    assert args[0].shape[1] > 64 * 1024
+    got = _k5_against_plain(args, dev)
+    assert (got[3] == constants.ERR_STEPS).all()
+    assert (got[4] == K5_PLAIN_STEPS).all()
+
+
+def test_k5_relaunch_gives_the_same_outputs(dev):
+    """K5 launched twice on the same 96 x 16 KB m1 and m2 text (a dozen
+    warps an SM share its L2 and issue slots, so a lane hazard would
+    show as a difference) gives the same tape and counters."""
+    text = corpus.torch_python_text(4 * 1024 * 1024)
+    kb = 16 * 1024
+    for level in (1, 2):
+        cases = [("t", props_init(kb, level), text[i * kb:(i + 1) * kb])
+                 for i in range(96)]
+        card = tuple(a.to(dev) if torch.is_tensor(a) else a
+                     for a in exact_args(cases))
+        first = exact_kernel.parse_k5(*card)
+        second = exact_kernel.parse_k5(*card)
+        assert bool(first[2].all()) and not bool(first[3].any())
+        for name, a, b in zip(K5_FIELDS, first, second, strict=True):
+            assert torch.equal(a, b), name
 
 
 def test_exact_streams_through_k5_k3_k1(dev):

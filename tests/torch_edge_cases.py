@@ -238,6 +238,83 @@ def exact_small_cases(level):
             ("short_run", q, b"xy" * 90 + b"z")]
 
 
+def k5_lane_cases(level):
+    """(name, props, data) streams for the lane hazards of K5's warp
+    design (csrc/encode_k5.cuh), one preset (m1 or m2), each under 8 KB
+    and one run, so that its sub-block ends at its end:
+
+      runs        runs of one to twelve equal bytes over three symbols:
+                  lazy second finds whose HT2 / HT3 slot the first find's
+                  finish just wrote, both lazy outcomes; slide passes
+                  with repeated HT2 / HT3 hashes and repeated HT6 rows,
+                  consecutive (runs of seven or more) or not
+      period      a phrase of period two, repeated past 32 bytes: a slide
+                  pass whose rows repeat every other position, a match
+                  the warp extends past the lanes' 32-byte batch
+      lanes       a key phrase (bytes 1-63) at the end; before it, eight
+                  copies of its head, older ones sharing more (6 .. 13
+                  bytes: the HT6 row), then four fragments sharing 5 .. 2
+                  bytes amid background bytes (128-191), then four
+                  matches of 24-byte blocks (64-127) whose distances reach
+                  the fragments from the key, and 8 bytes found nowhere
+                  else: at the key every rep lane and every HT6 slot
+                  passes its gates and records (13 records at m2)
+      good_len    exact_cases' good_len stream: the exit at an HT slot
+                  and at rep 0
+      end_*       a random block repeated at the stream's end, where the
+                  sub-block ends: the match stops at climit, a multiple
+                  of 4, or one word short of it (a byte changed), within
+                  the lanes' batch (20 bytes) or past it (100)
+    """
+    rng = np.random.default_rng(510 + level)
+    q = _exact_props(level)
+
+    def rand(n, lo=128, hi=192):
+        return rng.integers(lo, hi, n, dtype=np.uint8).tobytes()
+    runs = b"".join(bytes([97 + int(rng.integers(0, 3))])
+                    * int(rng.integers(1, 13)) for _ in range(90))
+    ab = b"ab" * 24 + b"c"
+    period = rand(20) + ab + rand(10) + ab + rand(8)
+    z = rand(40, 1, 64)
+    buf = bytearray(rand(20))
+    for k in range(7, -1, -1):        # the row's copies, oldest first
+        buf += z[:6 + k] + bytes([z[6 + k] % 63 + 1]) + rand(4)
+    # the four blocks' copies come just before the key, after GAP bytes
+    # found nowhere else; each block's source lies in the background
+    # before the fragment its distance reaches
+    block, gap = 24, 8
+    frags = {}
+    for k in range(3, -1, -1):        # the fragments, rep k's sharing 2 + k
+        buf += rand(block * (k + 1) + gap + 4)
+        frags[k] = len(buf)
+        buf += z[:2 + k] + bytes([z[2 + k] % 63 + 1])
+    buf += rand(4)
+    first = len(buf)
+    key = first + 4 * block + gap
+    for j, k in enumerate((3, 2, 1, 0)):   # the last one sets rep 0
+        src = first + block * j - (key - frags[k])
+        data = rand(block, 64, 128)
+        assert frags[k] - block * (k + 1) - gap - 4 <= src
+        assert src + block <= frags[k]
+        buf[src:src + block] = data
+        buf += data
+    buf += rng.permutation(np.arange(192, 256, dtype=np.uint8))[:gap] \
+        .tobytes()
+    assert len(buf) == key
+    lanes = bytes(buf + z + rand(8))
+    good = [c for c in exact_cases(level) if c[0] == "good_len"][0][2]
+    short, long_ = rand(20), rand(100)
+
+    def changed(b, i):
+        return b[:i] + bytes([b[i] ^ 0x5A]) + b[i + 1:]
+    return [("runs", q, runs), ("period", q, period), ("lanes", q, lanes),
+            ("good_len", q, good),
+            ("end_short_full", q, rand(30) + short + short),
+            ("end_short_cut", q, rand(30) + short + changed(short, 16)),
+            ("end_long_full", q, rand(30) + long_ + long_),
+            ("end_long_cut", q, rand(30) + long_ + changed(long_, 96))]
+
+
 def k4_top_cases():
     """(name, props, data) at m5 (good_len 48) for the top of K4's window:
     four-symbol bytes, whose matches of 2-8 bytes cover every position,
