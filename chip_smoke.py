@@ -26,7 +26,10 @@ Phases, each printing its own line; the first failure raises:
   6. encode_ap       the optimal parse: encode_batch of 32 x 16 KB text
                      (filters on) at m3, m4 and m5, its stages, K4 / K3
                      times, a round trip through K1
-  7. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap)
+  7. encode_extract  4 x 1 MB m1 text (the archiver's autosplit cap); the
+                     same streams at m3 and K4's g++ build
+                     (csrc/encode_k4_host.cpp) against K4 on the first
+                     whole 1 MB stream
   7b. encode_exact   the exact parse: encode_batch(parse="exact") of 96 x
                      16 KB text (filters on) at m1 and m2 and of the 4 x 1
                      MB m1 task, its stages (plan, k5, stitch, k3, remux),
@@ -34,12 +37,24 @@ Phases, each printing its own line; the first failure raises:
                      parse's ratio on the same streams and whether its
                      bytes equal the exact ones; at m1, K5's phase-clock
                      build on the same inputs, its outputs equal to K5's
-                     and its split of block 0's cycles
+                     and its split of block 0's cycles; K5's g++ build
+                     against K5 on the first whole 1 MB task stream
   8. extract         one archiver extract group: 256 x 1 MB m1 text
   9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
                      --parse exact` then `d` on it, and `d` of the first
                      stream under a 266 KB dictionary header, which makes
                      decode_batch regrow its window
+  9b. archiver       csarc on a tree built here (the first 1 000 .py
+                     files of torch under torch/, libc10.so, 3 MB of
+                     seeded random bytes and a 2 MB DLT ramp past the 1
+                     MB task cap, an empty file): `a -r` at the default
+                     level and at -m1, `a -m2 --parse=exact` of the .py
+                     subtree, each then `x` (the tree restored
+                     byte-exact), `t` and `l`, the walls split by layer;
+                     `a` in two processes (CSC_DIST_*, Gloo on localhost,
+                     both on this card) equal to the one-process
+                     archive; the batch split (parallel/mesh.py) over
+                     [cuda:0, cuda:0] on an odd batch equal to one device
  10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
                      text streams at m3 and, exactly, at m1 and m2): the
                      candidates on the card equal those on the CPU; K2, K4
@@ -61,7 +76,7 @@ Phases, each printing its own line; the first failure raises:
                      K1-K5's own ns per step of their longest stream (K3:
                      per tape entry and per modelled bit; K5: per
                      position and per lockstep micro-op)
-Every count of launches is read around a main-path run (phases 4-9, 13).
+Every count of launches is read around a main-path run (phases 4-9b, 13).
 Phase 12's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each, at a lower priority than
 the main process), started once phases 4-9
@@ -73,7 +88,10 @@ import json
 import os
 import pathlib
 import re
+import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -87,17 +105,21 @@ sys.path.insert(0, ROOT)
 sys.path.insert(1, os.path.join(ROOT, "tests"))
 
 from csc_tpu_torch import _build, corpus, k5_phases, spikes  # noqa: E402
+from csc_tpu_torch.archiver import csarc, index  # noqa: E402
 from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, exact_kernel,
                                exact_scan, parse_ap_kernel, parse_ap_scan,
                                parse_kernel, parse_pre, parse_scan, pipeline,
                                stitch)
+from csc_tpu_torch.parallel import mesh  # noqa: E402
 from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
 import torch_edge_cases  # noqa: E402
 from test_torch_exact_host import build_k5_host, k5_host  # noqa: E402
+from test_torch_parse_ap_host import build_k4_host, k4_host  # noqa: E402
+from torch_archiver_trees import listing, run_in, tree_bytes  # noqa: E402
 
 SEED = 20261016
 KB, MB = 1024, 1024 * 1024
@@ -114,6 +136,11 @@ K5_PLAIN_STEPS, K5_HOST_STREAMS = 40_000, 8
 PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES, CLI_DICT = MB, 256 * KB
+# the archiver tree: torch's first .py files, and random bytes and a DLT
+# ramp over the 1 MB task cap, so that autosplit runs
+ARC_PY_FILES, ARC_RANDOM, ARC_RAMP = 1000, 3 * MB, 2 * MB
+ARC_WAIT_S = 300                      # the two archiver processes' deadline
+MESH_STREAMS = 5                      # an odd batch for the split
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
@@ -477,6 +504,206 @@ def plain_worker(path):
     torch.save({"out": out, "seconds": time.time() - t0}, path + ".out")
 
 
+# ---------------------------------------------------------- phase 9b parts
+KERNEL_MODULES = {"K1": decode_kernel, "K2": parse_kernel,
+                  "K3": bits_kernel, "K4": parse_ap_kernel,
+                  "K5": exact_kernel}
+
+
+def arc_tree(root):
+    """Write the archiver tree under root: the first ARC_PY_FILES .py
+    sources of the installed torch package under torch/ with their
+    relative paths (the subtree the exact parse takes whole),
+    lib/libc10.so, ARC_RANDOM seeded random bytes, an ARC_RAMP DLT ramp
+    and an empty file.  Returns {path: bytes}."""
+    files = {os.path.join("torch", k): v for k, v in
+             corpus.torch_python_files(ARC_PY_FILES).items()}
+    files["lib/libc10.so"] = corpus.torch_library_exe()
+    files["random.bin"] = np.random.default_rng(SEED).integers(
+        0, 256, ARC_RANDOM, dtype=np.uint8).tobytes()
+    files["ramp.dlt"] = corpus.dlt_ramp(ARC_RAMP)
+    files["empty"] = b""
+    for name, data in files.items():
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+    return files
+
+
+# the archiver's layers: the csarc module's names each one calls
+ARC_LAYERS = {"a": ("_read_task", "encode_batch", "write_trailer"),
+              "x": ("read_trailer", "decode_batch", "_route_output")}
+
+
+def csarc_run(cwd, argv, dev):
+    """csarc's entry point, main(argv), in cwd, its launch counts set to 0
+    just before: (rc, stdout, wall seconds, {kernel: launches}, {layer:
+    ms}).  The layers of `a` and `x` (ARC_LAYERS) are timed by wrapping
+    the csarc module's names; "rest" is the wall less them (a: the scan,
+    task build, block layout and file writes; x: the extract tasks, the
+    stream reads and the attributes)."""
+    for m in KERNEL_MODULES.values():
+        m.LAUNCHES = 0
+    spent = {name: 0.0 for name in ARC_LAYERS.get(argv[0], ())}
+    saved = {name: getattr(csarc, name) for name in spent}
+
+    def timed(name, fn):
+        def wrap(*args, **kw):
+            t = time.time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.time() - t
+        return wrap
+    for name, fn in saved.items():
+        setattr(csarc, name, timed(name, fn))
+    t0 = time.time()
+    try:
+        rc, out = run_in(cwd, csarc.main, argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(csarc, name, fn)
+    wall = time.time() - t0
+    layers = {name.strip("_"): round(v * 1e3, 1) for name, v in
+              spent.items()}
+    layers["rest"] = round((wall - sum(spent.values())) * 1e3, 1)
+    return (rc, out, wall, {k: m.LAUNCHES for k, m in
+                            KERNEL_MODULES.items()}, layers)
+
+
+def arc_layout(path, dev):
+    """An archive's trailer raw size, tasks and decode groups."""
+    arc = csarc.CSArc()
+    arc.device = dev
+    with open(path, "rb") as f:
+        f.seek(8)
+        _, _, raw_size = struct.unpack("<QII", f.read(16))
+        arc.index, arc.abindex = index.read_trailer(f, dev)
+    tasks = arc._build_extract_tasks(dummy=True)
+    return raw_size, len(arc.abindex), len(arc._decode_groups(tasks))
+
+
+def two_process_archive(root, argv, backend):
+    """`a` in two processes joined by CSC_DIST_* (Gloo on localhost), both
+    on the same device; stops both on any failure.  Returns the wall
+    seconds."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, CSC_DIST_COORD=f"127.0.0.1:{port}",
+               CSC_DIST_NPROCS="2", PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "csc_tpu_torch.archiver.csarc", argv[0],
+           f"--backend={backend}"] + argv[1:]
+    procs = [subprocess.Popen(cmd, cwd=root, env=dict(
+        env, CSC_DIST_PID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=max(
+                ARC_WAIT_S - (time.time() - t0), 1))
+            check(p.returncode == 0, f"archiver rank {r} failed "
+                  f"({p.returncode}):\n{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.time() - t0
+
+
+def archiver_phase(dev, backend, datas):
+    """Phase 9b: csarc's a / x / t / l on the archiver tree, the
+    two-process `a`, and the batch split on `datas` (MESH_STREAMS
+    streams).  Returns {run: {kernel: launches}}."""
+    root = os.path.join(_build.BUILD_DIR, "smoke", "arc")
+    shutil.rmtree(root, ignore_errors=True)
+    files = arc_tree(os.path.join(root, "tree"))
+    want = {os.path.normpath(os.path.join("tree", k)): v
+            for k, v in files.items()}
+    py = {k: v for k, v in want.items() if k.startswith("tree/torch/")}
+    phase("archiver_tree", files=len(files),
+          bytes=sum(map(len, want.values())), py_files=len(py),
+          py_bytes=sum(map(len, py.values())))
+    bk = f"--backend={backend}"
+    launches = {}
+    for tag, opts, sub, restored in (
+            ("default", [], "tree", want),
+            ("m1", ["-m1"], "tree", want),
+            ("exact", ["-m2", "--parse=exact"], "tree/torch", py)):
+        arc = os.path.join(root, f"{tag}.csa")
+        nbytes = sum(map(len, restored.values()))
+        rc, _, a_wall, a_n, a_layers = csarc_run(
+            root, ["a", "-r", bk] + opts + [arc, sub], dev)
+        check(rc == 0, f"archiver {tag}: a returned {rc}")
+        parse_k = "K5" if tag == "exact" else "K2"
+        check(a_n[parse_k] >= 1 and a_n["K3"] >= 1 and a_n["K1"] == 0,
+              f"archiver {tag}: a did not launch {parse_k} and K3 ({a_n})")
+        # the trailer's parse: the exact one launches K5, the fast one K2
+        trailer = ("fast" if (a_n["K2"] if tag == "exact" else
+                              not a_n["K5"]) else "exact")
+        xdir = os.path.join(root, f"x_{tag}")
+        os.makedirs(xdir)
+        rc, _, x_wall, x_n, x_layers = csarc_run(xdir, ["x", bk, arc], dev)
+        check(rc == 0 and x_n["K1"] >= 1, f"archiver {tag}: x returned "
+              f"{rc} ({x_n})")
+        check(tree_bytes(xdir) == restored,
+              f"archiver {tag}: the restored tree differs")
+        rc, _, t_wall, t_n, _ = csarc_run(root, ["t", bk, arc], dev)
+        check(rc == 0 and t_n["K1"] >= 1, f"archiver {tag}: t returned "
+              f"{rc}")
+        rc, out, _, _, _ = csarc_run(root, ["l", bk, arc], dev)
+        got = {os.path.normpath(k): int(v) for k, v in listing(out).items()
+               if not k.endswith("/")}
+        check(rc == 0 and got == {k: len(v) for k, v in restored.items()},
+              f"archiver {tag}: l lists other names or sizes")
+        raw_size, tasks, groups = arc_layout(arc, dev)
+        launches[f"archiver a {tag}"] = a_n
+        launches[f"archiver x {tag}"] = x_n
+        phase("archiver", run=tag, options=" ".join(opts) or "(default)",
+              files=len(restored), bytes=nbytes,
+              compressed=os.path.getsize(arc), tasks=tasks,
+              decode_groups=groups, index_bytes=raw_size,
+              trailer_parse=trailer, a_s=f"{a_wall:.3f}",
+              a_mbps=f"{nbytes / a_wall / 1e6:.2f}", x_s=f"{x_wall:.3f}",
+              x_mbps=f"{nbytes / x_wall / 1e6:.2f}", t_s=f"{t_wall:.3f}",
+              **{f"a_{k}": a_n[k] for k in ("K2", "K3", "K4", "K5")},
+              x_K1=x_n["K1"], round_trip="byte-exact", t_rc=0)
+        phase("archiver_layers", run=tag, **{f"a_{k}_ms": v for k, v in
+                                             a_layers.items()},
+              **{f"x_{k}_ms": v for k, v in x_layers.items()})
+    two = os.path.join(root, "two.csa")
+    wall = two_process_archive(root, ["a", "-r", two, "tree"], backend)
+    with open(two, "rb") as f, open(os.path.join(root, "default.csa"),
+                                    "rb") as g:
+        check(f.read() == g.read(), "archiver: the two-process archive "
+              "differs from the one-process one")
+    phase("archiver_two_process", processes=2, backend=backend,
+          seconds=f"{wall:.3f}", equal_to_one_process=True)
+    devs = [dev, dev]
+    for level, parse in ((1, "fast"), (2, "exact")):
+        props = [props_init(len(d), level) for d in datas]
+        one = pipeline.encode_batch(props, datas, device=dev, parse=parse)
+        split = mesh.encode_batch_sharded(props, datas, devices=devs,
+                                          parse=parse)
+        check(split == one, f"mesh m{level} {parse}: the split encode "
+              f"differs from one device")
+        sizes = [len(d) for d in datas]
+        back = mesh.decode_batch_sharded(props, one, out_sizes=sizes,
+                                         devices=devs)
+        check(back == pipeline.decode_batch(props, one, out_sizes=sizes,
+                                            device=dev) == datas,
+              f"mesh m{level} {parse}: the split decode differs")
+        phase("mesh", devices=",".join(map(str, devs)), streams=len(datas),
+              level=f"m{level}", parse=parse, equal_to_one_device=True)
+    return launches
+
+
 def main(procs):
     # ------------------------------------------------------------ 1 device
     check(torch.cuda.is_available(), "no CUDA device: this script needs "
@@ -676,6 +903,28 @@ def main(procs):
           launches_k2=ext["launches"]["K2"],
           launches_k3=ext["launches"]["K3"])
     drop_inputs(ext)
+    # the same streams at m3 (K4 reads data past its 64 KB staging from
+    # device memory), and K4's g++ build (csrc/encode_k4_host.cpp, the
+    # CPU tests' harness) on the first whole 1 MB stream: the stream
+    # size `a -m3` gives at the archiver's autosplit cap
+    st = Stages()
+    pipeline.encode_batch([props_init(GROUP_BYTES, 3) for _ in group], group,
+                          device=dev, on_stage=st)
+    k4a, k4o = st.values["k4_args"], st.values["k4_out"]
+    k4_lib = build_k4_host(pathlib.Path(sdir))
+    t0 = time.time()
+    k4h, _ = k4_host(k4_lib, to_cpu(first_args(k4a[:7], 1, "K4")),
+                     *k4a[7:], cells=False)
+    k4_host_s = time.time() - t0
+    k4_host_err = compare("encode m3 task (the first whole 1 MB stream) "
+                          "against K4's g++ build", "K4",
+                          [t[:1] for t in k4o],
+                          [torch.from_numpy(h) for h in k4h])
+    phase("k4_host", cell="m3 task", streams=1, bytes=int(k4a[4][0]),
+          fields_compared=len(FIELDS["K4"]), max_abs_err=k4_host_err,
+          gxx_seconds=f"{k4_host_s:.2f}", build="csrc/encode_k4_host.cpp "
+          "with g++, the full step budget")
+    del st, k4a, k4o
 
     # ----------------------------------------------------- 7b encode_exact
     # the exact parse (K5) at the encode shape, 96 x 16 KB text, filters
@@ -694,7 +943,8 @@ def main(procs):
             jobs.append(plain_job(tag, "K5", cell["parse_args"], 3))
             # K5's g++ build (csrc/encode_k5_host.cpp, the CPU tests'
             # harness) on the first streams, whole
-            host = k5_host(build_k5_host(pathlib.Path(sdir)), to_cpu(
+            k5_lib = build_k5_host(pathlib.Path(sdir))
+            host = k5_host(k5_lib, to_cpu(
                 first_args(cell["parse_args"], K5_HOST_STREAMS, "K5")))
             k5_host_err = compare(f"{tag} (first {K5_HOST_STREAMS} "
                                   f"streams) against K5's g++ build", "K5",
@@ -714,6 +964,17 @@ def main(procs):
                   **dict(zip(k5_phases.COUNTS, ph[len(ph_cyc):])),
                   **{k: f"{c / ph_total:.4f}" for k, c in ph_cyc.items()})
             del ph_out
+        if name == "task":
+            # K5's g++ build on the first whole 1 MB stream: the stream
+            # size `a --parse=exact` gives at the autosplit cap
+            t0 = time.time()
+            host = k5_host(k5_lib, to_cpu(first_args(cell["parse_args"], 1,
+                                                     "K5")))
+            k5_task_s = time.time() - t0
+            k5_task_err = compare(f"{tag} (the first whole 1 MB stream) "
+                                  f"against K5's g++ build", "K5",
+                                  [t[:1] for t in cell["parse_out"]],
+                                  [torch.from_numpy(h) for h in host])
         fast = cells[fast_tag]
         phase("encode_exact_layers", cell=name, **cell["layers"])
         phase("encode_exact", cell=name, streams=len(datas),
@@ -730,9 +991,13 @@ def main(procs):
               launches_k5=cell["launches"]["K5"],
               launches_k3=cell["launches"]["K3"])
         drop_inputs(cell)
-    phase("k5_host", streams=K5_HOST_STREAMS, fields_compared=len(
+    phase("k5_host", cell="m1", streams=K5_HOST_STREAMS, fields_compared=len(
         FIELDS["K5"]), max_abs_err=k5_host_err, build="csrc/"
         "encode_k5_host.cpp with g++, the full step budget")
+    phase("k5_host", cell="task", streams=1, bytes=GROUP_BYTES,
+          fields_compared=len(FIELDS["K5"]), max_abs_err=k5_task_err,
+          gxx_seconds=f"{k5_task_s:.2f}", build="csrc/encode_k5_host.cpp "
+          "with g++, the full step budget")
 
     # ----------------------------------------------------------- 8 extract
     gps = gp * GROUP_REPEAT
@@ -832,6 +1097,11 @@ def main(procs):
           regrow_d_seconds=f"{t4 - t3:.2f}",
           exact_c_seconds=f"{t6 - t5:.2f}", exact_d_seconds=f"{t7 - t6:.2f}",
           exact_compressed=len(blob_x))
+
+    # ---------------------------------------------------------- 9b archiver
+    t0 = time.time()
+    arc_launches = archiver_phase(dev, "cuda", hd[:MESH_STREAMS])
+    phase("archiver_done", seconds=f"{time.time() - t0:.1f}")
 
     # --------------------------- 12 plain (workers on the CPU) start here
     jobs += k3_edge_jobs(dev)
@@ -958,7 +1228,7 @@ def main(procs):
 
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
-                  k5_phases_err)
+                  k5_phases_err, k5_task_err, k4_host_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
@@ -968,6 +1238,10 @@ def main(procs):
                             for tag, c in cells.items()
                             if kernel in c["launches"]}
     launches["K5"]["cli_c_exact"] = k5_cli_launches
+    for run, counts in arc_launches.items():
+        for kernel, n in counts.items():
+            if n:
+                launches[kernel][run] = n
     card_on = {"K1": "the parity batch", "K2": "the m1 + m2 parity groups",
                "K3": "the m1 + m2 + m3 + exact m1 + m2 parity groups",
                "K4": "the m3 parity group (the batch's text and EXE "

@@ -32,7 +32,9 @@ def _parse_size(s):
     return int(s)
 
 
-def _device(backend):
+def device_for(backend):
+    """The torch device of a --backend: the CPU for "cpu", the first CUDA
+    device for "cuda" (raises when there is none)."""
     import torch
     if backend == "cpu":
         return torch.device("cpu")
@@ -60,7 +62,7 @@ def main(argv=None):
                     help="c: the fast parse, or the exact parse of m1/m2 "
                     "(the reference encoder's bytes)")
     args = ap.parse_args(argv)
-    device = _device(args.backend)
+    device = device_for(args.backend)
     from .ops.pipeline import decode_stream, encode_stream
 
     with open(args.input, "rb") as f:

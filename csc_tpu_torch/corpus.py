@@ -24,21 +24,39 @@ def torch_library_exe():
         return f.read()
 
 
+def _torch_python_paths():
+    """(torch's directory, the paths of its .py sources in sorted
+    order)."""
+    import torch
+    tdir = os.path.dirname(torch.__file__)
+    return tdir, sorted(glob.glob(os.path.join(tdir, "**", "*.py"),
+                                  recursive=True))
+
+
 def torch_python_text(limit):
     """Up to `limit` bytes of the .py sources of the installed torch
     package, in a fixed order: English-like text (the analyzer types it
     DT_ENGTXT) present on every machine that runs this package."""
-    import torch
-    tdir = os.path.dirname(torch.__file__)
     parts, total = [], 0
-    for f in sorted(glob.glob(os.path.join(tdir, "**", "*.py"),
-                              recursive=True)):
+    for f in _torch_python_paths()[1]:
         with open(f, "rb") as fh:
             parts.append(fh.read())
         total += len(parts[-1])
         if total >= limit:
             break
     return b"".join(parts)[:limit]
+
+
+def torch_python_files(count):
+    """{path relative to torch's directory: bytes} of the first `count`
+    .py sources of the installed torch package, in the order
+    torch_python_text reads them."""
+    tdir, paths = _torch_python_paths()
+    files = {}
+    for f in paths[:count]:
+        with open(f, "rb") as fh:
+            files[os.path.relpath(f, tdir)] = fh.read()
+    return files
 
 
 def dlt_ramp(n):

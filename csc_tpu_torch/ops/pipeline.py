@@ -49,7 +49,12 @@ class DecodeError(Exception):
 
 class EncodeError(Exception):
     """A stream the device encode does not take, or a kernel that
-    reported an error for it."""
+    reported an error for it; `streams` lists the indices in the batch
+    of the streams at fault."""
+
+    def __init__(self, message, streams=()):
+        super().__init__(message)
+        self.streams = list(streams)
 
 
 def _bucket(n, lo=4096):
@@ -170,7 +175,7 @@ def decode_stream(props, blob, pos=0, *, device=CUDA):
 
 
 # ================================================================= encode
-def _exact_refusal(props, plan):
+def exact_refusal(props, plan):
     """Why the exact parse does not take a stream, which csc_tpu encodes
     with its golden encoder there (pipeline.py:229-262), or None."""
     if props.lz_mode == 3 or props.bt_size:
@@ -191,18 +196,19 @@ def _exact_refusal(props, plan):
 def plan_streams(props_list, datas, parse="fast"):
     """Per-stream (lz_input, run_table), or None for an empty stream;
     EncodeError for a stream the device path does not take (under
-    parse="exact" also for one `_exact_refusal` names)."""
+    parse="exact" also for one `exact_refusal` names)."""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
     for i, (props, data) in enumerate(zip(props_list, datas)):
         if props.lz_mode not in (1, 2, 3):
             raise EncodeError(f"stream {i}: lz_mode {props.lz_mode} has no "
-                              f"device parse")
+                              f"device parse", [i])
         if len(data) > encode_host.MAX_ENCODE:
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is over the "
-                f"{encode_host.MAX_ENCODE}-byte device encode cap; split it")
+                f"{encode_host.MAX_ENCODE}-byte device encode cap; split it",
+                [i])
         if len(data) > props.dict_size:
             # the parse treats the stream as one window with no wrap
             # (csc_tpu parse_pre.py:6, encode_scan.py:15-18); past the
@@ -211,12 +217,12 @@ def plan_streams(props_list, datas, parse="fast"):
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is more than its "
                 f"{props.dict_size}-byte dictionary; the device parse needs "
-                f"the dictionary to cover the stream")
+                f"the dictionary to cover the stream", [i])
         plan = encode_host.plan_stream(props, data) if data else None
-        reason = _exact_refusal(props, plan) if parse == "exact" else None
+        reason = exact_refusal(props, plan) if parse == "exact" else None
         if reason:
             raise EncodeError(f"stream {i}: {reason}; csc_tpu encodes it "
-                              f"with its golden encoder")
+                              f"with its golden encoder", [i])
         plans.append(plan)
     return plans
 
@@ -352,9 +358,9 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     ap = p0.lz_mode == 3
     exact = parse == "exact"
     for i in idxs if exact else ():
-        reason = _exact_refusal(props_list[i], plans[i])
+        reason = exact_refusal(props_list[i], plans[i])
         if reason:
-            raise EncodeError(f"stream {i}: {reason}")
+            raise EncodeError(f"stream {i}: {reason}", [i])
     if (ap or exact) and width is None:
         width = ap_width([plans[i] for i in idxs])
     data, run_ends, run_skip, sizes, dicts = group_inputs(
@@ -395,7 +401,7 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
         raise EncodeError(f"stream(s) {bad}: the parse did not finish "
                           f"(err {sorted({int(e) for e in err})}: "
                           f"{ERR_OVERFLOW} a full tape, {ERR_STEPS} the "
-                          f"step budget)")
+                          f"step budget)", bad)
     tape = tape[:, :int(tok_cnt.max())].contiguous()
     run_tables = [plans[i][1] for i in idxs]
     kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
@@ -407,11 +413,11 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     over = [idxs[j] for j in range(len(idxs)) if stats[4, j]]
     if over:
         raise EncodeError(f"stream(s) {over}: K3 output overflow "
-                          f"(coded bytes past the output capacity)")
+                          f"(coded bytes past the output capacity)", over)
     unfinished = [idxs[j] for j in range(len(idxs)) if not stats[3, j]]
     if unfinished:
         raise EncodeError(f"stream(s) {unfinished}: K3 did not reach "
-                          f"K_END")
+                          f"K_END", unfinished)
     outs = remux_group(p0, coded)
     note("remux", outs=outs)
     return outs

@@ -15,8 +15,12 @@ edge streams, with a tape too short and step budgets cut, on the 4 x 1
 MB m1 task under a budget, launched twice on the same 96 streams, a
 CUDA tensor reaching K5 and never the plain version, and exact streams
 through K5,
-K3 and K1 equal to the CPU's and golden's bytes; and the A/B tool
-(csc_tpu_torch/kernel_ab.py) run against this checkout.  Needs a card; without one every test here skips.
+K3 and K1 equal to the CPU's and golden's bytes; the A/B tool
+(csc_tpu_torch/kernel_ab.py) run against this checkout; the archiver's
+a / x / t round trip of a 2.5 MB tree split into several tasks, its
+archives of small trees equal to --backend=cpu's, and the batch split
+over cuda:0 named twice equal to one device.  Needs a card; without one
+every test here skips.
 On a machine with a card (it needs no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -43,6 +47,8 @@ from csc_tpu_torch.props import props_init
 import torch_edge_cases as edges
 from test_torch_exact_host import exact_args
 from test_torch_parse_ap_host import plain_cells
+from torch_archiver_trees import CROSS_FILES, TEXT_FILES, make_tree, \
+    run_in, tree_bytes
 
 pytestmark = pytest.mark.cuda
 N = 1536
@@ -629,3 +635,76 @@ def test_exact_streams_through_k5_k3_k1(dev):
     blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
     assert blob == encode_stream(p, big)
     assert pipeline.decode_batch([p], [blob], device=dev) == [big]
+
+
+# ------------------------------------------------------------- archiver
+def _launches():
+    return {k: m.LAUNCHES for k, m in (("K1", decode_kernel),
+                                       ("K2", parse_kernel),
+                                       ("K3", bits_kernel),
+                                       ("K5", exact_kernel))}
+
+
+def test_archiver_round_trip_on_the_card(dev, tmp_path):
+    """`a` / `x` / `t` on the card of a 2.5 MB tree whose 1.5 MB file is
+    over the 1 MB task cap: several tasks, K2 and K3 (and K5 for the
+    index trailer) launched by `a`, K1 by `x` and `t`, the tree restored
+    byte-exact."""
+    from csc_tpu_torch.archiver import csarc, index
+    text = corpus.torch_python_text(2 * 1024 * 1024)
+    files = {"big.txt": text[:1536 * 1024],
+             "lib.so": corpus.torch_library_exe()[:512 * 1024],
+             "ramp.dlt": corpus.dlt_ramp(256 * 1024),
+             "sub/a.txt": text[-200 * 1024:],
+             "sub/b.txt": text[-300 * 1024:-200 * 1024], "sub/empty": b""}
+    make_tree(str(tmp_path / "src"), files)
+    arc = str(tmp_path / "card.csa")
+    before = _launches()
+    assert run_in(tmp_path / "src", csarc.main, ["a", "-r", arc, "."])[0] == 0
+    after = _launches()
+    assert after["K2"] > before["K2"] and after["K3"] > before["K3"]
+    assert after["K5"] == before["K5"] + 1 and after["K1"] == before["K1"]
+    with open(arc, "rb") as f:
+        _, abi = index.read_trailer(f, dev)
+    assert len(abi) >= 4
+    out = tmp_path / "out"
+    assert csarc.main(["x", "-o", str(out), arc]) == 0
+    assert tree_bytes(out) == files
+    assert csarc.main(["t", arc]) == 0
+    assert _launches()["K1"] >= after["K1"] + 2
+
+
+@pytest.mark.parametrize("files,opts", [(CROSS_FILES, []),
+                                        (TEXT_FILES, ["-m2",
+                                                      "--parse=exact"])])
+def test_archiver_on_the_card_equals_cpu(dev, tmp_path, files, opts):
+    """The card's archive of a tree of a few KB a file is the one the
+    plain versions write (--backend=cpu), byte for byte."""
+    from csc_tpu_torch.archiver import csarc
+    make_tree(str(tmp_path / "src"), files)
+    arcs = []
+    for backend in ("cuda", "cpu"):
+        arcs.append(str(tmp_path / f"{backend}.csa"))
+        assert run_in(tmp_path / "src", csarc.main,
+                      ["a", "-r", f"--backend={backend}"] + opts
+                      + [arcs[-1], "."])[0] == 0
+    with open(arcs[0], "rb") as f, open(arcs[1], "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("level,parse", [(1, "fast"), (2, "exact")])
+def test_split_over_cuda0_twice_equals_one_device(dev, level, parse):
+    """encode_batch_sharded / decode_batch_sharded over [cuda:0, cuda:0]
+    on an odd batch equal encode_batch / decode_batch on cuda:0."""
+    from csc_tpu_torch.parallel import mesh
+    text = corpus.torch_python_text(256 * 1024)
+    datas = [text[k * 16384:(k + 1) * 16384] for k in range(5)]
+    props = [props_init(len(d), level) for d in datas]
+    one = pipeline.encode_batch(props, datas, device=dev, parse=parse)
+    assert mesh.encode_batch_sharded(props, datas, devices=[dev, dev],
+                                     parse=parse) == one
+    sizes = [len(d) for d in datas]
+    assert mesh.decode_batch_sharded(props, one, out_sizes=sizes,
+                                     devices=[dev, dev]) == datas
+    assert mesh.stream_devices()[0] == dev
+

@@ -37,11 +37,9 @@ FIELDS = ("tape", "tok_cnt", "done", "err", "finds")
 SMEM_DATA = 64 * 1024      # encode_k4.cu's K4_SMEM_DATA
 
 
-@pytest.fixture(scope="module")
-def k4(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    so = str(tmp_path_factory.mktemp("k4host") / "libk4host.so")
+def build_k4_host(tmp):
+    """The g++ build of encode_k4_host.cpp (csc_k4_host) in `tmp`."""
+    so = str(tmp / "libk4host.so")
     subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-Werror",
                     "-shared", "-fPIC", os.path.join(CSRC,
                                                      "encode_k4_host.cpp"),
@@ -51,6 +49,13 @@ def k4(tmp_path_factory):
     fn.argtypes = [P, P, I64, I32, P, P, I32, P, P, I32, P, P, I64, I64, P,
                    P, I32, I64]
     return fn
+
+
+@pytest.fixture(scope="module")
+def k4(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return build_k4_host(tmp_path_factory.mktemp("k4host"))
 
 
 def inputs(cases, width=None):
