@@ -44,13 +44,25 @@ Phases, each printing its own line; the first failure raises:
                      --parse exact` then `d` on it, and `d` of the first
                      stream under a 266 KB dictionary header, which makes
                      decode_batch regrow its window
+  9a. cli_big        `c -m1` (the default parse, which takes the exact
+                     parse past the 1 MB cap) and `c -m1 --parse exact`
+                     of a ~4.5 MB file (torch text, a libc10.so slice,
+                     512 KB random, a DLT ramp, a random 8 KB block
+                     repeated after 64 KB of text; two raw chunks), each
+                     launching K5 and K3 alone, the two files equal, `d`
+                     restoring it byte-exact through K1; K5 on the
+                     stream's inputs timed and held to its g++ build on
+                     every field, block types included; the no-LZ
+                     blocks and those the probe re-typed DT_NORMAL
   9b. archiver       csarc on a tree built here (the first 1 000 .py
                      files of torch under torch/, libc10.so, 3 MB of
                      seeded random bytes and a 2 MB DLT ramp past the 1
                      MB task cap, an empty file): `a -r` at the default
-                     level and at -m1, `a -m2 --parse=exact` of the .py
-                     subtree, each then `x` (the tree restored
-                     byte-exact), `t` and `l`, the walls split by layer;
+                     level and at -m1, `a -m2 --parse=exact` of the whole
+                     tree (BAD and DLT tasks included), each then `x`
+                     (the tree restored byte-exact), `t` and `l`, the
+                     trailer's parse (the exact one, always), the walls
+                     split by layer;
                      `a` in two processes (CSC_DIST_*, Gloo on localhost,
                      both on this card) equal to the one-process
                      archive; the batch split (parallel/mesh.py) over
@@ -106,7 +118,8 @@ sys.path.insert(1, os.path.join(ROOT, "tests"))
 
 from csc_tpu_torch import _build, corpus, k5_phases, spikes  # noqa: E402
 from csc_tpu_torch.archiver import csarc, index  # noqa: E402
-from csc_tpu_torch.constants import K_END, K_SENT_A  # noqa: E402
+from csc_tpu_torch.constants import (DT_NO_LZ, DT_NORMAL, K_END,  # noqa: E402
+                                     K_SENT_A)
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, exact_kernel,
                                exact_scan, parse_ap_kernel, parse_ap_scan,
@@ -136,6 +149,13 @@ K5_PLAIN_STEPS, K5_HOST_STREAMS = 40_000, 8
 PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES, CLI_DICT = MB, 256 * KB
+# phase 9a's file past the 1 MB cap (about 4.5 MB, over two 2 MB raw
+# chunks): torch text, a libc10.so slice, random bytes, a DLT ramp and a
+# random block repeated after some text; every part a whole number of 8
+# KB blocks
+BIG_TEXT, BIG_EXE, BIG_RANDOM, BIG_RAMP = 2560 * KB, 640 * KB, 512 * KB, \
+    256 * KB
+BIG_GAP, BIG_TAIL = 64 * KB, 512 * KB
 # the archiver tree: torch's first .py files, and random bytes and a DLT
 # ramp over the 1 MB task cap, so that autosplit runs
 ARC_PY_FILES, ARC_RANDOM, ARC_RAMP = 1000, 3 * MB, 2 * MB
@@ -145,7 +165,7 @@ NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
           "K4": ("tape", "tok_cnt", "done", "err", "finds"),
-          "K5": ("tape", "tok_cnt", "done", "err", "steps"),
+          "K5": ("tape", "tok_cnt", "done", "err", "steps", "btypes"),
           "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
                  "stats")}
 PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
@@ -394,17 +414,16 @@ def drop_inputs(cell):
 
 
 # ---------------------------------------------------------- phase 10 parts
-def encode_parity(props, plans, idxs, dev, parse="fast"):
+def encode_parity(props, plans, idxs, dev):
     """One preset group of the parity batch through encode_group, its
     stages held to their counterparts on the same inputs: the candidates
     (of K2 and K4) and the stitch on the CPU, the parse kernel (K2, K4
-    or, under parse="exact", K5) and K3 against their plain versions on
+    or, for exact plans, K5) and K3 against their plain versions on
     the card.  Returns (streams, the parse kernel, fields compared, max
     abs difference, plain seconds of the parse kernel and of K3)."""
     p0 = props[idxs[0]]
     stages = Stages()
-    outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages,
-                                 parse=parse)
+    outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
     v = stages.values
     kernel, p_args, p_out = parse_stage(v)
     err = 0
@@ -502,6 +521,107 @@ def plain_worker(path):
     t0 = time.time()
     out = PLAIN[job["kernel"]](*job["args"])
     torch.save({"out": out, "seconds": time.time() - t0}, path + ".out")
+
+
+# ---------------------------------------------------------- phase 9a parts
+def big_file(text, exe):
+    """Phase 9a's file: torch text, a libc10.so slice, seeded random
+    bytes, a DLT ramp, a random 8 KB block, text, the same block again
+    (the duplicate-block probe re-types it DT_NORMAL) and text."""
+    rng = np.random.default_rng(SEED + 9)
+    block = rng.integers(0, 256, 8 * KB, dtype=np.uint8).tobytes()
+    o = BIG_TEXT
+    parts = [text[:o], exe[len(exe) // 3:len(exe) // 3 + BIG_EXE],
+             rng.integers(0, 256, BIG_RANDOM, dtype=np.uint8).tobytes(),
+             corpus.dlt_ramp(BIG_RAMP), block, text[o:o + BIG_GAP], block,
+             text[o + BIG_GAP:o + BIG_GAP + BIG_TAIL]]
+    check(all(len(x) % (8 * KB) == 0 for x in parts),
+          "cli_big: a part is not a whole number of 8 KB blocks")
+    return b"".join(parts)
+
+
+def cli_big_phase(dev, data, sdir, k5_lib):
+    """Phase 9a: `c -m1` (routed past the cap) and `c -m1 --parse exact`
+    of `data`, `d` of each; K5 on the stream's inputs timed and held to
+    its g++ build.  Returns ({run: K5 launches}, K5's ms, its bound, the
+    longest stream's numbers for the kernels line)."""
+    from csc_tpu_torch import cli
+    src = os.path.join(sdir, "big.bin")
+    with open(src, "wb") as f:
+        f.write(data)
+    check(len(data) > 4 * MB, "cli_big: the file is not past 4 MB")
+    blobs, launches, walls = {}, {}, {}
+    for tag, extra in (("default", []), ("exact", ["--parse", "exact"])):
+        enc, dst = (os.path.join(sdir, f"big_{tag}.{x}")
+                    for x in ("csc", "out"))
+        exact_kernel.LAUNCHES = parse_kernel.LAUNCHES = 0
+        bits_kernel.LAUNCHES = 0
+        t0 = time.time()
+        check(cli.main(["c", "-m", "1", *extra, "--backend", "cuda", src,
+                        enc]) == 0, f"cli_big {tag}: c failed")
+        t1 = time.time()
+        launches[f"cli_c_big {tag}"] = exact_kernel.LAUNCHES
+        check(exact_kernel.LAUNCHES >= 1 and bits_kernel.LAUNCHES >= 1
+              and parse_kernel.LAUNCHES == 0, f"cli_big {tag}: c did not "
+              f"launch K5 and K3 alone")
+        decode_kernel.LAUNCHES = 0
+        check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0,
+              f"cli_big {tag}: d failed")
+        t2 = time.time()
+        check(decode_kernel.LAUNCHES >= 1, f"cli_big {tag}: d did not "
+              f"launch K1")
+        with open(dst, "rb") as f:
+            check(f.read() == data, f"cli_big {tag}: d restored other "
+                  f"bytes")
+        with open(enc, "rb") as f:
+            blobs[tag] = f.read()
+        walls[tag] = (t1 - t0, t2 - t1)
+    check(blobs["default"] == blobs["exact"], "cli_big: the default parse "
+          "past the cap wrote other bytes than --parse exact")
+    # the same encode staged: K5's inputs, timed and held to the g++ build
+    props = props_init(len(data), 1)
+    stages = Stages()
+    outs = pipeline.encode_batch([props], [data], device=dev,
+                                 on_stage=stages)
+    check(write_properties(props) + outs[0] == blobs["default"],
+          "cli_big: the staged encode differs from the CLI's")
+    v = stages.values
+    args, out = v["k5_args"], v["k5_out"]
+    k5_ms, again = event_ms(lambda: exact_kernel.parse_k5(*args), 1)
+    compare("cli_big relaunch", "K5", again, out)
+    t0 = time.time()
+    host = k5_host(k5_lib, to_cpu(args))
+    gxx_s = time.time() - t0
+    err = compare("cli_big against K5's g++ build", "K5", out,
+                  [torch.from_numpy(h) for h in host])
+    plan = v["plans"][0]
+    btypes = out[5][0].cpu().numpy()
+    # the blocks the plan types BAD / ENTROPY / DLT (a skipped one by the
+    # type it takes after such a block), and those K5 typed DT_NORMAL
+    nolz = (plan.blocks[:, 1] & encode_host.BLK_TYPE) >= DT_NO_LZ
+    nolz_blocks = int(nolz.sum())
+    retyped = int((btypes[nolz] == DT_NORMAL).sum())
+    check(retyped >= 1, "cli_big: the probe re-typed no block")
+    ntok = int(out[1].sum())
+    bnd = bound(len(data) + 8 * ntok, int(out[4].long().sum()))
+    runs = encode_host.exact_run_table(plan, btypes)
+    phase("cli_big", bytes=len(data), compressed=len(blobs["default"]),
+          ratio=f"{len(blobs['default']) / len(data):.6f}",
+          c_s=f"{walls['default'][0]:.3f}", d_s=f"{walls['default'][1]:.3f}",
+          exact_c_s=f"{walls['exact'][0]:.3f}",
+          exact_d_s=f"{walls['exact'][1]:.3f}",
+          c_mbps=f"{len(data) / walls['default'][0] / 1e6:.2f}",
+          k5_ms=f"{k5_ms:.3f}", k5_bound_ms=f"{bnd[0]:.6f}",
+          micro_ops=int(out[4][0]), tokens=ntok, blocks=len(plan.blocks),
+          runs=len(runs), run_types=",".join(sorted(
+              {str(r[0]) for r in runs})), no_lz_blocks=nolz_blocks,
+          retyped_normal=retyped,
+          gxx_s=f"{gxx_s:.2f}", gxx_max_abs_err=err,
+          round_trip="K1 byte-exact",
+          launches_k5=launches["cli_c_big default"],
+          launches_k5_exact=launches["cli_c_big exact"])
+    phase("cli_big_layers", **stages.ms())
+    return launches, k5_ms, bnd, err
 
 
 # ---------------------------------------------------------- phase 9b parts
@@ -626,16 +746,14 @@ def archiver_phase(dev, backend, datas):
     files = arc_tree(os.path.join(root, "tree"))
     want = {os.path.normpath(os.path.join("tree", k)): v
             for k, v in files.items()}
-    py = {k: v for k, v in want.items() if k.startswith("tree/torch/")}
     phase("archiver_tree", files=len(files),
-          bytes=sum(map(len, want.values())), py_files=len(py),
-          py_bytes=sum(map(len, py.values())))
+          bytes=sum(map(len, want.values())))
     bk = f"--backend={backend}"
     launches = {}
     for tag, opts, sub, restored in (
             ("default", [], "tree", want),
             ("m1", ["-m1"], "tree", want),
-            ("exact", ["-m2", "--parse=exact"], "tree/torch", py)):
+            ("exact", ["-m2", "--parse=exact"], "tree", want)):
         arc = os.path.join(root, f"{tag}.csa")
         nbytes = sum(map(len, restored.values()))
         rc, _, a_wall, a_n, a_layers = csarc_run(
@@ -644,9 +762,12 @@ def archiver_phase(dev, backend, datas):
         parse_k = "K5" if tag == "exact" else "K2"
         check(a_n[parse_k] >= 1 and a_n["K3"] >= 1 and a_n["K1"] == 0,
               f"archiver {tag}: a did not launch {parse_k} and K3 ({a_n})")
-        # the trailer's parse: the exact one launches K5, the fast one K2
+        # the trailer's parse, always the exact one (K5): an exact `a`
+        # launches no K2, a fast one K5 for the trailer alone
         trailer = ("fast" if (a_n["K2"] if tag == "exact" else
                               not a_n["K5"]) else "exact")
+        check(trailer == "exact", f"archiver {tag}: the trailer did not "
+              f"take the exact parse ({a_n})")
         xdir = os.path.join(root, f"x_{tag}")
         os.makedirs(xdir)
         rc, _, x_wall, x_n, x_layers = csarc_run(xdir, ["x", bk, arc], dev)
@@ -1098,6 +1219,12 @@ def main(procs):
           exact_c_seconds=f"{t6 - t5:.2f}", exact_d_seconds=f"{t7 - t6:.2f}",
           exact_compressed=len(blob_x))
 
+    # ----------------------------------------------------------- 9a cli_big
+    t0 = time.time()
+    big_launches, big_k5_ms, big_bound, big_err = cli_big_phase(
+        dev, big_file(text, exe), sdir, k5_lib)
+    phase("cli_big_done", seconds=f"{time.time() - t0:.1f}")
+
     # ---------------------------------------------------------- 9b archiver
     t0 = time.time()
     arc_launches = archiver_phase(dev, "cuda", hd[:MESH_STREAMS])
@@ -1166,7 +1293,7 @@ def main(procs):
         x_plans = pipeline.plan_streams(x_props, [c[2] for c in par[:3]],
                                         "exact")
         outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
-            x_props, x_plans, [0, 1, 2], dev, parse="exact")
+            x_props, x_plans, [0, 1, 2], dev)
         check(parse == "K5", f"parity exact m{level}: the group did not "
               f"run K5")
         back = pipeline.decode_batch(x_props, outs, device=dev)
@@ -1228,7 +1355,7 @@ def main(procs):
 
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
-                  k5_phases_err, k5_task_err, k4_host_err)
+                  k5_phases_err, k5_task_err, k4_host_err, big_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
@@ -1238,6 +1365,7 @@ def main(procs):
                             for tag, c in cells.items()
                             if kernel in c["launches"]}
     launches["K5"]["cli_c_exact"] = k5_cli_launches
+    launches["K5"].update(big_launches)
     for run, counts in arc_launches.items():
         for kernel, n in counts.items():
             if n:
@@ -1357,15 +1485,23 @@ def main(procs):
             "csc_tpu/ops/parse_ap.py:208", m3["parse_ms"],
             f"{AP_STREAMS} x {HEAD_BYTES // KB} KB m3 text", m3["parse_bound"],
             "encode_ap m3"),
-        row("K5", "K5 exact m1/m2 parse (one warp a stream: the "
-            "reference's finder and lazy parser over live hash tables in "
-            "device memory, a find's probes, extensions and fold across "
-            "the lanes, a slide 32 insertions a pass, a stream of up to "
-            "64 KB in shared memory, the lockstep micro-ops counted in "
-            "closed form)", "csc_tpu_torch/csrc/encode_k5.cu",
-            "csc_tpu/ops/encode_scan.py:179", x1["parse_ms"],
-            f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text, exact parse",
-            x1["parse_bound"], "encode_exact m1"),
+        dict(row("K5", "K5 exact m1/m2 parse (one warp a stream: the "
+                 "reference's finder and lazy parser over live hash tables "
+                 "in device memory, a find's probes, extensions and fold "
+                 "across the lanes, a slide 32 insertions a pass, the "
+                 "duplicate-block probe one position a lane and a no-LZ "
+                 "run's sparse insertion 32 positions a pass, a stream of "
+                 "up to 64 KB in shared memory, the lockstep micro-ops "
+                 "counted in closed form)",
+                 "csc_tpu_torch/csrc/encode_k5.cu",
+                 "csc_tpu/ops/encode_scan.py:179", x1["parse_ms"],
+                 f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m1 text, exact "
+                 f"parse", x1["parse_bound"], "encode_exact m1"),
+             ms_past_cap=round(big_k5_ms, 4),
+             bound_ms_past_cap=round(big_bound[0], 6),
+             past_cap_on="phase 9a's ~4.5 MB m1 file, one stream (text, "
+                         "libc10.so, random, a DLT ramp, a repeated "
+                         "block)"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

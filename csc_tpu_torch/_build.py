@@ -53,7 +53,7 @@ _ARGTYPES = {
                                  _p]),
     "csc_k5": ("csc_k5_launch", [_p, _i64, _p, _i32, _p, _p, _i32, _i32,
                                  _i32, _i32, _p, _p, _p, _p, _i64, _i64, _p,
-                                 _i32, _p]),
+                                 _p, _i32, _p]),
 }
 _ARGTYPES.update({f"spike_{f}": (f"spike_{f}_launch",
                                  [_i32, _i32, _i32] + [_p] * 9 + [_i64] * 6

@@ -18,12 +18,15 @@ MAX_ENCODE`, 1 MB), per-task CSC streams appended as archive blocks with
 and `t` decode the tasks in size-bucketed `decode_batch` groups.  Both
 run on the first CUDA device with --backend=cuda (the default; the
 kernels K1-K5) and raise when there is none; --backend=cpu runs the
-kernels' plain versions.  --parse=exact (m1, m2) codes the tasks with
-the exact parse, the reference encoder's own bytes.  Where csc_tpu falls
-back to its golden codec this archiver stops with an error: a task the
-device encode does not take ends `a` naming the task's first file, a
-corrupt stream ends `x` / `t` with "decode error" and -1.  -t is accepted
-and ignored, as csc_tpu's device backend ignores it.
+kernels' plain versions.  --parse=exact (m1, m2) codes every task with
+the exact parse, the reference encoder's own bytes (csc_tpu's, whose
+golden encoder takes the tasks with BAD / ENTROPY / DLT blocks); the
+index trailer always takes it.  Where csc_tpu still falls back to its
+golden codec this archiver stops with an error: a task the device
+encode does not take (m3-m5 under --parse=exact) ends `a` naming the
+task's first file, a corrupt stream ends `x` / `t` with "decode error"
+and -1.  -t is accepted and ignored, as csc_tpu's device backend ignores
+it.
 
 With CSC_DIST_COORD / CSC_DIST_NPROCS / CSC_DIST_PID set, the processes
 of a group split the tasks round-robin by rank and rank 0 writes the
@@ -327,7 +330,6 @@ class CSArc:
         self.backend = "cuda"
         self.parse = "fast"
         self.device = None          # set from backend by main()
-        self.trailer_parse = None   # the parse that coded the index
 
     # ---------------------------------------------------------------- scan
 
@@ -451,8 +453,7 @@ class CSArc:
             return 0  # rank 0 owns the archive file + trailer
 
         with open(self.arcname, "r+b") as f:
-            self.trailer_parse = write_trailer(f, self.index, self.abindex,
-                                               self.device)
+            write_trailer(f, self.index, self.abindex, self.device)
             f.seek(0, 2)
             size = f.tell()
         print("Compressed Size: %d" % size)
@@ -765,7 +766,17 @@ def main(argv=None):
         return 1
     op = argv[0][0]
     dist.init_distributed()   # no-op unless CSC_DIST_* env is present
-    arc = parse_args(argv[1:])
+    try:
+        rc = _run(op, argv[1:])
+    except BaseException:
+        dist.shutdown(clean=False)
+        raise
+    dist.shutdown()
+    return rc
+
+
+def _run(op, args):
+    arc = parse_args(args)
     arc.device = cli.device_for(arc.backend)
     if op == "a":
         return arc.add()

@@ -9,6 +9,11 @@ to decode) on the first CUDA device and raises when there is none;
 exact (levels 1-2) encodes with K5, the exact parse, in K2's place: the
 reference encoder's own bytes, as csc_tpu's CLI gives them under
 CSC_ENCODE_PARSE=exact (this CLI reads no environment variable for it).
+A file over 1 MB (encode_host.MAX_ENCODE) at levels 1-2 takes the exact
+parse under the default too, as csc_tpu codes it with its golden encoder:
+any file up to the dictionary, 32 MB under the default -d (the
+dictionary is clamped to the file, so it always covers it).  Levels 3-5
+take files up to 1 MB.
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
     python -m csc_tpu_torch.cli c -m 2 --parse exact in.bin out.csc
@@ -59,8 +64,9 @@ def main(argv=None):
     ap.add_argument("--ftxt0", action="store_true", help="disable TXT filter")
     ap.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--parse", choices=["fast", "exact"], default="fast",
-                    help="c: the fast parse, or the exact parse of m1/m2 "
-                    "(the reference encoder's bytes)")
+                    help="c: the fast parse (the exact one past 1 MB), or "
+                    "the exact parse of m1/m2 (the reference encoder's "
+                    "bytes)")
     args = ap.parse_args(argv)
     device = device_for(args.backend)
     from .ops.pipeline import decode_stream, encode_stream

@@ -4,7 +4,10 @@
 // Replaces csc_tpu/ops/encode_scan.py::encode_parse_step (an XLA
 // while_loop driven by run_parse: the B streams step in lockstep, one
 // micro-op each a step: a hash-table probe, a 4-byte extension word, an
-// insertion or a decision).  Here each block is one warp that runs its
+// insertion or a decision), and goes past it where csc_tpu hands a stream
+// to its golden encoder: BAD / ENTROPY / DLT runs with golden's
+// duplicate-block probe and sparse insertion, any length the dictionary
+// covers.  Here each block is one warp that runs its
 // stream's whole parse with the natural loops of csc_mf.cpp / csc_lz.cpp
 // (encode_k5.cuh): a find's probes, extensions and fold across the
 // lanes, a slide 32 insertions a pass.  It counts the micro-ops the
@@ -36,12 +39,13 @@ static size_t k5_smem(int64_t n) {
 // SM, the 1 024-stream group's need)
 __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
     const uint8_t* __restrict__ data, int64_t n,
-    const int32_t* __restrict__ run_ends, int32_t nrun,
+    const int32_t* __restrict__ blocks, int32_t nblk,
     const int32_t* __restrict__ sizes, const int32_t* __restrict__ dict_sizes,
     int32_t hash_bits, int32_t hash_width, int32_t good_len, int32_t lazy,
     int32_t* __restrict__ ht2, int32_t* __restrict__ ht3,
     int32_t* __restrict__ ht6, int32_t* __restrict__ tape, int64_t tcap,
-    int64_t max_steps, int32_t* __restrict__ out) {
+    int64_t max_steps, int32_t* __restrict__ out,
+    int32_t* __restrict__ btypes) {
     const int64_t b = blockIdx.x;
     const uint8_t* row = data + b * n;
     const bool staged = n <= k5::STAGE_MAX;
@@ -66,8 +70,9 @@ __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
     s.data = row;
     s.words = nullptr;
     s.n = n;
-    s.run_ends = run_ends + b * nrun;
-    s.nrun = nrun;
+    s.blocks = blocks + b * 2 * nblk;
+    s.nblk = nblk;
+    s.btypes = btypes + b * nblk;
     s.size = sizes[b];
     s.dict_size = dict_sizes[b];
     s.hash_bits = hash_bits;
@@ -104,26 +109,29 @@ static cudaError_t k5_setup(int64_t n) {
 }
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = queued).
+// blocks: [B, nblk, 2] int32 (each block's cumulative end and info word);
 // ht2 / ht3 / ht6: [B, 16384], [B, 65536], [B, hash_width << hash_bits]
 // int32 zeros; tape: [B, tcap, 2] int32; out: [4, B] int32 rows tok_cnt,
-// done, err and steps.  1 <= hash_width <= 8, 1 <= hash_bits <= 24,
-// max_steps < 2^31.
+// done, err and steps; btypes: [B, nblk] int32 zeros, each block's final
+// type.  1 <= hash_width <= 8, 1 <= hash_bits <= 24, max_steps < 2^31.
 extern "C" int csc_k5_launch(
-    const void* data, int64_t n, const void* run_ends, int32_t nrun,
+    const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
     int32_t hash_width, int32_t good_len, int32_t lazy, void* ht2, void* ht3,
     void* ht6, void* tape, int64_t tcap, int64_t max_steps, void* out,
-    int32_t batch, void* stream) {
+    void* btypes, int32_t batch, void* stream) {
     if (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
-        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1)
+        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1
+        || nblk < 1)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = k5_setup(n);
     if (e != cudaSuccess) return (int)e;
     k5_parse_kernel<<<batch, k5::WARP, k5_smem(n), (cudaStream_t)stream>>>(
-        (const uint8_t*)data, n, (const int32_t*)run_ends, nrun,
+        (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
         (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
         hash_width, good_len, lazy, (int32_t*)ht2, (int32_t*)ht3,
-        (int32_t*)ht6, (int32_t*)tape, tcap, max_steps, (int32_t*)out);
+        (int32_t*)ht6, (int32_t*)tape, tcap, max_steps, (int32_t*)out,
+        (int32_t*)btypes);
     return (int)cudaGetLastError();
 }
 

@@ -70,6 +70,32 @@
 // the tape, so a budget that runs out inside either ends the parse there
 // with steps = the budget, as the lockstep version's cut leaves it.
 //
+// The blocks.  The input is the analyzer's 8 KB block table (each
+// block's end and type, encode_host.plan_stream(..., exact=True)), and the
+// parse merges the blocks into runs itself, as CSCEncoder::Compress does
+// (golden/encoder.py:75-123): IsDuplicateBlock (golden/lz.py:77-82,
+// TestFind mf.py:483-519) re-types a BAD / ENTROPY / DLT block DT_NORMAL
+// when one of its positions matches 19 bytes or more at the head of its
+// HT6 row, and that reads the live tables.  Golden probes each block while
+// the run in front of it is not yet coded, so at a run's start (`walk`)
+// the blocks are typed in turn against the tables as they stand (a
+// DT_SKIP block takes the previous block's final type), one E_DUP step a
+// probe, until a block of another final type or raw chunk ends the run;
+// its type waits for the next run.  Each block's final type goes to
+// `btypes`.  A probe (`duplicate`) is spread one position a lane, each
+// lane walking its positions of the block (the HASH2 filter, the row
+// head's load and the 19-byte compare on the 1/16 that pass); the lanes'
+// hits are one ballot at the end.  A no-LZ run's sub-blocks take one
+// E_SPARSE step each (`sparse`, SlidePosFast, mf.py:198-231): 32
+// positions a pass, one a lane; at the 1/16 whose HASH2 passes, the HT6
+// row shifts down and takes the position, the passes in order, the lanes
+// of one row in a pass as in the slide (the lowest moves the old entries
+// down by the row's count, each lane writes its slot counted from the
+// row's last).  No token, no other table.  A stream of LZ runs alone never
+// probes or slides sparsely, so its steps are csc_tpu's; its parse is the
+// Parser without either (NOLZ false, chosen per stream by `has_nolz`), so
+// the new code costs such a stream nothing on the card.
+//
 // The data is staged as words in shared memory (streams of at most 64
 // KB: s.words), or read from device memory (longer ones); the hash
 // tables (int32, one slice a stream) stay in device memory.
@@ -84,7 +110,7 @@
 //
 // Contract with the plain version, for every stream: the same tape words
 // (kind | wire_len << 3, dist_code) over the first tok_cnt tokens, the
-// same tok_cnt, done, err and steps.
+// same tok_cnt, done, err and steps, and the same block types.
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -115,6 +141,14 @@ constexpr int32_t FAST_SLIDE = 128;  // stride-4 insertion while i + 128 < len
 constexpr int32_t ERR_OVERFLOW = 1;  // the tape is full
 constexpr int32_t ERR_STEPS = 2;     // the step budget ran out
 constexpr int32_t MAX_WIDTH = 8;     // HT6 row width (m2)
+// block types (csc_typedef.h:20-40) and the block table's info word
+// (encode_host.BLK_*)
+constexpr int32_t DT_NORMAL = 1;
+constexpr int32_t DT_NO_LZ = 5;
+constexpr int32_t BLK_TYPE = 0xFF;
+constexpr int32_t BLK_SKIP = 1 << 8;
+constexpr int32_t BLK_CHUNK = 1 << 9;
+constexpr int32_t DUP_LEN = 19;      // a probe hits past 18 equal bytes
 constexpr int WARP = 32;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 // lane roles of a find: reps 0-3, then HT2, HT3, the HT6 row, and the
@@ -135,8 +169,9 @@ struct Stream {
     const uint8_t* data;     // LZ input, n bytes (zero past size)
     const uint32_t* words;   // the same staged as words (g++ build), or null
     int64_t n;
-    const int32_t* run_ends; // [R] cumulative run ends
-    int32_t nrun;
+    const int32_t* blocks;   // [NB][2] cumulative block ends, info words
+    int32_t nblk;
+    int32_t* btypes;         // [NB] each block's final type (zeros)
     int32_t size, dict_size;
     int32_t hash_bits, hash_width, good_len, lazy;
     int32_t* ht2;            // [HT2_SIZE], zeros
@@ -364,8 +399,11 @@ struct Probe {
 };
 
 // The stream's parse, one warp.  STAGED: the data is the staged words
-// (shared memory in the nvcc build), else read from s.data.
-template <bool STAGED>
+// (shared memory in the nvcc build), else read from s.data.  NOLZ: the
+// block table holds a BAD / ENTROPY / DLT block, so the parse may probe
+// and insert sparsely; without, neither is compiled in, and the parse of
+// LZ runs keeps the code it had before them.
+template <bool STAGED, bool NOLZ>
 struct Parser {
     Stream s;
     int32_t steps, budget;   // micro-ops taken, the step budget
@@ -376,6 +414,11 @@ struct Parser {
     int32_t pos, vld_rge;    // the finder's position and valid range
     Lanes reps;              // the rep queue, rep k in lane k < 4
     int32_t blk_off, blk_len, blk_i;
+    // the walk: the next block, the run's type (-1 before its first
+    // block), the final type of block tb when the walk that ended the
+    // last run made it (else -1), the last block's final type; the run's
+    // end
+    int32_t tb, run_type, next_ft, prev_ft, run_end;
     Probe pf;                // the next find's entries, loaded ahead
     LanePtr table;           // HT lane l's table (its slot of a row)
     // the hashes of positions win + l, one a lane (win < 0: none), in
@@ -970,6 +1013,150 @@ struct Parser {
         }
     }
 
+    K5_FN int32_t blk_end(int32_t j) const {
+        return s.blocks[2 * (int64_t)j];
+    }
+
+    // IsDuplicateBlock of block j against the tables as they stand, the
+    // window's frontier at wpos (the run in front is not coded yet, so
+    // the window holds zeros from there): a position i whose HASH2 is a
+    // multiple of 16 and whose HT6 row head lies below vld_rge, where the
+    // window's next 19 bytes equal the block's.  A hit needs 19 bytes
+    // before the block's end, so the hashed bytes lie inside the block.
+    K5_FN bool duplicate(int32_t j, int32_t wpos) const {
+        const int32_t s0 = j == 0 ? 0 : blk_end(j - 1);
+        const int32_t last = blk_end(j) - s0 - DUP_LEN;  // last position
+        const uint32_t vld = (uint32_t)vld_rge;
+        const int64_t w = s.hash_width;
+        const uint32_t hits = ballot(lanes([&](int l) -> int32_t {
+            for (int32_t i = l; i <= last; i += WARP) {
+                const int32_t p = s0 + i;
+                const uint32_t v4 = word(p);
+                if (((v4 & 0xFFFF) * 65521u) & 0x3FFF & 15) continue;
+                const uint32_t v2 = word(p + 4) & 0xFFFF;
+                const int64_t h6 = ((v4 ^ (v2 << 13)) * 2654435761u)
+                                 >> (32 - s.hash_bits);
+                const uint32_t dist = (uint32_t)(pos - s.ht6[h6 * w]);
+                if (dist >= vld || dist > (uint32_t)wpos) continue;
+                const int32_t c = wpos - (int32_t)dist;
+                bool eq = true;
+                for (int32_t k = 0; k < DUP_LEN && eq; k += 4) {
+                    uint32_t x = word(p + k) ^ word(c + k);
+                    // the window's bytes from wpos on are zeros
+                    const int32_t below = wpos - c - k;
+                    if (below < 4)
+                        x = word(p + k) ^ (below <= 0 ? 0u
+                            : word(c + k) & ((1u << (8 * below)) - 1));
+                    const int32_t nb = DUP_LEN - k < 4 ? DUP_LEN - k : 4;
+                    eq = (nb == 4 ? x : x & ((1u << (8 * nb)) - 1)) == 0;
+                }
+                if (eq) return 1;
+            }
+            return 0;
+        }));
+        return hits != 0;
+    }
+
+    // the walk at a run's start (wpos there): blocks tb, tb + 1, ... are
+    // typed, a no-LZ one after its probe (E_DUP), and merged into the run
+    // until a block of another final type (kept in next_ft), another raw
+    // chunk or the stream's end; run_end is set.  False once past the
+    // budget.
+    K5_FN bool walk(int32_t wpos) {
+        for (;;) {
+            const int32_t j = tb;
+            const int32_t jc = j < s.nblk ? j : s.nblk - 1;
+            const int32_t end_prev = blk_end(j > 0 ? j - 1 : 0);
+            const int32_t start = j == 0 ? 0 : end_prev;
+            const int32_t info = s.blocks[2 * (int64_t)jc + 1];
+            const bool cs = j == 0 || (info & BLK_CHUNK);
+            const bool taken = run_type >= 0;
+            if (j >= s.nblk || start >= s.size) {
+                // past the last run: csc_tpu's clipped gather of run_ends
+                run_end = taken ? end_prev : blk_end(jc);
+                return true;
+            }
+            if (taken && cs) {
+                run_end = end_prev;
+                return true;
+            }
+            int32_t f;
+            if (next_ft >= 0) {
+                f = next_ft;
+                next_ft = -1;
+            } else {
+                f = info & BLK_TYPE;
+                if ((info & BLK_SKIP) && (cs || prev_ft == DT_NORMAL))
+                    f = DT_NORMAL;
+                if constexpr (NOLZ) {
+                    if (f >= DT_NO_LZ) {
+                        if (!spend(1)) return false;       // E_DUP
+                        if (duplicate(j, wpos)) f = DT_NORMAL;
+                    }
+                }
+            }
+            if (leader()) s.btypes[j] = f;
+            prev_ft = f;
+            if (!taken) {
+                run_type = f;
+            } else if (f != run_type) {
+                next_ft = f;
+                run_end = end_prev;
+                return true;
+            }
+            tb = j + 1;
+        }
+    }
+
+    // SlidePosFast over the sub-block [blk_off, blk_off + blk_len): at
+    // each position whose HASH2 (the window read as zeros past the
+    // sub-block) is a multiple of 16, the HT6 row shifts down and takes
+    // the position's pos; 32 positions a pass, one a lane
+    K5_FN void sparse() {
+        const int32_t w = s.hash_width;
+        for (int32_t q0 = 0; q0 < blk_len; q0 += WARP) {
+            fill(blk_off + q0);
+            const Lanes k6 = lanes([&](int l) -> int32_t {
+                return q0 + l < blk_len && !(own(wh2, l) & 15)
+                    ? own(wh6, l) : -1 - l;
+            });
+            const uint32_t ins = ballot(lanes([&](int l) -> int32_t {
+                return own(k6, l) >= 0;
+            }));
+            if (!ins) continue;
+            const Lanes same = match(k6);
+            // the lowest lane of a row reads the entries that stay
+            Lanes old[MAX_WIDTH];
+            each([&](int l) {
+                const uint32_t m = (uint32_t)own(same, l);
+                const int32_t c = popc(m);
+                const bool owner = (ins >> l & 1) && ctz32(m) == l;
+                const int32_t* r = s.ht6 + (int64_t)own(k6, l) * w;
+                K5_UNROLL
+                for (int j = 0; j < MAX_WIDTH; ++j)
+                    set(old[j], l, owner && j + c < w ? r[j] : 0);
+            });
+            sync();
+            each([&](int l) {
+                if (!(ins >> l & 1)) return;
+                const uint32_t m = (uint32_t)own(same, l);
+                const int32_t c = popc(m);
+                int32_t* r = s.ht6 + (int64_t)own(k6, l) * w;
+                if (ctz32(m) == l) {
+                    K5_UNROLL
+                    for (int j = 0; j < MAX_WIDTH; ++j)
+                        if (j + c < w) r[j + c] = own(old[j], l);
+                }
+                // its slot: the row's later insertions in this pass above
+                const uint32_t above = l == WARP - 1 ? 0u : FULL << (l + 1);
+                const int32_t k = popc(m & above);
+                if (k < w) r[k] = pos + q0 + l;
+            });
+            sync();
+        }
+        pos += blk_len;
+    }
+
     K5_FN Result run() {
         steps = 0;
         budget = (int32_t)s.max_steps;
@@ -988,7 +1175,6 @@ struct Parser {
                           : s.ht6 + (l >= L_HT6 && l < L_ROW0 ? l - L_HT6
                                                                : 0));
         });
-        int32_t run_idx = 0, run_end = s.run_ends[0];
         int32_t wpos = 0;
         int32_t probe2 = 0;      // the lazy second find is next
         bool have_u1 = false, done = false;
@@ -996,6 +1182,10 @@ struct Parser {
 #if defined(K5_PHASES) && defined(__CUDA_ARCH__)
         mark = clock64();
 #endif
+        tb = 0;
+        run_type = next_ft = -1;
+        prev_ft = DT_NORMAL;
+        walk(wpos);
         while (!cut) {
             if (!probe2) {
                 if (!spend(1)) break;                      // E_BLOCK
@@ -1005,12 +1195,11 @@ struct Parser {
                     win = -1;
                     if (nboff >= run_end && blk_len > 0) {
                         marker(K_SENT_A);                  // csc_lz.cpp:97
-                        ++run_idx;
-                        run_end = s.run_ends[run_idx < s.nrun ? run_idx
-                                                              : s.nrun - 1];
                         blk_off = nboff;
                         blk_len = blk_i = 0;
                         have_u1 = false;
+                        run_type = -1;
+                        if (!walk(wpos)) break;
                         continue;
                     }
                     if (nboff >= s.size) {
@@ -1025,6 +1214,15 @@ struct Parser {
                                                           : SUB_BLOCK;
                     blk_i = 0;
                     have_u1 = false;
+                    if constexpr (NOLZ) {
+                        if (run_type >= DT_NO_LZ) {
+                            if (!spend(1)) break;          // E_SPARSE
+                            sparse();
+                            blk_i = blk_len;
+                            wpos += blk_len;
+                            continue;
+                        }
+                    }
                 }
             }
             // a find at wpos (unless a first pick is pending) or the lazy
@@ -1088,11 +1286,28 @@ struct Parser {
     }
 };
 
+// whether a block of the stream's table is typed BAD / ENTROPY / DLT
+// (before the probe), one block a lane
+K5_FN bool has_nolz(const Stream& s) {
+    return ballot(lanes([&](int l) -> int32_t {
+        for (int32_t j = l; j < s.nblk; j += WARP)
+            if ((s.blocks[2 * (int64_t)j + 1] & BLK_TYPE) >= DT_NO_LZ)
+                return 1;
+        return 0;
+    })) != 0;
+}
+
 // the stream's parse; STAGED: s.words (g++) or k5_words (nvcc) hold its
-// data as words, STAGE_PAD zero words after it
+// data as words, STAGE_PAD zero words after it.  A stream of LZ runs alone
+// takes the parse without the probe and the sparse insertion.
 template <bool STAGED>
 K5_FN Result parse_stream(const Stream& s) {
-    Parser<STAGED> p;
+    if (has_nolz(s)) {
+        Parser<STAGED, true> p;
+        p.s = s;
+        return p.run();
+    }
+    Parser<STAGED, false> p;
     p.s = s;
     return p.run();
 }

@@ -9,18 +9,19 @@
 #include "encode_k5.cuh"
 
 // Same arguments and outputs as csc_k5_launch in encode_k5.cu, with host
-// pointers and no stream, and one more: a stream of n <= stage_max bytes
-// is staged as words (STAGE_PAD zero words after it), as the kernel
-// stages one of at most k5::STAGE_MAX bytes; a longer one is read from
-// its bytes.
+// pointers and no stream (btypes zeros), and one more: a stream of n <=
+// stage_max bytes is staged as words (STAGE_PAD zero words after it), as
+// the kernel stages one of at most k5::STAGE_MAX bytes; a longer one is
+// read from its bytes.
 extern "C" int csc_k5_host_staged(
-    const void* data, int64_t n, const void* run_ends, int32_t nrun,
+    const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
     int32_t hash_width, int32_t good_len, int32_t lazy, void* ht2, void* ht3,
     void* ht6, void* tape, int64_t tcap, int64_t max_steps, void* out,
-    int32_t batch, int64_t stage_max) {
+    void* btypes, int32_t batch, int64_t stage_max) {
     if (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
-        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1)
+        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1
+        || nblk < 1)
         return 1;
     std::vector<uint32_t> words((n + 3) / 4 + k5::STAGE_PAD);
     int32_t* o = (int32_t*)out;
@@ -39,8 +40,9 @@ extern "C" int csc_k5_host_staged(
             s.words = words.data();
         }
         s.n = n;
-        s.run_ends = (const int32_t*)run_ends + b * nrun;
-        s.nrun = nrun;
+        s.blocks = (const int32_t*)blocks + b * 2 * nblk;
+        s.nblk = nblk;
+        s.btypes = (int32_t*)btypes + b * nblk;
         s.size = ((const int32_t*)sizes)[b];
         s.dict_size = ((const int32_t*)dict_sizes)[b];
         s.hash_bits = hash_bits;
@@ -65,13 +67,13 @@ extern "C" int csc_k5_host_staged(
 
 // csc_k5_host_staged with the kernel's own staging rule.
 extern "C" int csc_k5_host(
-    const void* data, int64_t n, const void* run_ends, int32_t nrun,
+    const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
     int32_t hash_width, int32_t good_len, int32_t lazy, void* ht2, void* ht3,
     void* ht6, void* tape, int64_t tcap, int64_t max_steps, void* out,
-    int32_t batch) {
-    return csc_k5_host_staged(data, n, run_ends, nrun, sizes, dict_sizes,
+    void* btypes, int32_t batch) {
+    return csc_k5_host_staged(data, n, blocks, nblk, sizes, dict_sizes,
                               hash_bits, hash_width, good_len, lazy, ht2,
-                              ht3, ht6, tape, tcap, max_steps, out, batch,
-                              k5::STAGE_MAX);
+                              ht3, ht6, tape, tcap, max_steps, out, btypes,
+                              batch, k5::STAGE_MAX);
 }

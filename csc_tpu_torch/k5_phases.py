@@ -56,24 +56,25 @@ def read(lib):
 def run(lib, args):
     """One launch of the phase build on parse_k5's arguments: its
     outputs as parse_k5 gives them and the phase clocks and counts."""
-    data, run_ends, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
         tcap, max_steps = args
     b, dev = data.shape[0], data.device
     tables = exact_kernel.new_tables(b, hash_bits, hash_width, dev)
     tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
     out = torch.zeros((4, b), dtype=torch.int32, device=dev)
+    btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
     read(lib)
-    exact_kernel.launch(lib, data, run_ends, sizes, dicts, hash_bits,
+    exact_kernel.launch(lib, data, blocks, sizes, dicts, hash_bits,
                         hash_width, good_len, lazy, tables, tape, max_steps,
-                        out)
+                        out, btypes)
     torch.cuda.synchronize()
-    return (tape, out[0], out[1], out[2], out[3]), read(lib)
+    return (tape, out[0], out[1], out[2], out[3], btypes), read(lib)
 
 
 def cell(lib, args):
     """One launch of the phase build on K5's arguments: block 0's
     phases."""
-    (_, tok_cnt, _, _, _), v = run(lib, args)
+    (_, tok_cnt, _, _, _, _), v = run(lib, args)
     sizes = args[2]
     cyc, cnt = dict(zip(PHASES, v)), dict(zip(COUNTS, v[len(PHASES):]))
     total = sum(cyc.values())

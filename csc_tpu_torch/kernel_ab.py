@@ -8,7 +8,9 @@ DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*,
 encode_k2.* .. encode_k5.* are built beside this checkout's and launched
 through this checkout's wrappers on the same inputs (the kernels' C
-interface is the same); a kernel the other checkout lacks is left out.
+interface must be the same: a K5 that takes the LZ runs' ends rather
+than the block table is left out with --kernels K1,K2,K3,K4); a kernel
+the other checkout lacks is left out.
 Cells: K1 on the decode headline (128 x 16 KB m1 text) and on the
 extract group (256 x 1 MB m1 text, 4 slices x 64); K2 and K3 at m1 and at
 m2 on the encode headline (96 x 16 KB text, filters on) and on the encode
@@ -22,7 +24,8 @@ path's large group) and on the encode task.  The inputs come from this
 checkout's encode path on the card.  K4 and K5 are launched directly,
 with no debug copy (as on the encode path): the tape and K5's hash
 tables are zeroed before each timed call, outside its events, and the
-builds are compared on tape, tok_cnt, done and err (K5: and steps).
+builds are compared on tape, tok_cnt, done and err (K5: and steps and
+the block types).
 Each cell is timed in turns, forward then backward (other, this, this,
 other; CUDA events, the median of `reps` calls a turn, the best turn
 kept), and the other build's outputs must equal this one's on every
@@ -154,8 +157,9 @@ def k4_calls(args, other):
 
 def k5_calls(args, other):
     """(prepare, launch) of each build for K5's raw launch on the encode
-    path's arguments: its tape, zeroed hash tables and counters."""
-    data, run_ends, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
+    path's arguments: its tape, zeroed hash tables, counters and block
+    types."""
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
         tcap, max_steps = args
     b = data.shape[0]
     dev = data.device
@@ -165,16 +169,17 @@ def k5_calls(args, other):
         tables = exact_kernel.new_tables(b, hash_bits, hash_width, dev)
         tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
         out = torch.zeros((4, b), dtype=torch.int32, device=dev)
+        btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
 
-        def prepare(tables=tables, tape=tape):
-            for t in tables + (tape,):
+        def prepare(tables=tables, tape=tape, btypes=btypes):
+            for t in tables + (tape, btypes):
                 t.zero_()
 
-        def call(lib=lib, tables=tables, tape=tape, out=out):
-            exact_kernel.launch(lib, data, run_ends, sizes, dicts, hash_bits,
+        def call(lib=lib, tables=tables, tape=tape, out=out, btypes=btypes):
+            exact_kernel.launch(lib, data, blocks, sizes, dicts, hash_bits,
                                 hash_width, good_len, lazy, tables, tape,
-                                max_steps, out)
-            return tape, out[0], out[1], out[2], out[3]
+                                max_steps, out, btypes)
+            return tape, out[0], out[1], out[2], out[3], btypes
         calls[who] = (prepare, call)
     return calls
 

@@ -4,13 +4,16 @@ pipeline drives it under CSC_ENCODE_PARSE=exact.
 
 `parse_k5` checks its tensors, allocates the per-stream hash tables (int32
 zeros: ht2 [B, 16384], ht3 [B, 65536], ht6 [B, hash_width << hash_bits]),
-the tape and the counters, and launches the kernel on the current CUDA
-stream, one warp (a block) a stream; a stream of at most 64 KB is staged
-in the block's shared memory (`smem_bytes`, `blocks_per_sm`).  The tables
-take 64 KB + 256 KB + 4 * (hash_width << hash_bits) bytes a stream: 576
-KB for a 16 KB stream at m1 (hash_bits 16, width 1), so about 2.4 GB for
-the encode path's largest group of 16 KB streams (64 MB, 4 096 streams);
-8.3 MB for a 1 MB stream at m1 (hash_bits 21).  For tensors on the CPU it
+the tape, the counters and the block types, and launches the kernel on
+the current CUDA stream, one warp (a block) a stream; a stream of at most
+64 KB is staged in the block's shared memory (`smem_bytes`,
+`blocks_per_sm`).  The tables take 64 KB + 256 KB + 4 * (hash_width <<
+hash_bits) bytes a stream: 576 KB for a 16 KB stream at m1 (hash_bits 16,
+width 1), so about 2.4 GB for the encode path's largest group of 16 KB
+streams (64 MB, 4 096 streams); 8.3 MB for a 1 MB stream at m1 (hash_bits
+21); 32.3 MB for a 32 MB one (hash_bits 23; at m2, width 8 and
+hash_bits 21, 64.3 MB).  Indices into them stay within int32 (at most 8
+<< 24 words a row), offsets between rows are int64.  For tensors on the CPU it
 runs the plain PyTorch version (ops/exact_scan.py) instead; on any other
 device it raises.  LAUNCHES counts kernel launches.
 """
@@ -23,21 +26,23 @@ from . import exact_scan
 LAUNCHES = 0
 
 
-def launch(lib, data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
-           good_len, lazy, tables, tape, max_steps, out):
+def launch(lib, data, blocks, sizes, dict_sizes, hash_bits, hash_width,
+           good_len, lazy, tables, tape, max_steps, out, btypes):
     """csc_k5_launch of library `lib` on the current CUDA stream, into the
-    caller's tables (ht2, ht3, ht6, zeros), tape [B, T, 2] and out [4, B]
-    (tok_cnt, done, err, steps); raises if the launch fails."""
+    caller's tables (ht2, ht3, ht6, zeros), tape [B, T, 2], out [4, B]
+    (tok_cnt, done, err, steps) and btypes [B, NB] (zeros); raises if the
+    launch fails."""
     b, n = data.shape
     ht2, ht3, ht6 = tables
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = lib.csc_k5_launch(
-            data.data_ptr(), n, run_ends.data_ptr(), run_ends.shape[1],
+            data.data_ptr(), n, blocks.data_ptr(), blocks.shape[1],
             sizes.data_ptr(), dict_sizes.data_ptr(), int(hash_bits),
             int(hash_width), int(good_len), 1 if lazy else 0,
             ht2.data_ptr(), ht3.data_ptr(), ht6.data_ptr(), tape.data_ptr(),
-            tape.shape[1], int(max_steps), out.data_ptr(), b, stream)
+            tape.shape[1], int(max_steps), out.data_ptr(),
+            btypes.data_ptr(), b, stream)
     if rc != 0:
         raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
 
@@ -73,24 +78,28 @@ def new_tables(b, hash_bits, hash_width, device):
                  for size in exact_scan.table_sizes(hash_bits, hash_width))
 
 
-def parse_k5(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
+def parse_k5(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
              good_len, lazy, max_tokens, max_steps=None):
     """Parse B streams exactly.
 
-    data: [B, N] u8 LZ input; run_ends: [B, R] i32 cumulative run ends
-    (every run an LZ run); sizes, dict_sizes: [B] i32; hash_bits,
-    hash_width, good_len: the preset's finder; lazy: the lazy second probe
-    (lz_mode 2); max_steps: the lockstep step budget
-    (exact_scan.max_steps_for(N) by default).  Returns (tape [B,
-    max_tokens, 2] i32 of (kind | wire_len << 3, dist_code), tok_cnt,
-    done, err, steps [B] i32), on data's device; err is ERR_OVERFLOW (the
-    tape filled) or ERR_STEPS (the budget ran out); steps counts each
-    stream's lockstep micro-ops up to its end (the budget when cut).
+    data: [B, N] u8 LZ input; blocks: [B, NB, 2] i32, the analyzer's block
+    table (each block's cumulative end and info word,
+    encode_host.plan_stream(..., exact=True); exact_scan.lz_blocks makes
+    one of LZ runs); sizes, dict_sizes: [B] i32; hash_bits, hash_width,
+    good_len: the preset's finder; lazy: the lazy second probe (lz_mode
+    2); max_steps: the lockstep step budget (exact_scan.max_steps_for(N)
+    by default).  Returns (tape [B, max_tokens, 2] i32 of (kind | wire_len
+    << 3, dist_code), tok_cnt, done, err, steps [B] i32, btypes [B, NB]
+    i32), on data's device; err is ERR_OVERFLOW (the tape filled) or
+    ERR_STEPS (the budget ran out); steps counts each stream's lockstep
+    micro-ops up to its end (the budget when cut); btypes holds each
+    block's final type, after the duplicate-block probe (0 for a block
+    the parse did not reach).
     """
     global LAUNCHES
-    exact_scan.check_inputs(data, run_ends, sizes, dict_sizes, hash_bits,
+    exact_scan.check_inputs(data, blocks, sizes, dict_sizes, hash_bits,
                             hash_width, good_len)
-    for name, t in (("data", data), ("run_ends", run_ends),
+    for name, t in (("data", data), ("blocks", blocks),
                     ("sizes", sizes), ("dict_sizes", dict_sizes)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -103,7 +112,7 @@ def parse_k5(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
     dev, b = data.device, data.shape[0]
     if dev.type == "cpu":
         return exact_scan.exact_plain(
-            data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
+            data, blocks, sizes, dict_sizes, hash_bits, hash_width,
             good_len, lazy, max_tokens, max_steps)
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on CUDA tensors (or the plain version "
@@ -114,7 +123,8 @@ def parse_k5(data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
     tables = new_tables(b, hash_bits, hash_width, dev)
     tape = torch.zeros((b, max_tokens, 2), dtype=torch.int32, device=dev)
     out = torch.empty((4, b), dtype=torch.int32, device=dev)
-    launch(lib, data, run_ends, sizes, dict_sizes, hash_bits, hash_width,
-           good_len, lazy, tables, tape, max_steps, out)
+    btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
+    launch(lib, data, blocks, sizes, dict_sizes, hash_bits, hash_width,
+           good_len, lazy, tables, tape, max_steps, out, btypes)
     LAUNCHES += 1
-    return tape, out[0], out[1], out[2], out[3]
+    return tape, out[0], out[1], out[2], out[3], btypes

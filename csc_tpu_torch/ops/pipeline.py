@@ -10,21 +10,26 @@ encode: host plan (analyzer + forward filters) -> candidates (parse_pre)
 phase-B coder -> host remux.  The counterpart of csc_tpu/ops/pipeline.py
 `encode_batch` on its fast path (pipeline.py:335-389 and, at m3-m5,
 391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1 and
-m2 only): host plan -> K5, the exact parse with live hash tables -> stitch
--> K3 -> remux, byte-identical to the reference encoder (csc_tpu's
-pipeline.py:229-262, 277, 307-325, 433-497 with its host stitch).  Where
-csc_tpu falls back to its host golden encoder (a stream the planner
-rejects, one over the 1 MB device cap, a K3 output overflow; under exact
-also a BAD / ENTROPY / DLT run) this port raises EncodeError naming the
-stream and the reason: it never encodes on the host.
+m2 only): host plan (the analyzer's 8 KB blocks) -> K5, the exact parse
+with live hash tables, which also makes the duplicate-block probe and
+merges the blocks into runs -> the run table rebuilt from K5's block
+types -> stitch -> K3 -> remux, byte-identical to the reference encoder:
+csc_tpu's bytes under CSC_ENCODE_PARSE=exact, where csc_tpu takes a
+stream with a BAD / ENTROPY / DLT run or one over its 1 MB device cap to
+its golden encoder, and the port's exact parse writes golden's bytes on
+the card.  An m1 / m2 stream over MAX_ENCODE takes the exact parse under
+parse="fast" too, as csc_tpu takes it to golden (pipeline.py:240-262).
+Where csc_tpu still falls back to golden and the port has no device path
+(m3-m5 under the exact parse or over the cap, a stream longer than its
+dictionary, a K3 output overflow) this port raises EncodeError naming
+the stream and the reason: it never encodes on the host.
 """
 import numpy as np
 import torch
 
 from .. import constants, native
-from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, DT_ENTROPY, DT_BAD,
-                         DT_DLT, SIG_EOF, ERR_CORRUPT, ERR_OVERFLOW,
-                         ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
+from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
+                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
 from . import encode_host, exact_scan, framing, parse_pre, prices, stitch
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
@@ -37,7 +42,8 @@ from .parse_scan import tape_capacity
 CUDA = torch.device("cuda")
 # LZ input bytes per device encode call: bounds the candidate arrays
 # (20 int32 rows per position at m2) and the precompute's temporaries,
-# and under the exact parse the hash tables (576 KB a 16 KB stream at m1)
+# and under the exact parse the hash tables (576 KB a 16 KB stream at m1,
+# 64 MB a 32 MB one at m2); a longer stream is a call of its own
 ENCODE_GROUP_BYTES = 64 * 1024 * 1024
 PARSES = ("fast", "exact")
 
@@ -175,28 +181,23 @@ def decode_stream(props, blob, pos=0, *, device=CUDA):
 
 
 # ================================================================= encode
-def exact_refusal(props, plan):
-    """Why the exact parse does not take a stream, which csc_tpu encodes
-    with its golden encoder there (pipeline.py:229-262), or None."""
+def exact_refusal(props):
+    """Why the exact parse does not take a stream of this preset, which
+    csc_tpu encodes with its golden encoder (pipeline.py:229-262), or
+    None: the exact parse is the lazy parse of m1 / m2."""
     if props.lz_mode == 3 or props.bt_size:
         return (f"the exact parse takes lz_mode 1 and 2 (m1, m2), not "
                 f"lz_mode {props.lz_mode}")
-    off = 0
-    for t, n, *_ in plan[1] if plan else ():
-        if t >= DT_NO_LZ:
-            name = ("DT_DLT" if t >= DT_DLT else
-                    {DT_BAD: "DT_BAD", DT_ENTROPY: "DT_ENTROPY"}.get(
-                        t, f"type {t}"))
-            return (f"a {name} run ({n} bytes at offset {off}); the exact "
-                    f"parse codes LZ runs only")
-        off += n
     return None
 
 
 def plan_streams(props_list, datas, parse="fast"):
-    """Per-stream (lz_input, run_table), or None for an empty stream;
-    EncodeError for a stream the device path does not take (under
-    parse="exact" also for one `exact_refusal` names)."""
+    """Per-stream plans, or None for an empty stream: an
+    encode_host.FastPlan for the fast parse, an ExactPlan for the exact
+    one (each says its parse).
+    An m1 / m2 stream over MAX_ENCODE takes the exact parse whatever
+    `parse` says, as csc_tpu hands it to golden.  EncodeError for a stream
+    the device path does not take."""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
@@ -204,11 +205,6 @@ def plan_streams(props_list, datas, parse="fast"):
         if props.lz_mode not in (1, 2, 3):
             raise EncodeError(f"stream {i}: lz_mode {props.lz_mode} has no "
                               f"device parse", [i])
-        if len(data) > encode_host.MAX_ENCODE:
-            raise EncodeError(
-                f"stream {i}: {len(data)} bytes is over the "
-                f"{encode_host.MAX_ENCODE}-byte device encode cap; split it",
-                [i])
         if len(data) > props.dict_size:
             # the parse treats the stream as one window with no wrap
             # (csc_tpu parse_pre.py:6, encode_scan.py:15-18); past the
@@ -218,40 +214,52 @@ def plan_streams(props_list, datas, parse="fast"):
                 f"stream {i}: {len(data)} bytes is more than its "
                 f"{props.dict_size}-byte dictionary; the device parse needs "
                 f"the dictionary to cover the stream", [i])
-        plan = encode_host.plan_stream(props, data) if data else None
-        reason = exact_refusal(props, plan) if parse == "exact" else None
-        if reason:
+        big = len(data) > encode_host.MAX_ENCODE
+        reason = exact_refusal(props)
+        if big and reason:
+            raise EncodeError(
+                f"stream {i}: {len(data)} bytes is over the "
+                f"{encode_host.MAX_ENCODE}-byte cap of the fast parse and "
+                f"{reason}; split it", [i])
+        if parse == "exact" and reason:
             raise EncodeError(f"stream {i}: {reason}; csc_tpu encodes it "
                               f"with its golden encoder", [i])
-        plans.append(plan)
+        plans.append(encode_host.plan_stream(
+            props, data, exact=parse == "exact" or big) if data else None)
     return plans
 
 
-def _groups(props_list, plans, parse="fast"):
+def _groups(props_list, plans):
     """(stream indices, width) of each device call: streams grouped by
-    preset (a call runs one preset), each group cut into calls of at most
-    ENCODE_GROUP_BYTES of input.  At m3-m5 a preset's streams are first
-    split by their power-of-two size bucket and the width is csc_tpu's for
-    the bucket (`ap_width`); under the exact parse the width is csc_tpu's
-    for the preset's streams, `ap_width` too (pipeline.py:307); at m1 / m2 on
-    the fast parse it is the call's longest stream (None)."""
+    preset and parse (a call runs one), each group cut into calls of at
+    most ENCODE_GROUP_BYTES of input (a longer stream alone).  At m3-m5 a
+    preset's streams are first split by their power-of-two size bucket
+    and the width is csc_tpu's for the bucket (`ap_width`); under the
+    exact parse the width is csc_tpu's for the preset's streams, `ap_width`
+    too (pipeline.py:307), streams over MAX_ENCODE split off by their
+    bucket (csc_tpu codes them with golden; the exact parse's output does
+    not depend on the width, so the bucket only spares a short stream a
+    long one's width); at m1 / m2 on the fast parse it is the call's
+    longest stream (None)."""
     by_preset = {}
     for i, plan in enumerate(plans):
         if plan is not None:
             p = props_list[i]
             key = (p.hash_bits, p.hash_width, p.good_len, p.lz_mode,
-                   p.csc_blocksize)
+                   p.csc_blocksize, plan.parse == "exact")
             if p.lz_mode == 3:
-                key += (_bucket(len(plan[0])),)
+                key += (_bucket(len(plan.lz)),)
+            elif plan.parse == "exact":
+                key += (_bucket(max(len(plan.lz), encode_host.MAX_ENCODE)),)
             by_preset.setdefault(key, []).append(i)
     groups = []
     for key in sorted(by_preset):
-        idxs = sorted(by_preset[key], key=lambda i: len(plans[i][0]))
+        idxs = sorted(by_preset[key], key=lambda i: len(plans[i].lz))
         width = (ap_width([plans[i] for i in idxs])
-                 if parse == "exact" or key[3] == 3 else None)
+                 if key[5] or key[3] == 3 else None)
         cur, nbytes = [], 0
         for i in idxs:
-            n = len(plans[i][0])
+            n = len(plans[i].lz)
             if cur and nbytes + n > ENCODE_GROUP_BYTES:
                 groups.append((cur, width))
                 cur, nbytes = [], 0
@@ -269,7 +277,7 @@ def ap_width(plans):
     match into the last column of the cells is undone
     (ops/parse_ap_scan.py), which touches a stream only when it is exactly
     that long."""
-    n = max(len(plan[0]) for plan in plans)
+    n = max(len(plan.lz) for plan in plans)
     b = 1024
     while b < n:
         if b + b // 2 >= n:
@@ -278,30 +286,54 @@ def ap_width(plans):
     return b
 
 
-def group_inputs(props_list, plans, idxs, device, width=None):
-    """The device inputs of one group: data [B, N] u8 (N = width, or the
-    longest stream), run_ends and run_skip [B, R] i32, sizes and
-    dict_sizes [B] i32."""
-    lz = [plans[i][0] for i in idxs]
-    rts = [plans[i][1] for i in idxs]
+def _data_inputs(props_list, plans, idxs, width):
+    """data [B, N] u8 (N = width, or the longest stream), sizes and
+    dict_sizes [B] i32 of one group, as numpy arrays."""
+    lz = [plans[i].lz for i in idxs]
     n = max(len(x) for x in lz)
     if width is not None:
         if width < n:
             raise ValueError(f"width {width} < the longest stream, {n}")
         n = width
-    r = max(len(rt) for rt in rts)
     data = np.zeros((len(idxs), n), np.uint8)
-    run_ends = np.zeros((len(idxs), r), np.int32)
-    run_skip = np.zeros((len(idxs), r), np.int32)
-    for j, (x, rt) in enumerate(zip(lz, rts)):
+    for j, x in enumerate(lz):
         data[j, :len(x)] = np.frombuffer(x, np.uint8)
-        run_ends[j, :len(rt)] = np.cumsum([run[1] for run in rt])
-        run_ends[j, len(rt):] = len(x)
-        run_skip[j, :len(rt)] = [run[0] >= DT_NO_LZ for run in rt]
     sizes = np.array([len(x) for x in lz], np.int32)
     dicts = np.array([props_list[i].dict_size for i in idxs], np.int32)
+    return data, sizes, dicts
+
+
+def group_inputs(props_list, plans, idxs, device, width=None):
+    """The device inputs of one group of fast plans: data [B, N] u8 (N =
+    width, or the longest stream), run_ends and run_skip [B, R] i32,
+    sizes and dict_sizes [B] i32."""
+    data, sizes, dicts = _data_inputs(props_list, plans, idxs, width)
+    rts = [plans[i].runs for i in idxs]
+    r = max(len(rt) for rt in rts)
+    run_ends = np.zeros((len(idxs), r), np.int32)
+    run_skip = np.zeros((len(idxs), r), np.int32)
+    for j, rt in enumerate(rts):
+        run_ends[j, :len(rt)] = np.cumsum([run[1] for run in rt])
+        run_ends[j, len(rt):] = sizes[j]
+        run_skip[j, :len(rt)] = [run[0] >= DT_NO_LZ for run in rt]
     return [torch.from_numpy(a).to(device)
             for a in (data, run_ends, run_skip, sizes, dicts)]
+
+
+def block_inputs(props_list, plans, idxs, device, width=None):
+    """K5's inputs of one group of exact plans: data [B, N] u8 (N =
+    width, or the longest stream), blocks [B, NB, 2] i32 (the plans'
+    block tables; a shorter table padded with blocks that end at the
+    stream's end, which the parse never reaches), sizes and dict_sizes [B]
+    i32."""
+    data, sizes, dicts = _data_inputs(props_list, plans, idxs, width)
+    tables = [plans[i].blocks for i in idxs]
+    blocks = np.zeros((len(idxs), max(len(t) for t in tables), 2), np.int32)
+    for j, t in enumerate(tables):
+        blocks[j, :len(t)] = t
+        blocks[j, len(t):, 0] = sizes[j]
+    return [torch.from_numpy(a).to(device)
+            for a in (data, blocks, sizes, dicts)]
 
 
 def k3_shapes(props, n, run_tables):
@@ -332,14 +364,14 @@ def remux_group(props, coded):
 
 
 def encode_group(props_list, plans, idxs, device, on_stage=None,
-                 width=None, parse="fast"):
-    """Encode the streams `idxs` of a batch, all of one preset, on
-    `device` from their encode_host.plan_stream plans: candidates, K2 (m1
-    / m2) or K4 (m3-m5), stitch, K3, remux; under parse="exact" K5 (m1 /
-    m2), with no candidates, in the parse's place.  Returns their raw
-    streams in `idxs` order.  width: the data width (the longest stream
-    by default; at m3-m5 and under the exact parse, `ap_width` of the
-    streams).
+                 width=None):
+    """Encode the streams `idxs` of a batch, all of one preset and parse,
+    on `device` from their plans (plan_streams'): candidates, K2 (m1 /
+    m2) or K4 (m3-m5), stitch, K3, remux; for exact plans K5 (m1 / m2),
+    with no candidates, in the parse's place, and the run tables rebuilt
+    from its block types.  Returns their raw streams in `idxs` order.
+    width: the data width (the longest stream by default; at m3-m5 and
+    under the exact parse, `ap_width` of the streams).
 
     on_stage, when given, is called as on_stage(name, **values) after each
     stage, so a caller can time the stages and hold each kernel to its
@@ -356,25 +388,29 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     note = on_stage or (lambda name, **values: None)
     p0 = props_list[idxs[0]]
     ap = p0.lz_mode == 3
-    exact = parse == "exact"
-    for i in idxs if exact else ():
-        reason = exact_refusal(props_list[i], plans[i])
+    exact = plans[idxs[0]].parse == "exact"
+    if exact:
+        reason = exact_refusal(p0)
         if reason:
-            raise EncodeError(f"stream {i}: {reason}", [i])
+            raise EncodeError(f"stream(s) {list(idxs)}: {reason}", idxs)
     if (ap or exact) and width is None:
         width = ap_width([plans[i] for i in idxs])
-    data, run_ends, run_skip, sizes, dicts = group_inputs(
-        props_list, plans, idxs, device, width)
-    n = data.shape[1]
-    tcap = tape_capacity(n, run_ends.shape[1])
     if exact:
         # the exact parse probes its own hash tables: no candidates
-        args = (data, run_ends, sizes, dicts, p0.hash_bits, p0.hash_width,
-                p0.good_len, p0.lz_mode == 2, tcap,
+        data, blocks, sizes, dicts = block_inputs(props_list, plans, idxs,
+                                                  device, width)
+        n = data.shape[1]
+        args = (data, blocks, sizes, dicts, p0.hash_bits, p0.hash_width,
+                p0.good_len, p0.lz_mode == 2,
+                tape_capacity(n, blocks.shape[1]),
                 exact_scan.max_steps_for(n))
         out = parse_k5(*args)
         note("k5", k5_args=args, k5_out=out)
     else:
+        data, run_ends, run_skip, sizes, dicts = group_inputs(
+            props_list, plans, idxs, device, width)
+        n = data.shape[1]
+        tcap = tape_capacity(n, run_ends.shape[1])
         # m5's binary-tree finder is stood in for by width-8 chains
         # (csc_tpu pipeline.py:391-399)
         hash_width = (p0.hash_width or 8) if ap else p0.hash_width
@@ -403,7 +439,13 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
                           f"{ERR_OVERFLOW} a full tape, {ERR_STEPS} the "
                           f"step budget)", bad)
     tape = tape[:, :int(tok_cnt.max())].contiguous()
-    run_tables = [plans[i][1] for i in idxs]
+    if exact:
+        btypes = out[5].cpu().numpy()
+        run_tables = [encode_host.exact_run_table(
+            plans[i], btypes[j, :len(plans[i].blocks)])
+            for j, i in enumerate(idxs)]
+    else:
+        run_tables = [plans[i].runs for i in idxs]
     kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, data, run_tables)
     k3_args = (kk, aa, bb, cc, *k3_shapes(p0, data.shape[1], run_tables))
     note("stitch", stitch_args=(tape, data, run_tables), k3_args=k3_args)
@@ -429,13 +471,17 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
 
     parse="fast" (the default) returns list[bytes], the raw streams
     without the property header, byte-identical to csc_tpu's encode_batch
-    on its fast path; parse="exact" (m1 and m2) returns the reference
-    encoder's own bytes, as csc_tpu's under CSC_ENCODE_PARSE=exact.
-    Streams are grouped by preset (one device call per preset and size
+    on its fast path; an m1 / m2 stream over MAX_ENCODE (1 MB) takes the
+    exact parse all the same, as csc_tpu codes it with its golden encoder,
+    so its bytes are csc_tpu's and golden's.  parse="exact" (m1 and m2)
+    returns the reference encoder's own bytes for every stream, as
+    csc_tpu's under CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the
+    duplicate-block probe and several raw chunks included.  Streams are
+    grouped by preset and parse (one device call per preset and size
     group).  An empty stream is the SIG_EOF chunk alone.  Raises
-    EncodeError for a stream it cannot take (over MAX_ENCODE, longer than
-    its dictionary; under exact also m3-m5 and BAD / ENTROPY / DLT runs)
-    or that a kernel flags.  on_stage: as encode_group's, called once more
+    EncodeError for a stream it cannot take (longer than its dictionary;
+    m3-m5 over MAX_ENCODE or under parse="exact") or that a kernel flags
+    (a K3 output overflow).  on_stage: as encode_group's, called once more
     as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)
@@ -450,10 +496,9 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
             outs[i] = encode_host.remux_stream(
                 props_list[i].csc_blocksize, b"", b"", [], [],
                 chunk_ends=[])
-    for idxs, width in _groups(props_list, plans, parse):
+    for idxs, width in _groups(props_list, plans):
         for i, out in zip(idxs, encode_group(props_list, plans, idxs,
-                                              device, on_stage, width,
-                                              parse)):
+                                              device, on_stage, width)):
             outs[i] = out
     return outs
 

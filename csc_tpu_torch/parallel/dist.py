@@ -83,3 +83,21 @@ def allgather_bytes(payload: bytes):
 def barrier():
     if is_distributed():
         tdist.barrier()
+
+
+def shutdown(clean=True):
+    """Leave the process group.  After a clean end, which every rank
+    reaches, first a barrier, so that no rank leaves while another still
+    talks to it: a group left to the interpreter's exit can abort the rank
+    that hosts the rendezvous store ("terminate called without an active
+    exception") when the ranks end together, as they do when a task fails
+    on every rank at once.  After an exception (clean=False) no barrier:
+    the other ranks may wait in another collective and would hang there
+    until Gloo's timeout; leaving the group closes this rank's
+    connections, so their collective fails at once."""
+    global _initialized
+    if _initialized:
+        if clean:
+            tdist.barrier()
+        tdist.destroy_process_group()
+        _initialized = False

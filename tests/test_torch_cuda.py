@@ -492,7 +492,7 @@ def test_m3_streams_through_k4_k3_k1_equal_the_cpus(dev):
 
 
 # --------------------------------------------------- K5, the exact parse
-K5_FIELDS = ("tape", "tok_cnt", "done", "err", "steps")
+K5_FIELDS = ("tape", "tok_cnt", "done", "err", "steps", "btypes")
 
 
 def _k5_against_plain(args, dev):
@@ -514,6 +514,16 @@ def test_k5_matches_plain(dev, level, lz_mode):
     got = _k5_against_plain(exact_args(edges.exact_cases(level, lz_mode)),
                             dev)
     assert bool(got[2].all()) and not bool(got[3].any())
+
+
+def test_k5_matches_plain_on_nolz_cases(dev):
+    """Every run type golden codes (tests/torch_edge_cases.py
+    `exact_nolz_cases`: BAD, ENTROPY and DLT runs, the duplicate-block
+    probe's hit and the DT_SKIP block that follows it, small raw chunks)
+    at m1: every field, the block types included."""
+    got = _k5_against_plain(exact_args(edges.exact_nolz_cases(1)), dev)
+    assert bool(got[2].all()) and not bool(got[3].any())
+    assert int(got[5][3, 2]) == constants.DT_NORMAL
 
 
 @pytest.mark.parametrize("level", [1, 2])

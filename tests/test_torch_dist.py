@@ -12,6 +12,8 @@ import socket
 import subprocess
 import sys
 
+import pytest
+
 from csc_tpu.archiver import csarc as j_csarc
 from csc_tpu_torch.archiver import csarc
 
@@ -42,9 +44,10 @@ def _free_port():
     return port
 
 
-def _ranks(argv, cwd, n=2):
+def _ranks(argv, cwd, n=2, timeout=300):
     """Run `argv` in n processes joined by the CSC_DIST_* environment;
-    returns their (returncode, stdout, stderr)."""
+    returns their (returncode, stdout, stderr).  A rank still running
+    after `timeout` seconds fails the test, and every rank is killed."""
     coord = f"127.0.0.1:{_free_port()}"
     procs = []
     for pid in range(n):
@@ -56,10 +59,37 @@ def _ranks(argv, cwd, n=2):
             [sys.executable] + argv, env=env, cwd=cwd,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     res = []
-    for p in procs:
-        out, err = p.communicate(timeout=300)
-        res.append((p.returncode, out, err))
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            res.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     return res
+
+
+# csarc a in which one rank's encode raises an error other than a task's
+# encode refusal (as a launch failure or an allocation would): the ranks
+# are not told of it through the gather
+_FAIL_ONE = r"""
+import sys
+from csc_tpu_torch.archiver import csarc
+from csc_tpu_torch.parallel import dist
+
+
+def produce(self, tasks, ids):
+    if dist.process_index() == int(sys.argv[1]):
+        raise RuntimeError("injected failure")
+    return orig(self, tasks, ids)
+
+
+orig = csarc.CSArc._produce_streams
+csarc.CSArc._produce_streams = produce
+sys.exit(csarc.main(sys.argv[2:]))
+"""
 
 
 def test_allgather_bytes_and_barrier(tmp_path):
@@ -94,17 +124,33 @@ def test_two_process_archive_equals_one_process(tmp_path):
 
 
 def test_a_task_one_rank_cannot_encode_stops_both(tmp_path):
+    """One task, rank 0's, at m3 under the exact parse (which takes m1 /
+    m2 only, since it codes a BAD run too): rank 0 cannot encode it, and
+    rank 1, with no task, stops as well."""
     import numpy as np
     rng = np.random.default_rng(7)
     make_tree(str(tmp_path / "tree"), {
-        "r.bin": rng.integers(0, 256, 70000, dtype=np.uint8).tobytes(),
-        "a.txt": b"a few words of text " * 20})
-    res = _ranks(["-m", "csc_tpu_torch.archiver.csarc", "a", "-r", "-m1",
+        "r.bin": rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()})
+    res = _ranks(["-m", "csc_tpu_torch.archiver.csarc", "a", "-r", "-m3",
                   "--parse=exact", "--backend=cpu", "x.csa", "tree"],
                  str(tmp_path))
     for rc, out, err in res:
         assert rc == 1
-        assert "tree/r.bin" in err and "DT_BAD" in err
+        assert "tree/r.bin" in err and "lz_mode 3" in err
+
+
+@pytest.mark.parametrize("failing", [0, 1])
+def test_a_rank_that_raises_stops_both_at_once(tmp_path, failing):
+    """A rank whose encode raises leaves the group without its barrier:
+    the other rank, waiting in the gather of streams, fails at once
+    rather than in Gloo's timeout (30 minutes)."""
+    make_tree(str(tmp_path / "tree"), TWO_TASK_FILES)
+    res = _ranks(["-c", _FAIL_ONE, str(failing), "a", "-r", "-m1",
+                  "--backend=cpu", "x.csa", "tree"], str(tmp_path),
+                 timeout=120)
+    for pid, (rc, out, err) in enumerate(res):
+        assert rc != 0, (pid, err)
+    assert "injected failure" in res[failing][2]
 
 
 def test_an_existing_archive_stops_both(tmp_path):

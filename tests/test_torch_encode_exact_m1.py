@@ -8,9 +8,10 @@ corpus.encode_cases.  csc_tpu runs one stream at a time (its exact parse
 compiles and runs slowly on a CPU at B > 1); the port encodes them as one
 batch.  Every stream decodes with the port's decode_batch and with the
 golden decoder; the fast parse's kernels (K2, K4) are not launched.
-What csc_tpu hands to its golden encoder on this path raises EncodeError
-naming the stream: a BAD, an ENTROPY and a DLT run, lz_mode 3, and a
-dictionary smaller than the stream.  m2 is in a file of its own
+What csc_tpu hands to its golden encoder on this path: a BAD, an ENTROPY
+and a DLT run give golden's bytes (and csc_tpu's, from its fallback);
+lz_mode 3 and a dictionary smaller than the stream raise EncodeError
+naming the stream.  m2 is in a file of its own
 (test_torch_encode_exact_m2.py), so the levels' JAX references run on
 two test workers."""
 import os
@@ -62,17 +63,32 @@ def check_streams(keep, ours, ref, gold):
 
 
 def check_refused(level, refused):
-    """Each refused stream raises EncodeError naming it (its index in a
-    batch behind a stream the path takes) and the reason."""
+    """What csc_tpu hands to its golden encoder on this path: the BAD,
+    ENTROPY and DLT streams, which the exact parse refused before it took
+    them, now give golden's bytes and csc_tpu's (its fallback's) and
+    decode; a dictionary smaller than the stream and lz_mode 3 still
+    raise EncodeError naming the stream (its index in a batch behind a
+    stream the path takes) and the reason."""
+    from csc_tpu.ops import pipeline as j_pipeline
     text = corpus.encode_cases(level, n=1024, seed=71)[0]
-    reasons = {"random": "DT_BAD", "entropy": "DT_ENTROPY", "dlt": "DT_DLT",
-               "dict_lt_input": "dictionary"}
-    assert sorted(c[0] for c in refused) == sorted(reasons)
-    for name, p, data in refused:
-        with pytest.raises(pipeline.EncodeError,
-                           match=f"stream 1: .*{reasons[name]}"):
-            pipeline.encode_batch([text[1], p], [text[2], data], device=CPU,
-                                  parse="exact")
+    assert sorted(c[0] for c in refused) == ["dict_lt_input", "dlt",
+                                             "entropy", "random"]
+    taken = [c for c in refused if c[0] != "dict_lt_input"]
+    ours = pipeline.encode_batch([c[1] for c in taken],
+                                 [c[2] for c in taken], device=CPU,
+                                 parse="exact")
+    for (name, p, data), o in zip(taken, ours):
+        assert o == golden_encode(p, data), name
+        assert j_pipeline.encode_batch([p], [data]) == [o], name
+        assert j_pipeline.LAST_ENCODE_FALLBACKS == 1, name
+        assert decompress_stream(p, o, 0) == data, name
+    assert pipeline.decode_batch([c[1] for c in taken], ours,
+                                 device=CPU) == [c[2] for c in taken]
+    name, p, data = [c for c in refused if c[0] == "dict_lt_input"][0]
+    with pytest.raises(pipeline.EncodeError,
+                       match="stream 1: .*dictionary"):
+        pipeline.encode_batch([text[1], p], [text[2], data], device=CPU,
+                              parse="exact")
     ap = props_init(len(text[2]), 3)
     with pytest.raises(pipeline.EncodeError, match="stream 1: .*lz_mode 3"):
         pipeline.encode_batch([text[1], ap], [text[2], text[2]], device=CPU,

@@ -1,6 +1,7 @@
 """The port's exact encode at m2 on the CPU through encode_batch and the
 CLI: the checks of tests/test_torch_encode_exact_m1.py (golden's and
-csc_tpu's bytes under CSC_ENCODE_PARSE=exact, the decodes, the refusals).
+csc_tpu's bytes under CSC_ENCODE_PARSE=exact, the decodes, the BAD /
+ENTROPY / DLT streams and the refusals).
 A file of its own, so the two levels' JAX references run on two test
 workers."""
 import pytest

@@ -57,22 +57,25 @@ def golden_cases(level):
 
 
 def host_encode(host, cases):
-    """The exact encode path of one group with the g++ K5 and K3."""
+    """The exact encode path of one group with the g++ K5 and K3: the
+    plans, the run tables rebuilt from K5's block types and the raw
+    streams."""
     k5, k3 = host
     props = [c[1] for c in cases]
-    plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
+    plans = [encode_host.plan_stream(c[1], c[2], exact=True) for c in cases]
     args = exact_args(cases, width=pipeline.ap_width(plans))
-    tape, tok_cnt, done, err, _ = k5_host(k5, args)
+    tape, tok_cnt, done, err, _, btypes = k5_host(k5, args)
     assert done.all() and not err.any()
     tape = torch.from_numpy(np.ascontiguousarray(tape[:, :tok_cnt.max()]))
-    run_tables = [pl[1] for pl in plans]
+    run_tables = [encode_host.exact_run_table(pl, bt[:len(pl.blocks)])
+                  for pl, bt in zip(plans, btypes)]
     kk, aa, bb, cc, _ = stitch.stitch_tapes(tape, args[0], run_tables)
     coded = _k3_host(k3, (kk, aa, bb, cc),
                      *pipeline.k3_shapes(props[0], args[0].shape[1],
                                          run_tables))
     stats = coded[5]
     assert stats[3].all() and not stats[4].any()
-    return plans, pipeline.remux_group(
+    return plans, run_tables, pipeline.remux_group(
         props[0], tuple(torch.from_numpy(x) for x in coded))
 
 
@@ -82,8 +85,10 @@ def test_host_exact_pipeline_is_golden(host, level):
     keys = {(c[1].hash_bits, c[1].hash_width, c[1].good_len,
              c[1].lz_mode, c[1].csc_blocksize) for c in cases}
     assert len(keys) == 1
-    plans, outs = host_encode(host, cases)
-    types = {c[0]: [r[0] for r in pl[1]] for c, pl in zip(cases, plans)}
+    plans, run_tables, outs = host_encode(host, cases)
+    assert run_tables == [encode_host.plan_stream(c[1], c[2]).runs
+                          for c in cases]
+    types = {c[0]: [r[0] for r in rt] for c, rt in zip(cases, run_tables)}
     assert types["engtxt"] == [constants.DT_ENGTXT]
     assert types["text"] == [constants.DT_NORMAL]
     assert types["exe"] == [constants.DT_EXE]

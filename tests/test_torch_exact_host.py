@@ -29,7 +29,7 @@ import torch_edge_cases as edges
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csc_tpu_torch", "csrc")
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-FIELDS = ("tape", "tok_cnt", "done", "err", "steps")
+FIELDS = ("tape", "tok_cnt", "done", "err", "steps", "btypes")
 CPU = torch.device("cpu")
 
 
@@ -43,7 +43,7 @@ def build_k5_host(tmp):
     fn = ctypes.CDLL(so).csc_k5_host
     fn.restype = ctypes.c_int
     fn.argtypes = [P, I64, P, I32, P, P, I32, I32, I32, I32, P, P, P, P,
-                   I64, I64, P, I32]
+                   I64, I64, P, P, I32]
     return fn
 
 
@@ -58,14 +58,14 @@ def exact_args(cases, width=None, tcap=None, max_steps=None):
     """K5's arguments for a group of (name, props, data) cases of one
     preset, on the CPU, as the encode path gives them."""
     props = [c[1] for c in cases]
-    plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
-    data, run_ends, _, sizes, dicts = pipeline.group_inputs(
+    plans = [encode_host.plan_stream(c[1], c[2], exact=True) for c in cases]
+    data, blocks, sizes, dicts = pipeline.block_inputs(
         props, plans, list(range(len(cases))), CPU, width)
     p0 = props[0]
     n = data.shape[1]
-    return (data, run_ends, sizes, dicts, p0.hash_bits, p0.hash_width,
+    return (data, blocks, sizes, dicts, p0.hash_bits, p0.hash_width,
             p0.good_len, p0.lz_mode == 2,
-            tcap or parse_scan.tape_capacity(n, run_ends.shape[1]),
+            tcap or parse_scan.tape_capacity(n, blocks.shape[1]),
             exact_scan.max_steps_for(n) if max_steps is None else max_steps)
 
 
@@ -74,21 +74,23 @@ def _ptr(a):
 
 
 def k5_host(fn, args):
-    """The g++ build's (tape, tok_cnt, done, err, steps) as numpy."""
-    data, run_ends, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
+    """The g++ build's (tape, tok_cnt, done, err, steps, btypes) as
+    numpy."""
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
         tcap, max_steps = args
-    data, run_ends, sizes, dicts = (np.ascontiguousarray(t.numpy()) for t
-                                    in (data, run_ends, sizes, dicts))
+    data, blocks, sizes, dicts = (np.ascontiguousarray(t.numpy()) for t
+                                  in (data, blocks, sizes, dicts))
     b, n = data.shape
     tables = [np.zeros((b, size), np.int32)
               for size in exact_scan.table_sizes(hash_bits, hash_width)]
     tape = np.zeros((b, tcap, 2), np.int32)
     out = np.zeros((4, b), np.int32)
-    assert fn(_ptr(data), n, _ptr(run_ends), run_ends.shape[1],
+    btypes = np.zeros(blocks.shape[:2], np.int32)
+    assert fn(_ptr(data), n, _ptr(blocks), blocks.shape[1],
               _ptr(sizes), _ptr(dicts), hash_bits, hash_width, good_len,
               1 if lazy else 0, *(_ptr(t) for t in tables), _ptr(tape),
-              tcap, max_steps, _ptr(out), b) == 0
-    return (tape,) + tuple(out)
+              tcap, max_steps, _ptr(out), _ptr(btypes), b) == 0
+    return (tape,) + tuple(out) + (btypes,)
 
 
 def assert_same(got, want):
@@ -187,7 +189,8 @@ def check_width(k5, group):
     assert_same(k5_host(k5, alone), want)
     for field, a, g in zip(FIELDS, want, got):
         a, g = a.numpy(), g.numpy()[j:j + 1]
-        if field == "tape":
+        if field in ("tape", "btypes"):
+            # the group's longer tape and its padded block table
             assert not g[:, a.shape[1]:].any()
             g = g[:, :a.shape[1]]
         np.testing.assert_array_equal(g, a, err_msg=f"{name} {field}")

@@ -64,7 +64,10 @@ def scan_runs(level):
     runs = {}
     for case in scan_cases(level):
         args = exact_args([case], width=WIDTH)
-        data, run_ends, sizes, dicts, hb, hw, gl, lazy, tcap, _ = args
+        data, blocks, sizes, dicts, hb, hw, gl, lazy, tcap, _ = args
+        # one block, one run: csc_tpu's run_ends are the block ends
+        assert blocks.shape[1] == 1
+        run_ends = blocks[..., 0]
         st_j, cfg = j_scan.make_encode_state(
             1, data.numpy(), sizes.tolist(), dicts.tolist(), hb, hw, gl,
             lazy, tcap, run_ends=run_ends.numpy())
@@ -125,7 +128,7 @@ def check_states(res):
 def check_tape(res):
     for name, r in res["runs"].items():
         want, got = r["fin"][0], r["fin"][1]
-        tape, tok_cnt, done, err, steps = exact_scan.tape_of(got)
+        tape, tok_cnt, done, err = exact_scan.tape_of(got)[:4]
         n = int(want["tok_cnt"][0])
         assert int(tok_cnt[0]) == n and done.all() and not err.any()
         w0, w1 = tape[0, :n, 0].numpy(), tape[0, :n, 1].numpy()

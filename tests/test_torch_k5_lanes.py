@@ -121,7 +121,7 @@ def build_host(tmp):
                     "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     args = [P, I64, P, I32, P, P, I32, I32, I32, I32, P, P, P, P, I64, I64,
-            P, I32]
+            P, P, I32]
     lib.csc_k5_host.argtypes = args
     lib.csc_k5_host_staged.argtypes = args + [I64]
     lib.csc_k5_host.restype = lib.csc_k5_host_staged.restype = ctypes.c_int
@@ -136,27 +136,29 @@ def lib(tmp_path_factory):
 
 
 def host(lib, args, stage_max=None):
-    """The g++ build's (tape, tok_cnt, done, err, steps) as numpy; with
-    stage_max, streams of more bytes are read from their bytes (0: all)."""
-    data, run_ends, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
+    """The g++ build's (tape, tok_cnt, done, err, steps, btypes) as numpy;
+    with stage_max, streams of more bytes are read from their bytes (0:
+    all)."""
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, lazy, \
         tcap, max_steps = args
-    data, run_ends, sizes, dicts = (np.ascontiguousarray(t.numpy()) for t
-                                    in (data, run_ends, sizes, dicts))
+    data, blocks, sizes, dicts = (np.ascontiguousarray(t.numpy()) for t
+                                  in (data, blocks, sizes, dicts))
     b, n = data.shape
     tables = [np.zeros((b, size), np.int32)
               for size in exact_scan.table_sizes(hash_bits, hash_width)]
     tape = np.zeros((b, tcap, 2), np.int32)
     out = np.zeros((4, b), np.int32)
+    btypes = np.zeros(blocks.shape[:2], np.int32)
     ptr = [a.ctypes.data_as(ctypes.c_void_p) for a in
-           (data, run_ends, sizes, dicts, *tables, tape, out)]
-    call = (ptr[0], n, ptr[1], run_ends.shape[1], ptr[2], ptr[3],
+           (data, blocks, sizes, dicts, *tables, tape, out, btypes)]
+    call = (ptr[0], n, ptr[1], blocks.shape[1], ptr[2], ptr[3],
             hash_bits, hash_width, good_len, 1 if lazy else 0, ptr[4],
-            ptr[5], ptr[6], ptr[7], tcap, max_steps, ptr[8], b)
+            ptr[5], ptr[6], ptr[7], tcap, max_steps, ptr[8], ptr[9], b)
     if stage_max is None:
         assert lib.csc_k5_host(*call) == 0
     else:
         assert lib.csc_k5_host_staged(*call, stage_max) == 0
-    return (tape,) + tuple(out)
+    return (tape,) + tuple(out) + (btypes,)
 
 
 def _index(cases, name):

@@ -72,11 +72,13 @@ def listing(stdout):
             if ln.strip() and not ln.startswith("CSArc")}
 
 
-def archive_both(tmp_path, monkeypatch, files, port_argv, env):
+def archive_both(tmp_path, monkeypatch, files, port_argv, env,
+                 fallbacks=0):
     """The port's `a --backend=cpu` and csc_tpu's `a --backend=tpu` (under
     the environment `env`) of one tree with the same options; returns
     (the port's archive path, its bytes, csc_tpu's bytes).  csc_tpu's
-    run must not fall back to its golden encoder."""
+    run must hand `fallbacks` tasks to its golden encoder (none by
+    default)."""
     from csc_tpu.archiver import csarc as j_csarc
     from csc_tpu.ops import pipeline as j_pipeline
     from csc_tpu_torch.archiver import csarc
@@ -91,7 +93,7 @@ def archive_both(tmp_path, monkeypatch, files, port_argv, env):
     argv = [a for a in port_argv if not a.startswith("--parse")]
     assert run_in(src, j_csarc.main, ["a", "-r", "--backend=tpu"] + argv
                   + [ref, "."])[0] == 0
-    assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    assert j_pipeline.LAST_ENCODE_FALLBACKS == fallbacks
     with open(ours, "rb") as f:
         got = f.read()
     with open(ref, "rb") as f:

@@ -238,6 +238,48 @@ def exact_small_cases(level):
             ("short_run", q, b"xy" * 90 + b"z")]
 
 
+def exact_nolz_cases(level):
+    """(name, props, data) streams of every run type that golden's
+    encoder codes and csc_tpu's exact parse does not take, one preset (a
+    74 KB dictionary, filters on), for K5's block walk, its
+    duplicate-block probe and its sparse insertion (csrc/encode_k5.cuh):
+
+      bad       8 KB of random bytes (DT_BAD), then 600 bytes of text
+      entropy   8 KB over ten symbols (DT_ENTROPY), then 300 bytes the
+                analyzer types DT_SKIP: the run goes on as DT_ENTROPY
+      dlt       a 4-channel ramp (a DT_DLT type), then a DT_SKIP block,
+                which the post-delta veto makes DT_NORMAL (the analyzer's
+                bpb of a skipped block is 0)
+      dup_skip  8 792-byte raw chunks: random 8 KB and 600 bytes of text,
+                then the same random 8 KB, which the probe re-types
+                DT_NORMAL (against the tables after the first chunk), and
+                a DT_SKIP block after it, which follows it to DT_NORMAL
+                (the fast parse's plan keeps both DT_BAD)
+      chunks    16 KB of random bytes in 8 KB raw chunks: a DT_BAD run
+                per chunk, the second probed against the first's tables
+    Each stream's LZ part is short: the plain version runs a find in
+    tens of lockstep steps, a probe or a sparse sub-block in one."""
+    rng = np.random.default_rng(23)
+    text = corpus.torch_python_text(64 * 1024)
+    rnd = rng.integers(0, 256, 8192, dtype=np.uint8).tobytes()
+
+    def p(raw_blocksize=None):
+        q = props.props_init(64 * 1024, level)
+        if raw_blocksize:
+            q.raw_blocksize = raw_blocksize
+        return q
+    ten = (rng.integers(0, 10, 8192, dtype=np.uint8) * 7 + 65).tobytes()
+    return [
+        ("bad", p(), rnd + text[5000:5600]),
+        ("entropy", p(), ten + text[9000:9300]),
+        ("dlt", p(), corpus.dlt_ramp(8192) + text[12000:12300]),
+        ("dup_skip", p(8792), rnd + text[7000:7600] + rnd
+         + text[15000:15300]),
+        ("chunks", p(8192), rng.integers(0, 256, 16 * 1024,
+                                         dtype=np.uint8).tobytes()),
+    ]
+
+
 def k5_lane_cases(level):
     """(name, props, data) streams for the lane hazards of K5's warp
     design (csrc/encode_k5.cuh), one preset (m1 or m2), each under 8 KB
