@@ -8,9 +8,10 @@ Phases, each printing its own line; the first failure raises:
   2. build           K1-K5 and the ten spike libraries (csrc/*.cu) with
                      nvcc into build/, one nvcc per source started
                      together, with ptxas's reports of K1-K5 and their
-                     registers, stack frame, LDL / STL counts (SASS),
-                     K1's blocks per SM and K4's and K5's shared memory
-                     a block and blocks per SM; it fails unless each of
+                     registers (K5's of each of its two kernels), stack
+                     frame, LDL / STL counts (SASS), K1's blocks per SM
+                     and K4's and K5's shared memory a block and blocks
+                     per SM; it fails unless each of
                      K1-K5 has a 0-byte stack frame and no LDL / STL, K1
                      holds two blocks an SM, K4 four or more of 16 KB
                      and K5 eight or more of 16 KB; K5's phase-clock
@@ -54,6 +55,12 @@ Phases, each printing its own line; the first failure raises:
                      stream's inputs timed and held to its g++ build on
                      every field, block types included; the no-LZ
                      blocks and those the probe re-typed DT_NORMAL
+  9a2. cli_ring      `c -m1 -d 1m` and `c -m2 -d 1m` of phase 9a's file:
+                     a dictionary of 1 MB + 10 KB, so the window wraps
+                     four times off the 8 KB grid (every run type, the
+                     probe's hit); `d` of each restoring it through K1;
+                     K5 on the m1 stream's inputs timed and held to its
+                     g++ build on every field (run beside phase 9b2)
   9b. archiver       csarc on a tree built here (the first 1 000 .py
                      files of torch under torch/, libc10.so, 3 MB of
                      seeded random bytes and a 2 MB DLT ramp past the 1
@@ -67,6 +74,10 @@ Phases, each printing its own line; the first failure raises:
                      both on this card) equal to the one-process
                      archive; the batch split (parallel/mesh.py) over
                      [cuda:0, cuda:0] on an odd batch equal to one device
+  9b2. arc_many      csarc `a` of a tree of 4 096 generated 64-byte files,
+                     whose index is past the trailer's 266 KB dictionary
+                     (its ring wraps), then `x` (every file restored) and
+                     `t`; the trailer read back equals the packed index
  10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
                      text streams at m3 and, exactly, at m1 and m2): the
                      candidates on the card equal those on the CPU; K2, K4
@@ -77,7 +88,9 @@ Phases, each printing its own line; the first failure raises:
  12. plain           each kernel against its plain version on the first
                      streams of its headline inputs (phases 4-7b; K5's
                      cut by a step budget), K3 on its edge tapes
-                     (tests/torch_edge_cases.py), and K5 against its g++
+                     (tests/torch_edge_cases.py), K5 on ring48 (48 KB
+                     past its 36 KB dictionary, the whole stream, every
+                     field; torch_edge_cases), and K5 against its g++
                      build (csrc/encode_k5_host.cpp) on the first 8
                      whole streams of its m1 cell
  13. spikes          the spike probes' main path, `python -m
@@ -88,7 +101,8 @@ Phases, each printing its own line; the first failure raises:
                      K1-K5's own ns per step of their longest stream (K3:
                      per tape entry and per modelled bit; K5: per
                      position and per lockstep micro-op)
-Every count of launches is read around a main-path run (phases 4-9b, 13).
+Every count of launches is read around a main-path run (phases 4-9b2,
+13).
 Phase 12's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each, at a lower priority than
 the main process), started once phases 4-9
@@ -160,6 +174,12 @@ BIG_GAP, BIG_TAIL = 64 * KB, 512 * KB
 # ramp over the 1 MB task cap, so that autosplit runs
 ARC_PY_FILES, ARC_RANDOM, ARC_RAMP = 1000, 3 * MB, 2 * MB
 ARC_WAIT_S = 300                      # the two archiver processes' deadline
+# cli_ring's -d: its dictionary is 1 MB + 10 KB, four wraps of phase 9a's
+# file off the 8 KB grid
+RING_D = "1m"
+# arc_many's tree: files of 64 bytes with names of about 40 characters,
+# enough for an index past the trailer's 266 KB dictionary
+ARC_MANY_FILES, ARC_MANY_BYTES = 4096, 64
 MESH_STREAMS = 5                      # an odd batch for the split
 NO_STEP_CAP = 1 << 62     # K1 and the plain version run each stream out
 FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
@@ -465,6 +485,24 @@ def k3_edge_jobs(dev):
     return jobs
 
 
+def ring_plain_job(dev):
+    """K5 on the card on torch_edge_cases.ring48 (48 KB at m1 under a 36
+    KB dictionary: a ring off the 8 KB grid, a BAD run across its end),
+    the inputs encode_batch gives it, the full step budget: its time and
+    outputs, and the job that holds every field to its plain version (on
+    the host CPU) in phase 12."""
+    _, p, data = torch_edge_cases.ring48(1)
+    stages = Stages()
+    pipeline.encode_batch([p], [data], device=dev, parse="exact",
+                          on_stage=stages)
+    args = stages.values["k5_args"]
+    ms, out = event_ms(lambda: exact_kernel.parse_k5(*args), 3)
+    check(bool(out[2].all()) and not bool(out[3].any()),
+          "ring48: K5 did not finish the stream")
+    return dict(tag="ring48", kernel="K5", streams=1, args=to_cpu(args),
+                kernel_out=to_cpu(out), kernel_ms=ms)
+
+
 # ---------------------------------------------------------- phase 12 parts
 def start_plain(jobs, sdir):
     """One worker process a job, all started together, on the CPU."""
@@ -622,6 +660,90 @@ def cli_big_phase(dev, data, sdir, k5_lib):
           launches_k5_exact=launches["cli_c_big exact"])
     phase("cli_big_layers", **stages.ms())
     return launches, k5_ms, bnd, err
+
+
+def cli_ring_phase(dev, data, sdir, k5_lib, meanwhile):
+    """Phase 9a2: `c -m1 -d 1m` and `c -m2 -d 1m` of `data` (phase 9a's
+    file, already at sdir/big.bin), `d` of each; K5 on the m1 stream's
+    inputs timed and held to its g++ build, which runs on the host's CPU
+    while `meanwhile()` runs.  Returns (K5 launches of each `c`, K5's ms,
+    its bound, the g++ comparison's max abs error, meanwhile's result)."""
+    from csc_tpu_torch import cli
+    src = os.path.join(sdir, "big.bin")
+    blobs, launches, walls = {}, {}, {}
+    for level in (1, 2):
+        enc, dst = (os.path.join(sdir, f"ring_m{level}.{x}")
+                    for x in ("csc", "out"))
+        exact_kernel.LAUNCHES = parse_kernel.LAUNCHES = 0
+        bits_kernel.LAUNCHES = 0
+        t0 = time.time()
+        check(cli.main(["c", "-m", str(level), "-d", RING_D, "--backend",
+                        "cuda", src, enc]) == 0, f"cli_ring m{level}: c "
+              f"failed")
+        t1 = time.time()
+        launches[level] = exact_kernel.LAUNCHES
+        check(exact_kernel.LAUNCHES >= 1 and bits_kernel.LAUNCHES >= 1
+              and parse_kernel.LAUNCHES == 0, f"cli_ring m{level}: c did "
+              f"not launch K5 and K3 alone")
+        decode_kernel.LAUNCHES = 0
+        check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0,
+              f"cli_ring m{level}: d failed")
+        t2 = time.time()
+        check(decode_kernel.LAUNCHES >= 1, f"cli_ring m{level}: d did not "
+              f"launch K1")
+        with open(dst, "rb") as f:
+            check(f.read() == data, f"cli_ring m{level}: d restored other "
+                  f"bytes")
+        with open(enc, "rb") as f:
+            blobs[level] = f.read()
+        walls[level] = (t1 - t0, t2 - t1)
+    props = props_init(cli._parse_size(RING_D), 1)
+    check(props.dict_size % (8 * KB) and len(data) > 4 * props.dict_size,
+          "cli_ring: the dictionary does not wrap four times off the 8 KB "
+          "grid")
+    stages = Stages()
+    outs = pipeline.encode_batch([props], [data], device=dev,
+                                 on_stage=stages)
+    check(write_properties(props) + outs[0] == blobs[1],
+          "cli_ring: the staged encode differs from the CLI's")
+    v = stages.values
+    args, out = v["k5_args"], v["k5_out"]
+    with ThreadPoolExecutor(1) as pool:
+        def gxx():
+            t0 = time.time()
+            return k5_host(k5_lib, to_cpu(args)), time.time() - t0
+        job = pool.submit(gxx)
+        k5_ms, again = event_ms(lambda: exact_kernel.parse_k5(*args), 1)
+        compare("cli_ring relaunch", "K5", again, out)
+        other = meanwhile()
+        host, gxx_s = job.result()
+    err = compare("cli_ring against K5's g++ build", "K5", out,
+                  [torch.from_numpy(h) for h in host])
+    phase("k5_host", cell="ring", streams=1, bytes=len(data),
+          dict_size=props.dict_size, fields_compared=len(FIELDS["K5"]),
+          max_abs_err=err, gxx_seconds=f"{gxx_s:.2f}",
+          build="csrc/encode_k5_host.cpp with g++, the full step budget")
+    plan = v["plans"][0]
+    btypes = out[5][0].cpu().numpy()
+    nolz = (plan.blocks[:, 1] & encode_host.BLK_TYPE) >= DT_NO_LZ
+    retyped = int((btypes[nolz] == DT_NORMAL).sum())
+    check(retyped >= 1, "cli_ring: the probe re-typed no block")
+    runs = encode_host.exact_run_table(plan, btypes)
+    ntok = int(out[1].sum())
+    bnd = bound(len(data) + 8 * ntok, int(out[4].long().sum()))
+    phase("cli_ring", bytes=len(data), dict_size=props.dict_size,
+          wraps=len(data) // props.dict_size,
+          compressed_m1=len(blobs[1]), compressed_m2=len(blobs[2]),
+          c_m1_s=f"{walls[1][0]:.3f}", d_m1_s=f"{walls[1][1]:.3f}",
+          c_m2_s=f"{walls[2][0]:.3f}", d_m2_s=f"{walls[2][1]:.3f}",
+          k5_ms=f"{k5_ms:.3f}", k5_bound_ms=f"{bnd[0]:.6f}",
+          bound_by=bnd[1], micro_ops=int(out[4][0]), tokens=ntok,
+          runs=len(runs), run_types=",".join(sorted(
+              {str(r[0]) for r in runs})), retyped_normal=retyped,
+          round_trip="K1 byte-exact", launches_k5_m1=launches[1],
+          launches_k5_m2=launches[2])
+    phase("cli_ring_layers", **stages.ms())
+    return launches, k5_ms, bnd, err, other
 
 
 # ---------------------------------------------------------- phase 9b parts
@@ -825,6 +947,56 @@ def archiver_phase(dev, backend, datas):
     return launches
 
 
+def arc_many_phase(dev):
+    """Phase 9b2: `a` of ARC_MANY_FILES generated files (an index past the
+    trailer's dictionary), `x` and `t`; the trailer read back is the
+    packed index.  Returns {run: {kernel: launches}}."""
+    root = os.path.join(_build.BUILD_DIR, "smoke", "arc_many")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 13)
+    want = {}
+    for k in range(ARC_MANY_FILES):
+        name = os.path.join("many", f"pkg_{k // 256:02d}",
+                            f"generated_module_{k:05d}.txt")
+        want[name] = rng.integers(32, 127, ARC_MANY_BYTES,
+                                  dtype=np.uint8).tobytes()
+        os.makedirs(os.path.join(root, os.path.dirname(name)),
+                    exist_ok=True)
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(want[name])
+    bk, arc = "--backend=cuda", os.path.join(root, "many.csa")
+    rc, _, a_wall, a_n, _ = csarc_run(root, ["a", "-r", bk, arc, "many"],
+                                      dev)
+    check(rc == 0 and a_n["K5"] >= 1 and a_n["K3"] >= 1,
+          f"arc_many: a returned {rc} ({a_n})")
+    with open(arc, "rb") as f:
+        f.seek(8)
+        _, _, raw_size = struct.unpack("<QII", f.read(16))
+        fi, abi = index.read_trailer(f, dev)
+    trailer_dict = props_init(index.INDEX_DICT, index.INDEX_LEVEL).dict_size
+    check(raw_size > trailer_dict, f"arc_many: the index ({raw_size} "
+          f"bytes) is not past the trailer's {trailer_dict}-byte "
+          f"dictionary")
+    check(len(index.pack_index(fi, abi)) == raw_size and sorted(
+        os.path.normpath(k) for k in fi if not k.endswith("/"))
+        == sorted(want), "arc_many: the trailer read back is not the "
+        "packed index")
+    xdir = os.path.join(root, "x")
+    os.makedirs(xdir)
+    rc, _, x_wall, x_n, _ = csarc_run(xdir, ["x", bk, arc], dev)
+    check(rc == 0 and x_n["K1"] >= 1, f"arc_many: x returned {rc}")
+    check(tree_bytes(xdir) == want, "arc_many: the restored tree differs")
+    rc, _, t_wall, t_n, _ = csarc_run(root, ["t", bk, arc], dev)
+    check(rc == 0 and t_n["K1"] >= 1, f"arc_many: t returned {rc}")
+    phase("arc_many", files=len(want), bytes=sum(map(len, want.values())),
+          index_bytes=raw_size, trailer_dict=trailer_dict,
+          compressed=os.path.getsize(arc), a_s=f"{a_wall:.3f}",
+          x_s=f"{x_wall:.3f}", t_s=f"{t_wall:.3f}",
+          **{f"a_{k}": a_n[k] for k in ("K2", "K3", "K5")},
+          x_K1=x_n["K1"], round_trip="byte-exact", t_rc=0)
+    return {"arc_many a": a_n, "arc_many x": x_n}
+
+
 def main(procs):
     # ------------------------------------------------------------ 1 device
     check(torch.cuda.is_available(), "no CUDA device: this script needs "
@@ -877,6 +1049,9 @@ def main(procs):
         res["csc_k5"]["smem_" + tag] = exact_kernel.smem_bytes(n)
         res["csc_k5"]["blocks_per_sm_" + tag] = \
             exact_kernel.blocks_per_sm(n)
+    # and of K5's kernel for streams longer than their dictionary
+    res["csc_k5"]["blocks_per_sm_1m_ring"] = exact_kernel.blocks_per_sm(
+        MB, ring=True)
     for name, r in res.items():
         phase("resources", kernel=name, **r)
     check(res["csc_k1"]["blocks_per_sm"] == 2,
@@ -1221,9 +1396,16 @@ def main(procs):
 
     # ----------------------------------------------------------- 9a cli_big
     t0 = time.time()
+    big = big_file(text, exe)
     big_launches, big_k5_ms, big_bound, big_err = cli_big_phase(
-        dev, big_file(text, exe), sdir, k5_lib)
+        dev, big, sdir, k5_lib)
     phase("cli_big_done", seconds=f"{time.time() - t0:.1f}")
+
+    # ------------------------------------- 9a2 cli_ring beside 9b2 arc_many
+    t0 = time.time()
+    ring_launches, ring_k5_ms, ring_bound, ring_err, many_launches = \
+        cli_ring_phase(dev, big, sdir, k5_lib, lambda: arc_many_phase(dev))
+    phase("cli_ring_done", seconds=f"{time.time() - t0:.1f}")
 
     # ---------------------------------------------------------- 9b archiver
     t0 = time.time()
@@ -1232,6 +1414,7 @@ def main(procs):
 
     # --------------------------- 12 plain (workers on the CPU) start here
     jobs += k3_edge_jobs(dev)
+    jobs.append(ring_plain_job(dev))
     procs.extend(start_plain(jobs, sdir))
     phase("plain_start", workers=len(procs),
           jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
@@ -1355,7 +1538,8 @@ def main(procs):
 
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
-                  k5_phases_err, k5_task_err, k4_host_err, big_err)
+                  k5_phases_err, k5_task_err, k4_host_err, big_err,
+                  ring_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
@@ -1366,7 +1550,10 @@ def main(procs):
                             if kernel in c["launches"]}
     launches["K5"]["cli_c_exact"] = k5_cli_launches
     launches["K5"].update(big_launches)
-    for run, counts in arc_launches.items():
+    launches["K5"].update({f"cli_c_ring m{level}": n
+                           for level, n in ring_launches.items()})
+    for run, counts in list(arc_launches.items()) + list(
+            many_launches.items()):
         for kernel, n in counts.items():
             if n:
                 launches[kernel][run] = n
@@ -1501,7 +1688,13 @@ def main(procs):
              bound_ms_past_cap=round(big_bound[0], 6),
              past_cap_on="phase 9a's ~4.5 MB m1 file, one stream (text, "
                          "libc10.so, random, a DLT ramp, a repeated "
-                         "block)"),
+                         "block)",
+             ms_ring=round(ring_k5_ms, 4),
+             bound_ms_ring=round(ring_bound[0], 6),
+             launches_ring=ring_launches[1],
+             max_abs_err_ring_gxx=ring_err,
+             ring_on="phase 9a2: the same file under -d 1m (a 1 MB + 10 "
+                     "KB ring, four wraps), m1, one stream"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -127,24 +127,48 @@ def sass(name, csrc=CSRC):
     return res.stdout
 
 
+def _entry_name(mangled):
+    """A kernel's name from its mangled one, a bool template argument
+    shown: _Z15k5_parse_kernelILb1EEv... -> k5_parse_kernel<1>."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if m is None:
+        return mangled
+    n = int(m.group(1))
+    name = mangled[m.end():m.end() + n]
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[m.end() + n:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+    return name
+
+
 def resources(name, csrc=CSRC):
-    """What the build of the CUDA kernel `name` says of its first
-    kernel: registers, stack frame and spill bytes (ptxas -v), and the
-    count of local-memory loads and stores (LDL / STL) in its SASS."""
+    """What the build of the CUDA kernel `name` says of its kernels:
+    registers, stack frame and spill bytes (ptxas -v; the most over its
+    entry functions, and `registers_<entry>` for each where it has more
+    than one), and the count of local-memory loads and stores (LDL / STL)
+    in its SASS."""
     log = build_log(name, csrc)
-    regs = re.search(r"Used (\d+) registers", log)
-    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", log)
-    if regs is None or frame is None:
-        raise RuntimeError(f"the build report of {name} names no register "
-                           f"count or stack frame")
+    entries = []
+    for part in log.split("Compiling entry function '")[1:] or [log]:
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", part)
+        if regs is None or frame is None:
+            raise RuntimeError(f"the build report of {name} names no "
+                               f"register count or stack frame for "
+                               f"{part.split(chr(39))[0]}")
+        entries.append((_entry_name(part.split("'")[0]), int(regs.group(1)),
+                        *(int(g) for g in frame.groups())))
     code = sass(name, csrc)
-    return {"registers": int(regs.group(1)),
-            "stack_frame": int(frame.group(1)),
-            "spill_stores": int(frame.group(2)),
-            "spill_loads": int(frame.group(3)),
-            "ldl": len(re.findall(r"\bLDL\b", code)),
-            "stl": len(re.findall(r"\bSTL\b", code))}
+    res = {"registers": max(e[1] for e in entries),
+           "stack_frame": max(e[2] for e in entries),
+           "spill_stores": max(e[3] for e in entries),
+           "spill_loads": max(e[4] for e in entries),
+           "ldl": len(re.findall(r"\bLDL\b", code)),
+           "stl": len(re.findall(r"\bSTL\b", code))}
+    if len(entries) > 1:
+        res.update({f"registers_{e[0]}": e[1] for e in entries})
+    return res
 
 
 def build(sources, name, compiler=None, flags=NVCC_FLAGS):

@@ -9,9 +9,10 @@ csc_tpu codes the trailer with its golden encoder at level 2 under a
 256 KB dictionary and decodes it with its golden decoder.  This package
 has no host codec: the trailer goes through the batched pipeline on the
 archiver's device.  Its exact m2 parse writes the reference encoder's
-own bytes on every index (BAD / ENTROPY / DLT blocks included), so the
-trailer, and with it the whole archive, equals csc_tpu's.  An index
-longer than the trailer's dictionary is refused.
+own bytes on every index (BAD / ENTROPY / DLT blocks included, and an
+index longer than the trailer's dictionary, whose window wraps as
+golden's ring), so the trailer, and with it the whole archive, equals
+csc_tpu's.
 """
 import struct
 from dataclasses import dataclass, field
@@ -118,13 +119,10 @@ def unpack_index(buf: bytes):
 def compress_index_blob(fi: FileIndex, abi: ABIndex, device):
     """Index blob -> CSC (level 2, 256 KB dict) with the 10-byte props
     header (csarc.cpp:250-265), coded on `device` with the exact parse
-    (golden's bytes).  Returns (blob, raw size)."""
+    (golden's bytes, whatever its size: an index past the dictionary, a
+    tree of some thousands of files, wraps its ring).  Returns (blob, raw
+    size)."""
     raw = pack_index(fi, abi)
-    if len(raw) > INDEX_DICT:
-        raise ValueError(
-            f"the archive index is {len(raw)} bytes, more than the "
-            f"{INDEX_DICT}-byte dictionary of its trailer; the device "
-            f"encode needs the dictionary to cover the stream")
     props = props_init(INDEX_DICT, INDEX_LEVEL)
     body = pipeline.encode_batch([props], [raw], device=device,
                                  parse="exact")[0]

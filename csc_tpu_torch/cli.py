@@ -10,10 +10,11 @@ exact (levels 1-2) encodes with K5, the exact parse, in K2's place: the
 reference encoder's own bytes, as csc_tpu's CLI gives them under
 CSC_ENCODE_PARSE=exact (this CLI reads no environment variable for it).
 A file over 1 MB (encode_host.MAX_ENCODE) at levels 1-2 takes the exact
-parse under the default too, as csc_tpu codes it with its golden encoder:
-any file up to the dictionary, 32 MB under the default -d (the
-dictionary is clamped to the file, so it always covers it).  Levels 3-5
-take files up to 1 MB.
+parse under the default too, as csc_tpu codes it with its golden encoder,
+and so does a file longer than -d (32 MB by default; the dictionary is
+clamped to the file, so only a file past -d outgrows it), whose window
+wraps as golden's ring: any file up to 1 GB.  Levels 3-5 take files up
+to 1 MB and up to the dictionary.
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
     python -m csc_tpu_torch.cli c -m 2 --parse exact in.bin out.csc

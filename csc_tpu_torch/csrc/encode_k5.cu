@@ -6,8 +6,8 @@
 // micro-op each a step: a hash-table probe, a 4-byte extension word, an
 // insertion or a decision), and goes past it where csc_tpu hands a stream
 // to its golden encoder: BAD / ENTROPY / DLT runs with golden's
-// duplicate-block probe and sparse insertion, any length the dictionary
-// covers.  Here each block is one warp that runs its
+// duplicate-block probe and sparse insertion, and streams longer than
+// their dictionary with golden's ring window, up to 1 GB.  Here each block is one warp that runs its
 // stream's whole parse with the natural loops of csc_mf.cpp / csc_lz.cpp
 // (encode_k5.cuh): a find's probes, extensions and fold across the
 // lanes, a slide 32 insertions a pass.  It counts the micro-ops the
@@ -36,7 +36,13 @@ static size_t k5_smem(int64_t n) {
 // one block a stream, one warp a block; at the default register bound
 // ptxas spills (72 registers, a 24-byte frame): allow one block an SM the
 // whole register file (at most 255 a thread still leaves eight blocks an
-// SM, the 1 024-stream group's need)
+// SM, the 1 024-stream group's need).  Two kernels: RING false parses the
+// streams their dictionary covers, RING true those longer than it (the
+// ring's parse), each block of the other kind returning at once, so that
+// the ring's registers do not cut the covered streams' blocks an SM
+// (16 384 registers a quarter SM: four warps at 128 or fewer, three
+// above; one kernel for both took 136, the covered one alone 116)
+template <bool RING>
 __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
     const uint8_t* __restrict__ data, int64_t n,
     const int32_t* __restrict__ blocks, int32_t nblk,
@@ -47,6 +53,7 @@ __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
     int64_t max_steps, int32_t* __restrict__ out,
     int32_t* __restrict__ btypes) {
     const int64_t b = blockIdx.x;
+    if ((sizes[b] > dict_sizes[b]) != RING) return;
     const uint8_t* row = data + b * n;
     const bool staged = n <= k5::STAGE_MAX;
     if (staged) {
@@ -85,8 +92,8 @@ __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
     s.tape = tape + b * 2 * tcap;
     s.tcap = tcap;
     s.max_steps = max_steps;
-    const k5::Result r = staged ? k5::parse_stream<true>(s)
-                                : k5::parse_stream<false>(s);
+    const k5::Result r = staged ? k5::parse_stream<true, RING>(s)
+                                : k5::parse_stream<false, RING>(s);
     if (threadIdx.x == 0) {
         const int64_t B = gridDim.x;
         out[0 * B + b] = r.tok_cnt;
@@ -97,23 +104,26 @@ __global__ void __launch_bounds__(k5::WARP, 1) k5_parse_kernel(
 }
 
 // staged launches take shared memory first, the others L1
+template <bool RING>
 static cudaError_t k5_setup(int64_t n) {
     cudaError_t e = cudaFuncSetAttribute(
-        k5_parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k5_parse_kernel<RING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)k5_smem(k5::STAGE_MAX));
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(
-        k5_parse_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        k5_parse_kernel<RING>, cudaFuncAttributePreferredSharedMemoryCarveout,
         n <= k5::STAGE_MAX ? cudaSharedmemCarveoutMaxShared
                            : cudaSharedmemCarveoutMaxL1);
 }
 
-// Launch on `stream`; returns the launch's cudaError_t (0 = queued).
+// Launch on `stream` (both kernels, one after the other); returns the
+// launches' cudaError_t (0 = queued).
 // blocks: [B, nblk, 2] int32 (each block's cumulative end and info word);
 // ht2 / ht3 / ht6: [B, 16384], [B, 65536], [B, hash_width << hash_bits]
 // int32 zeros; tape: [B, tcap, 2] int32; out: [4, B] int32 rows tok_cnt,
 // done, err and steps; btypes: [B, nblk] int32 zeros, each block's final
-// type.  1 <= hash_width <= 8, 1 <= hash_bits <= 24, max_steps < 2^31.
+// type.  1 <= hash_width <= 8, 1 <= hash_bits <= 24, 0 <= max_steps <
+// 2^62 (steps counted in int64, reported saturated at 2^31 - 1).
 extern "C" int csc_k5_launch(
     const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
@@ -121,29 +131,48 @@ extern "C" int csc_k5_launch(
     void* ht6, void* tape, int64_t tcap, int64_t max_steps, void* out,
     void* btypes, int32_t batch, void* stream) {
     if (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
-        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1
+        || hash_bits > 24 || max_steps < 0
+        || max_steps >= ((int64_t)1 << 62) || tcap < 1
         || nblk < 1)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = k5_setup(n);
+    cudaError_t e = k5_setup<false>(n);
+    if (e == cudaSuccess) e = k5_setup<true>(n);
     if (e != cudaSuccess) return (int)e;
-    k5_parse_kernel<<<batch, k5::WARP, k5_smem(n), (cudaStream_t)stream>>>(
-        (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
-        (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
-        hash_width, good_len, lazy, (int32_t*)ht2, (int32_t*)ht3,
-        (int32_t*)ht6, (int32_t*)tape, tcap, max_steps, (int32_t*)out,
-        (int32_t*)btypes);
+    k5_parse_kernel<false>
+        <<<batch, k5::WARP, k5_smem(n), (cudaStream_t)stream>>>(
+            (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+            (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
+            hash_width, good_len, lazy, (int32_t*)ht2, (int32_t*)ht3,
+            (int32_t*)ht6, (int32_t*)tape, tcap, max_steps, (int32_t*)out,
+            (int32_t*)btypes);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    k5_parse_kernel<true>
+        <<<batch, k5::WARP, k5_smem(n), (cudaStream_t)stream>>>(
+            (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+            (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
+            hash_width, good_len, lazy, (int32_t*)ht2, (int32_t*)ht3,
+            (int32_t*)ht6, (int32_t*)tape, tcap, max_steps, (int32_t*)out,
+            (int32_t*)btypes);
     return (int)cudaGetLastError();
 }
 
 // shared memory a block of streams n bytes wide
 extern "C" int64_t csc_k5_smem(int64_t n) { return (int64_t)k5_smem(n); }
 
-// blocks of streams n bytes wide that one SM holds at once
-extern "C" int csc_k5_blocks_per_sm(int64_t n, int* blocks) {
-    cudaError_t e = k5_setup(n);
+// blocks of streams n bytes wide that one SM holds at once: of streams
+// their dictionary covers (ring 0) or of longer ones (ring 1)
+extern "C" int csc_k5_blocks_per_sm(int64_t n, int32_t ring, int* blocks) {
+    if (ring) {
+        cudaError_t e = k5_setup<true>(n);
+        if (e != cudaSuccess) return (int)e;
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, k5_parse_kernel<true>, k5::WARP, k5_smem(n));
+    }
+    cudaError_t e = k5_setup<false>(n);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, k5_parse_kernel, k5::WARP, k5_smem(n));
+        blocks, k5_parse_kernel<false>, k5::WARP, k5_smem(n));
 }
 
 #ifdef K5_PHASES

@@ -96,6 +96,25 @@
 // Parser without either (NOLZ false, chosen per stream by `has_nolz`), so
 // the new code costs such a stream nothing on the card.
 //
+// The ring.  A stream longer than its dictionary meets golden's ring
+// window (LZ.encode_normal, golden/lz.py:28, 51-75): a ring of wnd = the
+// dictionary's bytes, a byte's ring position its offset mod wnd.  The
+// stream stays linear here (every source lies within the last vld_rge <
+// wnd bytes, where the stream holds it); only these follow the ring
+// (`RING`, chosen per stream by its size, in a kernel of its own in the
+// nvcc build, so a stream its dictionary covers runs the code, and the
+// registers, it had before): a sub-block also ends at the
+// ring's end (`lap0` the ring's start in the stream), so after the first
+// wrap a run's pieces are cut there and then every 8 KB from ring
+// position 0; the bytes past a sub-block's end are the previous lap's
+// (offset p - wnd; zeros in the first lap and past the ring's end), in
+// the hashes and the duplicate probe; and a source may not cross the
+// ring's end (each finder's climit = min(limit, wnd - cmp_pos),
+// mf.py:256-257, 284-285, 308-309, 418-419, 513-514): a candidate whose
+// source lies in the previous lap (distance past the ring position r) is
+// limited to distance - r bytes, and HT2's strict `wpos > dist`
+// (mf.py:284) refuses distance == r.
+//
 // The data is staged as words in shared memory (streams of at most 64
 // KB: s.words), or read from device memory (longer ones); the hash
 // tables (int32, one slice a stream) stay in device memory.
@@ -402,16 +421,18 @@ struct Probe {
 // (shared memory in the nvcc build), else read from s.data.  NOLZ: the
 // block table holds a BAD / ENTROPY / DLT block, so the parse may probe
 // and insert sparsely; without, neither is compiled in, and the parse of
-// LZ runs keeps the code it had before them.
-template <bool STAGED, bool NOLZ>
+// LZ runs keeps the code it had before them.  RING (with NOLZ): the
+// stream is longer than its dictionary and the window wraps.
+template <bool STAGED, bool NOLZ, bool RING>
 struct Parser {
     Stream s;
-    int32_t steps, budget;   // micro-ops taken, the step budget
+    int64_t steps, budget;   // micro-ops taken, the step budget
     bool cut;                // a micro-op past the budget
     int32_t nfull;           // whole aligned words of s.data (unstaged)
     int32_t n;
     int32_t tok;             // tokens written (some clipped to the end)
     int32_t pos, vld_rge;    // the finder's position and valid range
+    int32_t wnd, lap0;       // the ring's size, its start in the stream
     Lanes reps;              // the rep queue, rep k in lane k < 4
     int32_t blk_off, blk_len, blk_i;
     // the walk: the next block, the run's type (-1 before its first
@@ -495,7 +516,8 @@ struct Parser {
     // HASH2 / HASH3 / HASH6 of position p < n, whose sub-block ends rem
     // >= 1 bytes ahead: bytes at and past the end read as zeros
     // (encode_scan.py `_mask_lookahead`; the reference's window holds
-    // only the sub-blocks copied so far)
+    // only the sub-blocks copied so far), or, past the ring's first lap,
+    // as the previous lap's up to the ring's end
     K5_FN Hashes hashes(int32_t p, int32_t rem, bool h6) const {
         const int32_t k = p >> 2;
         const uint32_t sh = (uint32_t)(p & 3) * 8;
@@ -510,7 +532,20 @@ struct Parser {
             a2 = aword(k + 2);
         }
         const uint32_t lo = funnel(a0, a1, sh);
-        const uint32_t v4 = rem >= 4 ? lo : lo & ((1u << (8 * rem)) - 1);
+        uint32_t v4 = rem >= 4 ? lo : lo & ((1u << (8 * rem)) - 1);
+        uint32_t ghost = 0;      // bytes 4-5 from the previous lap
+        if constexpr (RING) {
+            if (rem < 6 && lap0 > 0) {
+                const int32_t to_end = lap0 + wnd - p;
+                for (int32_t j = rem; j < 6 && j < to_end; ++j) {
+                    const uint32_t b = byte(p + j - wnd);
+                    if (j < 4)
+                        v4 |= b << (8 * j);
+                    else
+                        ghost |= b << (8 * (j - 4));
+                }
+            }
+        }
         Hashes h;
         h.h2 = (int32_t)(((v4 & 0xFFFF) * 65521u) & 0x3FFF);
         h.h3 = (int32_t)((((v4 & 0xFF) << 8) ^ (((v4 >> 8) & 0xFF) << 5)
@@ -518,8 +553,8 @@ struct Parser {
         h.h6 = 0;
         if (h6) {
             const uint32_t hi = funnel(a1, a2, sh);
-            const uint32_t v2b = rem >= 6 ? hi & 0xFFFF
-                               : rem == 5 ? hi & 0xFF : 0;
+            const uint32_t v2b = (rem >= 6 ? hi & 0xFFFF
+                                : rem == 5 ? hi & 0xFF : 0) | ghost;
             h.h6 = (int32_t)(((v4 ^ (v2b << 13)) * 2654435761u)
                              >> (32 - s.hash_bits));
         }
@@ -672,8 +707,15 @@ struct Parser {
         }));
         K5_PHASE(P_TABLES);
         // its climit (HT2's quirk, csc_mf.cpp:306: distance == position)
-        // and whether it passes its gates and the valid range
+        // and whether it passes its gates and the valid range; in the
+        // ring, positions are ring positions, and a source in the previous
+        // lap ends at the ring's end
         const Lanes climit = lanes([&](int l) -> int32_t {
+            if constexpr (RING) {
+                const int32_t d = own(dist, l), r = ppos - lap0;
+                const bool wrap = d > r || (l == L_HT2 && d == r);
+                return wrap && d - r < limit ? d - r : limit;
+            }
             return l == L_HT2 && own(dist, l) == ppos ? 0 : limit;
         });
         const Lanes cand = lanes([&](int l) -> int32_t {
@@ -1019,15 +1061,18 @@ struct Parser {
 
     // IsDuplicateBlock of block j against the tables as they stand, the
     // window's frontier at wpos (the run in front is not coded yet, so
-    // the window holds zeros from there): a position i whose HASH2 is a
+    // the window holds zeros from there, or in the ring past its first
+    // lap the previous lap's bytes): a position i whose HASH2 is a
     // multiple of 16 and whose HT6 row head lies below vld_rge, where the
-    // window's next 19 bytes equal the block's.  A hit needs 19 bytes
-    // before the block's end, so the hashed bytes lie inside the block.
+    // window's next 19 bytes, before the ring's end, equal the block's.
+    // A hit needs 19 bytes before the block's end, so the hashed bytes
+    // lie inside the block.
     K5_FN bool duplicate(int32_t j, int32_t wpos) const {
         const int32_t s0 = j == 0 ? 0 : blk_end(j - 1);
         const int32_t last = blk_end(j) - s0 - DUP_LEN;  // last position
         const uint32_t vld = (uint32_t)vld_rge;
         const int64_t w = s.hash_width;
+        const int32_t r = RING ? wpos % wnd : wpos;  // the ring position
         const uint32_t hits = ballot(lanes([&](int l) -> int32_t {
             for (int32_t i = l; i <= last; i += WARP) {
                 const int32_t p = s0 + i;
@@ -1037,16 +1082,32 @@ struct Parser {
                 const int64_t h6 = ((v4 ^ (v2 << 13)) * 2654435761u)
                                  >> (32 - s.hash_bits);
                 const uint32_t dist = (uint32_t)(pos - s.ht6[h6 * w]);
-                if (dist >= vld || dist > (uint32_t)wpos) continue;
+                if (dist >= vld) continue;
+                if constexpr (RING) {
+                    // a source in the previous lap ends at the ring's
+                    // end, one in this lap at the ring's end too
+                    const int32_t d = (int32_t)dist;
+                    if ((d > r ? d - r : wnd - r + d) < DUP_LEN) continue;
+                } else if (dist > (uint32_t)wpos) {
+                    continue;
+                }
                 const int32_t c = wpos - (int32_t)dist;
                 bool eq = true;
                 for (int32_t k = 0; k < DUP_LEN && eq; k += 4) {
                     uint32_t x = word(p + k) ^ word(c + k);
-                    // the window's bytes from wpos on are zeros
+                    // the window's bytes from wpos on are zeros, or the
+                    // previous lap's
                     const int32_t below = wpos - c - k;
-                    if (below < 4)
-                        x = word(p + k) ^ (below <= 0 ? 0u
-                            : word(c + k) & ((1u << (8 * below)) - 1));
+                    if (below < 4) {
+                        const uint32_t keep = below <= 0 ? 0u
+                                            : (1u << (8 * below)) - 1;
+                        uint32_t v = word(c + k) & keep;
+                        const int32_t g = c + k - wnd;  // >= -3
+                        if (RING && wpos >= wnd)
+                            v |= (g >= 0 ? word(g) : word(0) << (-8 * g))
+                                 & ~keep;
+                        x = word(p + k) ^ v;
+                    }
                     const int32_t nb = DUP_LEN - k < 4 ? DUP_LEN - k : 4;
                     eq = (nb == 4 ? x : x & ((1u << (8 * nb)) - 1)) == 0;
                 }
@@ -1159,13 +1220,15 @@ struct Parser {
 
     K5_FN Result run() {
         steps = 0;
-        budget = (int32_t)s.max_steps;
+        budget = s.max_steps;
         cut = false;
         tok = 0;
         n = (int32_t)s.n;
         nfull = ((uintptr_t)s.data & 3) == 0 ? n >> 2 : 0;
         vld_rge = s.dict_size - 8 * 1024 - 4;
         pos = vld_rge;
+        wnd = s.dict_size;
+        lap0 = 0;
         each([&](int l) { set(reps, l, s.dict_size); });
         blk_off = blk_len = blk_i = 0;
         pf.at = -1;
@@ -1212,6 +1275,12 @@ struct Parser {
                     blk_off = nboff;
                     blk_len = run_end - nboff < SUB_BLOCK ? run_end - nboff
                                                           : SUB_BLOCK;
+                    if constexpr (RING) {
+                        // a piece also ends at the ring's end
+                        lap0 = nboff - nboff % wnd;
+                        if (blk_len > lap0 + wnd - nboff)
+                            blk_len = lap0 + wnd - nboff;
+                    }
                     blk_i = 0;
                     have_u1 = false;
                     if constexpr (NOLZ) {
@@ -1281,7 +1350,9 @@ struct Parser {
         r.tok_cnt = tok;
         r.done = done ? 1 : 0;
         r.err = tok > s.tcap ? ERR_OVERFLOW : done ? 0 : ERR_STEPS;
-        r.steps = cut ? budget : steps;
+        // steps past int32's range read as its maximum
+        const int64_t taken = cut ? budget : steps;
+        r.steps = taken < INT32_MAX ? (int32_t)taken : INT32_MAX;
         return r;
     }
 };
@@ -1298,18 +1369,27 @@ K5_FN bool has_nolz(const Stream& s) {
 }
 
 // the stream's parse; STAGED: s.words (g++) or k5_words (nvcc) hold its
-// data as words, STAGE_PAD zero words after it.  A stream of LZ runs alone
-// takes the parse without the probe and the sparse insertion.
-template <bool STAGED>
+// data as words, STAGE_PAD zero words after it.  RING: the stream is
+// longer than its dictionary (s.size > s.dict_size) and takes the ring's
+// parse (the nvcc build has a kernel for each, the caller picks); of the
+// others, a stream of LZ runs alone takes the parse without the probe and
+// the sparse insertion.
+template <bool STAGED, bool RING>
 K5_FN Result parse_stream(const Stream& s) {
-    if (has_nolz(s)) {
-        Parser<STAGED, true> p;
+    if constexpr (RING) {
+        Parser<STAGED, true, true> p;
+        p.s = s;
+        return p.run();
+    } else {
+        if (has_nolz(s)) {
+            Parser<STAGED, true, false> p;
+            p.s = s;
+            return p.run();
+        }
+        Parser<STAGED, false, false> p;
         p.s = s;
         return p.run();
     }
-    Parser<STAGED, false> p;
-    p.s = s;
-    return p.run();
 }
 
 }  // namespace k5

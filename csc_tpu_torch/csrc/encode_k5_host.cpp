@@ -20,7 +20,8 @@ extern "C" int csc_k5_host_staged(
     void* ht6, void* tape, int64_t tcap, int64_t max_steps, void* out,
     void* btypes, int32_t batch, int64_t stage_max) {
     if (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
-        || hash_bits > 24 || max_steps >= ((int64_t)1 << 31) || tcap < 1
+        || hash_bits > 24 || max_steps < 0
+        || max_steps >= ((int64_t)1 << 62) || tcap < 1
         || nblk < 1)
         return 1;
     std::vector<uint32_t> words((n + 3) / 4 + k5::STAGE_PAD);
@@ -55,8 +56,12 @@ extern "C" int csc_k5_host_staged(
         s.tape = (int32_t*)tape + b * 2 * tcap;
         s.tcap = tcap;
         s.max_steps = max_steps;
-        const k5::Result r = s.words ? k5::parse_stream<true>(s)
-                                     : k5::parse_stream<false>(s);
+        const bool ring = s.size > s.dict_size;
+        const k5::Result r =
+            s.words ? (ring ? k5::parse_stream<true, true>(s)
+                            : k5::parse_stream<true, false>(s))
+                    : (ring ? k5::parse_stream<false, true>(s)
+                            : k5::parse_stream<false, false>(s));
         o[0 * batch + b] = r.tok_cnt;
         o[1 * batch + b] = r.done;
         o[2 * batch + b] = r.err;

@@ -19,8 +19,9 @@ on (bench.py's m3_text / m5_text rows, and m4), at m3 on 1 024 and 4 096
 x 16 KB text (the largest group the encode path gives one launch: 64 MB,
 ENCODE_GROUP_BYTES) and at m3 on the encode task (4 x 1 MB text: the
 streams that keep their data in device memory); K5 (the exact parse) at
-m1 and m2 on the encode headline, at m1 on 1 024 x 16 KB text (the encode
-path's large group) and on the encode task.  The inputs come from this
+m1 and m2 on the encode headline, at m1 on 1 024 and 4 096 x 16 KB text
+(the encode path's large groups; 4 096 needs more than eight K5 blocks
+an SM) and on the encode task.  The inputs come from this
 checkout's encode path on the card.  K4 and K5 are launched directly,
 with no debug copy (as on the encode path): the tape and K5's hash
 tables are zeroed before each timed call, outside its events, and the
@@ -332,16 +333,17 @@ def main(argv=None):
                                       for _ in enc], enc, dev, "exact")
             cells[f"K5 m{level} 96 x 16 KB"] = parse_cell(
                 "csc_k5", args5, [len(d) for d in enc], k5, 3)
-        many = [text[i * 16 * KB % (len(text) - 16 * KB):][:16 * KB]
-                for i in range(1024)]
-        args5, _, _ = stage_args([props_init(16 * KB, 1) for _ in many],
-                                 many, dev, "exact")
-        if args5[0].shape[0] != len(many):
-            raise RuntimeError("kernel_ab: 1 024 x 16 KB m1 took more than "
-                               "one K5 launch")
-        cells["K5 m1 1024 x 16 KB"] = parse_cell(
-            "csc_k5", args5, [len(d) for d in many], k5, 1)
-        del args5
+        for count in (1024, 4096):
+            many = [text[i * 16 * KB % (len(text) - 16 * KB):][:16 * KB]
+                    for i in range(count)]
+            args5, _, _ = stage_args([props_init(16 * KB, 1) for _ in many],
+                                     many, dev, "exact")
+            if args5[0].shape[0] != count:
+                raise RuntimeError(f"kernel_ab: {count} x 16 KB m1 took "
+                                   f"more than one K5 launch")
+            cells[f"K5 m1 {count} x 16 KB"] = parse_cell(
+                "csc_k5", args5, [len(d) for d in many], k5, 1)
+            del args5
         args5, _, _ = stage_args(gp, group, dev, "exact")
         cells["K5 task m1 4 x 1 MB"] = parse_cell(
             "csc_k5", args5, [len(d) for d in group], k5, 1)

@@ -5,7 +5,9 @@ pipeline drives it under CSC_ENCODE_PARSE=exact.
 `parse_k5` checks its tensors, allocates the per-stream hash tables (int32
 zeros: ht2 [B, 16384], ht3 [B, 65536], ht6 [B, hash_width << hash_bits]),
 the tape, the counters and the block types, and launches the kernel on
-the current CUDA stream, one warp (a block) a stream; a stream of at most
+the current CUDA stream, one warp (a block) a stream (two kernels, one
+for the streams their dictionary covers and one for those longer than
+it, each block of the other kind returning at once); a stream of at most
 64 KB is staged in the block's shared memory (`smem_bytes`,
 `blocks_per_sm`).  The tables take 64 KB + 256 KB + 4 * (hash_width <<
 hash_bits) bytes a stream: 576 KB for a 16 KB stream at m1 (hash_bits 16,
@@ -15,7 +17,8 @@ streams (64 MB, 4 096 streams); 8.3 MB for a 1 MB stream at m1 (hash_bits
 hash_bits 21, 64.3 MB).  Indices into them stay within int32 (at most 8
 << 24 words a row), offsets between rows are int64.  For tensors on the CPU it
 runs the plain PyTorch version (ops/exact_scan.py) instead; on any other
-device it raises.  LAUNCHES counts kernel launches.
+device it raises.  LAUNCHES counts the calls that launch K5 (both its
+kernels a call).
 """
 import ctypes
 
@@ -57,16 +60,17 @@ def smem_bytes(n):
     return int(fn(n))
 
 
-def blocks_per_sm(n):
+def blocks_per_sm(n, ring=False):
     """K5's resident blocks (streams) per SM on the current card for
     streams of n bytes, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    gives them."""
+    gives them: of the kernel for streams their dictionary covers, or
+    (ring) of the one for streams longer than it."""
     from .. import _build
     fn = _build.kernel_library("csc_k5").csc_k5_blocks_per_sm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
     blocks = ctypes.c_int(0)
-    rc = fn(n, ctypes.byref(blocks))
+    rc = fn(n, int(ring), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"K5 occupancy query failed: cudaError_t {rc}")
     return blocks.value
@@ -92,7 +96,8 @@ def parse_k5(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
     << 3, dist_code), tok_cnt, done, err, steps [B] i32, btypes [B, NB]
     i32), on data's device; err is ERR_OVERFLOW (the tape filled) or
     ERR_STEPS (the budget ran out); steps counts each stream's lockstep
-    micro-ops up to its end (the budget when cut); btypes holds each
+    micro-ops up to its end (the budget when cut; 2^31 - 1 past int32's
+    range, which K5 counts past in int64); btypes holds each
     block's final type, after the duplicate-block probe (0 for a block
     the parse did not reach).
     """
@@ -107,8 +112,8 @@ def parse_k5(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
         raise ValueError("max_tokens must be >= 1")
     if max_steps is None:
         max_steps = exact_scan.max_steps_for(data.shape[1])
-    if not 0 <= max_steps < 1 << 31:
-        raise ValueError(f"max_steps must be in [0, 2^31), got {max_steps}")
+    if not 0 <= max_steps <= exact_scan.MAX_BUDGET:
+        raise ValueError(f"max_steps must be in [0, 2^62), got {max_steps}")
     dev, b = data.device, data.shape[0]
     if dev.type == "cpu":
         return exact_scan.exact_plain(

@@ -18,18 +18,22 @@ csc_tpu's bytes under CSC_ENCODE_PARSE=exact, where csc_tpu takes a
 stream with a BAD / ENTROPY / DLT run or one over its 1 MB device cap to
 its golden encoder, and the port's exact parse writes golden's bytes on
 the card.  An m1 / m2 stream over MAX_ENCODE takes the exact parse under
-parse="fast" too, as csc_tpu takes it to golden (pipeline.py:240-262).
-Where csc_tpu still falls back to golden and the port has no device path
-(m3-m5 under the exact parse or over the cap, a stream longer than its
-dictionary, a K3 output overflow) this port raises EncodeError naming
-the stream and the reason: it never encodes on the host.
+parse="fast" too, as csc_tpu takes it to golden (pipeline.py:240-262),
+and so does one longer than its dictionary, whose window wraps as a
+ring of the dictionary's size (golden's bytes; csc_tpu's fast path
+writes a stream golden rejects there).  Where csc_tpu still falls back
+to golden and the port has no device path (m3-m5 under the exact parse,
+over the cap or past its dictionary, a stream over 1 GB, a K3 output
+overflow) this port raises EncodeError naming the stream and the
+reason: it never encodes on the host.
 """
 import numpy as np
 import torch
 
 from .. import constants, native
 from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
-                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR)
+                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR,
+                         MIN_BLOCK_SIZE)
 from . import encode_host, exact_scan, framing, parse_pre, prices, stitch
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
@@ -114,8 +118,12 @@ def decode_batch(props_list, blobs, positions=None, out_sizes=None,
     Returns list[bytes].  Streams decode in linear window coordinates:
     with out_sizes the window holds the whole output; without them it
     starts at the dictionary size and regrows when a stream outgrows it.
-    Raises DecodeError on a corrupt stream, on one that did not finish
-    within max_steps, or on a block-log overflow.
+    K1's log of typed blocks is sized alike: with out_sizes, an entry for
+    each 8 KB block and each raw chunk of a stream, and 2 more (the most
+    of any stream); without them MAX_BLOCKS, regrown when a stream logs
+    more.  Raises
+    DecodeError on a corrupt stream or on one that did not finish within
+    max_steps.
     """
     device = torch.device(device)
     b = len(blobs)
@@ -134,7 +142,11 @@ def decode_batch(props_list, blobs, positions=None, out_sizes=None,
     else:
         wnd_size = max(p.dict_size for p in props_list)
     wnd_size = _bucket(int(wnd_size))
-    max_blocks = constants.MAX_BLOCKS
+    if out_sizes is not None:
+        max_blocks = max(-(-n // MIN_BLOCK_SIZE) - (-n // p.raw_blocksize)
+                         + 2 for n, p in zip(out_sizes, props_list))
+    else:
+        max_blocks = constants.MAX_BLOCKS
 
     while True:
         steps_cap = max_steps
@@ -151,6 +163,11 @@ def decode_batch(props_list, blobs, positions=None, out_sizes=None,
             if wnd_size >= MAX_WINDOW or int(out_pos.max()) > MAX_WINDOW:
                 raise DecodeError("decoded output exceeds 1 GB window cap")
             wnd_size = min(_bucket(int(out_pos.max()) * 2), MAX_WINDOW)
+            continue
+        logged = int(blk_cnt.max())
+        if out_sizes is None and logged > max_blocks:
+            # more typed blocks than the log held: size it and decode again
+            max_blocks = logged
             continue
         break
 
@@ -195,9 +212,13 @@ def plan_streams(props_list, datas, parse="fast"):
     """Per-stream plans, or None for an empty stream: an
     encode_host.FastPlan for the fast parse, an ExactPlan for the exact
     one (each says its parse).
-    An m1 / m2 stream over MAX_ENCODE takes the exact parse whatever
-    `parse` says, as csc_tpu hands it to golden.  EncodeError for a stream
-    the device path does not take."""
+    An m1 / m2 stream over MAX_ENCODE or longer than its dictionary takes
+    the exact parse whatever `parse` says: csc_tpu hands the first to
+    golden, and its fast path writes a stream golden rejects for the
+    second (ROADMAP queue 3), where the exact parse writes golden's
+    bytes.  EncodeError for a stream the device path does not take: over
+    MAX_WINDOW (1 GB), or at m3-m5 under the exact parse, over the cap or
+    past its dictionary."""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
@@ -205,17 +226,22 @@ def plan_streams(props_list, datas, parse="fast"):
         if props.lz_mode not in (1, 2, 3):
             raise EncodeError(f"stream {i}: lz_mode {props.lz_mode} has no "
                               f"device parse", [i])
-        if len(data) > props.dict_size:
-            # the parse treats the stream as one window with no wrap
-            # (csc_tpu parse_pre.py:6, encode_scan.py:15-18); past the
-            # dictionary the reference decoder's ring rejects the matches
-            # that cross its end
+        if len(data) > MAX_WINDOW:
+            # K5 counts positions in int32 from vld_rge on
+            raise EncodeError(f"stream {i}: {len(data)} bytes is more than "
+                              f"the {MAX_WINDOW}-byte window limit", [i])
+        big = len(data) > encode_host.MAX_ENCODE
+        # a stream longer than its dictionary meets golden's ring window,
+        # which only the exact parse follows (the fast parse treats the
+        # stream as one window with no wrap, csc_tpu parse_pre.py:6)
+        ring = len(data) > props.dict_size
+        reason = exact_refusal(props)
+        if ring and reason:
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is more than its "
-                f"{props.dict_size}-byte dictionary; the device parse needs "
-                f"the dictionary to cover the stream", [i])
-        big = len(data) > encode_host.MAX_ENCODE
-        reason = exact_refusal(props)
+                f"{props.dict_size}-byte dictionary and {reason}; only the "
+                f"exact parse follows the ring window past the dictionary",
+                [i])
         if big and reason:
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is over the "
@@ -225,7 +251,8 @@ def plan_streams(props_list, datas, parse="fast"):
             raise EncodeError(f"stream {i}: {reason}; csc_tpu encodes it "
                               f"with its golden encoder", [i])
         plans.append(encode_host.plan_stream(
-            props, data, exact=parse == "exact" or big) if data else None)
+            props, data, exact=parse == "exact" or big or ring)
+            if data else None)
     return plans
 
 
@@ -239,8 +266,9 @@ def _groups(props_list, plans):
     too (pipeline.py:307), streams over MAX_ENCODE split off by their
     bucket (csc_tpu codes them with golden; the exact parse's output does
     not depend on the width, so the bucket only spares a short stream a
-    long one's width); at m1 / m2 on the fast parse it is the call's
-    longest stream (None)."""
+    long one's width; a stream longer than its dictionary is grouped the
+    same way, K5 choosing the ring's parse for it alone); at m1 / m2 on
+    the fast parse it is the call's longest stream (None)."""
     by_preset = {}
     for i, plan in enumerate(plans):
         if plan is not None:
@@ -473,16 +501,20 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
     without the property header, byte-identical to csc_tpu's encode_batch
     on its fast path; an m1 / m2 stream over MAX_ENCODE (1 MB) takes the
     exact parse all the same, as csc_tpu codes it with its golden encoder,
-    so its bytes are csc_tpu's and golden's.  parse="exact" (m1 and m2)
+    so its bytes are csc_tpu's and golden's; so does an m1 / m2 stream
+    longer than its dictionary (up to 1 GB), whose window wraps as
+    golden's ring: over 1 MB its bytes are csc_tpu's and golden's, at 1
+    MB or less golden's, where csc_tpu's fast path writes a stream golden
+    rejects (ROADMAP queue 3).  parse="exact" (m1 and m2)
     returns the reference encoder's own bytes for every stream, as
     csc_tpu's under CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the
     duplicate-block probe and several raw chunks included.  Streams are
     grouped by preset and parse (one device call per preset and size
     group).  An empty stream is the SIG_EOF chunk alone.  Raises
-    EncodeError for a stream it cannot take (longer than its dictionary;
-    m3-m5 over MAX_ENCODE or under parse="exact") or that a kernel flags
-    (a K3 output overflow).  on_stage: as encode_group's, called once more
-    as on_stage("plan", plans=...) after the host plan.
+    EncodeError for a stream it cannot take (over 1 GB; m3-m5 over
+    MAX_ENCODE, longer than its dictionary or under parse="exact") or that
+    a kernel flags (a K3 output overflow).  on_stage: as encode_group's,
+    called once more as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)
     if len(props_list) != len(datas):

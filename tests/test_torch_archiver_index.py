@@ -4,13 +4,12 @@ index of LZ runs is coded into csc_tpu's bytes (its golden encoder's)
 and reads back on both sides; an index with a DT_BAD run (random
 fragment records), which the fast parse took before the exact parse did,
 is coded into csc_tpu's bytes too, silently, and reads back on both
-sides; an index over the trailer's 256 KB dictionary raises, naming its
-size."""
+sides.  An index over the trailer's dictionary is coded into csc_tpu's
+bytes as well (test_torch_exact_ring_host.py)."""
 import io
 import struct
 
 import numpy as np
-import pytest
 import torch
 
 from csc_tpu.archiver import index as j_index
@@ -78,10 +77,3 @@ def test_refused_index_takes_the_fast_parse(capsys):
     f.seek(8)
     _, _, raw_size = struct.unpack("<QII", f.read(16))
     assert raw_size == len(index.pack_index(fi, abi)) > 8192
-
-
-def test_index_over_the_dictionary_raises():
-    fi = {"x" * (index.INDEX_DICT + 1): index.FileEntry()}
-    size = len(index.pack_index(fi, {}))
-    with pytest.raises(ValueError, match=f"{size} bytes.*{index.INDEX_DICT}"):
-        _trailer(fi, {})

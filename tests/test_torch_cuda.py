@@ -15,7 +15,10 @@ edge streams, with a tape too short and step budgets cut, on the 4 x 1
 MB m1 task under a budget, launched twice on the same 96 streams, a
 CUDA tensor reaching K5 and never the plain version, and exact streams
 through K5,
-K3 and K1 equal to the CPU's and golden's bytes; the A/B tool
+K3 and K1 equal to the CPU's and golden's bytes; K5 on a stream longer
+than its dictionary (a ring window) against the plain version, and
+encode_batch of such streams equal to golden's bytes; K1's block log
+sized from the stream past MAX_BLOCKS; the A/B tool
 (csc_tpu_torch/kernel_ab.py) run against this checkout; the archiver's
 a / x / t round trip of a 2.5 MB tree split into several tasks, its
 archives of small trees equal to --backend=cpu's, and the batch split
@@ -45,6 +48,7 @@ from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
 from csc_tpu_torch.props import props_init
 
 import torch_edge_cases as edges
+import torch_ring_cases as ring
 from test_torch_exact_host import exact_args
 from test_torch_parse_ap_host import plain_cells
 from torch_archiver_trees import CROSS_FILES, TEXT_FILES, make_tree, \
@@ -332,7 +336,7 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K4 m3 32 x 16 KB", "K4 m4 32 x 16 KB", "K4 m5 32 x 16 KB",
         "K4 m3 1024 x 16 KB", "K4 m3 4096 x 16 KB", "K4 task m3 4 x 1 MB",
         "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
-        "K5 task m1 4 x 1 MB"])
+        "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -645,6 +649,46 @@ def test_exact_streams_through_k5_k3_k1(dev):
     blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
     assert blob == encode_stream(p, big)
     assert pipeline.decode_batch([p], [blob], device=dev) == [big]
+
+
+def test_k5_matches_plain_on_the_ring(dev):
+    """48 KB under a 36 KB dictionary (the window a ring off the 8 KB
+    grid, a BAD run across its end, torch_edge_cases.ring48): K5 gives
+    the plain version's every field."""
+    got = _k5_against_plain(exact_args([edges.ring48(1)]), dev)
+    assert bool(got[2].all()) and not bool(got[3].any())
+    assert constants.DT_BAD in got[5][0].tolist()
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_encode_past_the_dictionary_is_golden(dev, level):
+    """encode_batch on the card (fast parse, routed to the exact one) of
+    streams longer than their dictionary: torch_ring_cases' mixed (four
+    laps, BAD / EXE / DLT runs, a probe hit across a wrap), chunks (two
+    raw chunks) and quirks (each ring rule made visible) are golden's
+    bytes and decode through K1."""
+    cases = [ring.mixed(level), ring.chunks(level), ring.quirks(level)]
+    props = [c[1] for c in cases]
+    datas = [c[2] for c in cases]
+    launches = exact_kernel.LAUNCHES
+    card = pipeline.encode_batch(props, datas, device=dev)
+    assert exact_kernel.LAUNCHES > launches
+    for (name, p, data), blob in zip(cases, card):
+        assert len(data) > p.dict_size, name
+        assert blob == encode_stream(p, data), name
+    assert pipeline.decode_batch(props, card, device=dev) == datas
+
+
+@pytest.mark.parametrize("sized", [True, False])
+def test_block_log_past_max_blocks_on_the_card(dev, monkeypatch, sized):
+    """K1's block log sized from the stream, on cuda:0
+    (test_torch_pipeline.py's CPU tests)."""
+    p, data, blob = edges.k1_block_log_case()
+    monkeypatch.setattr(constants, "MAX_BLOCKS", 4)
+    launches = decode_kernel.LAUNCHES
+    assert pipeline.decode_batch([p], [blob], out_sizes=[len(data)]
+                                 if sized else None, device=dev) == [data]
+    assert decode_kernel.LAUNCHES == launches + (1 if sized else 2)
 
 
 # ------------------------------------------------------------- archiver

@@ -9,9 +9,11 @@ csc_tpu.golden, and the m1 text stream equals the golden encoder's.
 A dictionary smaller than the input is outside the fast parse's
 envelope (one window, no wrap: csc_tpu parse_pre.py:6).  There csc_tpu
 emits a stream that the golden decoder, which keeps the reference's
-ring window, rejects; encode_batch refuses such a stream, and the
-port's group encode, run on it directly, is still byte-identical to
-csc_tpu's.  Also: what encode_batch refuses, and the CLI round trip."""
+ring window, rejects; the port's group encode, run on it directly with
+the fast parse, is still byte-identical to csc_tpu's, and encode_batch
+routes such a stream at m1 / m2 to the exact parse, whose ring window
+gives golden's bytes (test_torch_exact_ring_m1.py / _m2.py), and refuses
+it at m3-m5.  Also: what encode_batch refuses, and the CLI round trip."""
 import pytest
 import torch
 
@@ -61,8 +63,13 @@ def check_streams(cases, ours, ref):
             assert p.dict_size < len(data)
             with pytest.raises(DecodeError):
                 decompress_stream(p, o, 0)
-            with pytest.raises(pipeline.EncodeError, match="dictionary"):
-                pipeline.encode_batch([p], [data], device=CPU)
+            if p.lz_mode == 3:
+                # no exact parse at m3-m5
+                with pytest.raises(pipeline.EncodeError, match="dictionary"):
+                    pipeline.encode_batch([p], [data], device=CPU)
+            else:
+                assert pipeline.plan_streams([p], [data])[0].parse == \
+                    "exact"
         else:
             assert decompress_stream(p, o, 0) == data, name
     props = [c[1] for c in cases]

@@ -9,11 +9,11 @@ compiles and runs slowly on a CPU at B > 1); the port encodes them as one
 batch.  Every stream decodes with the port's decode_batch and with the
 golden decoder; the fast parse's kernels (K2, K4) are not launched.
 What csc_tpu hands to its golden encoder on this path: a BAD, an ENTROPY
-and a DLT run give golden's bytes (and csc_tpu's, from its fallback);
-lz_mode 3 and a dictionary smaller than the stream raise EncodeError
-naming the stream.  m2 is in a file of its own
-(test_torch_encode_exact_m2.py), so the levels' JAX references run on
-two test workers."""
+and a DLT run give golden's bytes (and csc_tpu's, from its fallback); a
+dictionary smaller than the stream takes the exact parse, its ring window
+wrapping; lz_mode 3 raises EncodeError naming the stream.  m2 is in a
+file of its own (test_torch_encode_exact_m2.py), so the levels' JAX
+references run on two test workers."""
 import os
 
 import pytest
@@ -65,15 +65,25 @@ def check_streams(keep, ours, ref, gold):
 def check_refused(level, refused):
     """What csc_tpu hands to its golden encoder on this path: the BAD,
     ENTROPY and DLT streams, which the exact parse refused before it took
-    them, now give golden's bytes and csc_tpu's (its fallback's) and
-    decode; a dictionary smaller than the stream and lz_mode 3 still
-    raise EncodeError naming the stream (its index in a batch behind a
-    stream the path takes) and the reason."""
+    them, give golden's bytes and csc_tpu's (its fallback's) and decode;
+    a dictionary smaller than the stream, which the exact parse refused
+    before it followed golden's ring window, is taken by it under either
+    parse (its bytes are golden's in test_torch_exact_ring_m1.py / _m2.py;
+    csc_tpu's device parse, which has no ring, writes a stream golden
+    rejects, test_torch_encode.py); lz_mode 3 still raises EncodeError
+    naming the stream (its index in a batch behind a stream the path
+    takes) and the reason."""
     from csc_tpu.ops import pipeline as j_pipeline
     text = corpus.encode_cases(level, n=1024, seed=71)[0]
     assert sorted(c[0] for c in refused) == ["dict_lt_input", "dlt",
                                              "entropy", "random"]
+    ring = [c for c in refused if c[0] == "dict_lt_input"]
     taken = [c for c in refused if c[0] != "dict_lt_input"]
+    for parse in pipeline.PARSES:
+        plans = pipeline.plan_streams([c[1] for c in ring],
+                                      [c[2] for c in ring], parse)
+        assert len(ring[0][2]) > ring[0][1].dict_size
+        assert plans[0].parse == "exact", parse
     ours = pipeline.encode_batch([c[1] for c in taken],
                                  [c[2] for c in taken], device=CPU,
                                  parse="exact")
@@ -84,11 +94,6 @@ def check_refused(level, refused):
         assert decompress_stream(p, o, 0) == data, name
     assert pipeline.decode_batch([c[1] for c in taken], ours,
                                  device=CPU) == [c[2] for c in taken]
-    name, p, data = [c for c in refused if c[0] == "dict_lt_input"][0]
-    with pytest.raises(pipeline.EncodeError,
-                       match="stream 1: .*dictionary"):
-        pipeline.encode_batch([text[1], p], [text[2], data], device=CPU,
-                              parse="exact")
     ap = props_init(len(text[2]), 3)
     with pytest.raises(pipeline.EncodeError, match="stream 1: .*lz_mode 3"):
         pipeline.encode_batch([text[1], ap], [text[2], text[2]], device=CPU,

@@ -31,9 +31,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
-def _build(tmp, src, fn, argtypes):
+def _build(tmp, src, fn, argtypes, opt="-O2"):
     so = str(tmp / (src + ".so"))
-    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-Werror",
+    subprocess.run(["g++", opt, "-std=c++17", "-Wall", "-Werror",
                     "-shared", "-fPIC", os.path.join(CSRC, src), "-o", so],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(so)

@@ -10,6 +10,8 @@ from csc_tpu_torch import cli, constants, corpus
 from csc_tpu_torch.ops import decode_kernel, pipeline
 from csc_tpu_torch.ops.pipeline import DecodeError
 
+import torch_edge_cases as edges
+
 N = 1536
 
 
@@ -69,13 +71,50 @@ def test_corrupt_stream_in_batch_names_it(cases):
                               device="cpu")
 
 
-def test_block_log_overflow(cases, monkeypatch):
-    name, p, data = cases[0][6]
-    assert name == "multichunk"           # 3 typed blocks + EOF
-    monkeypatch.setattr(constants, "MAX_BLOCKS", 2)
-    with pytest.raises(DecodeError, match="block log overflow"):
-        pipeline.decode_batch([p], [cases[1][6]], out_sizes=[len(data)],
-                              device="cpu")
+def _k1_logs(monkeypatch):
+    """Make decode_batch's K1 calls note (log size, blocks logged)."""
+    logged = []
+
+    def spy(*args):
+        out = decode_kernel.decode_k1(*args)
+        logged.append((args[6], int(out[5][0])))
+        return out
+    monkeypatch.setattr(pipeline, "decode_k1", spy)
+    return logged
+
+
+def test_block_log_overflow(monkeypatch):
+    """out_sizes that understate a stream size its log too short: 64
+    bytes give 1 + 1 + 2 entries, and its seven typed blocks overflow
+    it."""
+    p, data, blob = edges.k1_block_log_case()
+    monkeypatch.setattr(constants, "MAX_BLOCKS", 4)
+    with pytest.raises(DecodeError, match=r"block log overflow \(> 4 "
+                                          r"typed blocks\) in stream\(s\): "
+                                          r"\[0\]"):
+        pipeline.decode_batch([p], [blob], out_sizes=[64], device="cpu")
+
+
+def test_block_log_sized_from_out_sizes(monkeypatch):
+    """A stream of more typed blocks than MAX_BLOCKS decodes: with
+    out_sizes the log is sized from the stream (an entry an 8 KB block
+    and a raw chunk, and 2)."""
+    p, data, blob = edges.k1_block_log_case()
+    logged = _k1_logs(monkeypatch)
+    monkeypatch.setattr(constants, "MAX_BLOCKS", 4)
+    assert pipeline.decode_batch([p], [blob], out_sizes=[len(data)],
+                                 device="cpu") == [data]
+    assert logged == [(1 + 6 + 2, 7)]
+
+
+def test_block_log_regrows_without_sizes(monkeypatch):
+    """Without out_sizes the log starts at MAX_BLOCKS and K1 runs again
+    with the log the stream needs."""
+    p, data, blob = edges.k1_block_log_case()
+    logged = _k1_logs(monkeypatch)
+    monkeypatch.setattr(constants, "MAX_BLOCKS", 4)
+    assert pipeline.decode_batch([p], [blob], device="cpu") == [data]
+    assert logged == [(4, 7), (7, 7)]
 
 
 def test_step_cap_is_an_error(cases):

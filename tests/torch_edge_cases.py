@@ -51,6 +51,29 @@ def k1_cases():
             ("multichunk", p(len(multi), 1024), multi)]
 
 
+def k1_block_log_case():
+    """(props, data, stream) past a short block log: 384 bytes of
+    periodic text and a DLT ramp in six 64-byte raw chunks, each its own
+    typed block, then the end-of-stream block (seven logged), coded by
+    the golden encoder."""
+    from csc_tpu.golden.encoder import encode_stream
+    data = corpus.repetitive(192, 4) + corpus.dlt_ramp(192)
+    p = props.props_init(len(data), 1)
+    p.raw_blocksize = 64
+    return p, data, encode_stream(p, data)
+
+
+def ring48(level):
+    """("ring48", props, data): 48 KB of corpus.repetitive under a 36 KB
+    dictionary (`props_init(26 KB)`, a ring off the 8 KB grid), a random
+    8 KB block across the ring's end (a BAD run across it)."""
+    rng = np.random.default_rng(5)
+    data = bytearray(corpus.repetitive(48 * 1024, 7))
+    data[32 * 1024:40 * 1024] = rng.integers(0, 256, 8 * 1024,
+                                             dtype=np.uint8).tobytes()
+    return ("ring48", props.props_init(26 * 1024, level), bytes(data))
+
+
 def k2_cases(level):
     """(name, props, data) streams for K2's lane strides, limits and
     fold edges (filters off: every byte goes through the parse)."""
