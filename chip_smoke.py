@@ -5,16 +5,16 @@
 
 Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
-  2. build           K1-K5 and the ten spike libraries (csrc/*.cu) with
+  2. build           K1-K6 and the ten spike libraries (csrc/*.cu) with
                      nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K5 and their
+                     together, with ptxas's reports of K1-K6 and their
                      registers (K5's of each of its two kernels), stack
                      frame, LDL / STL counts (SASS), K1's blocks per SM
-                     and K4's and K5's shared memory a block and blocks
-                     per SM; it fails unless each of
-                     K1-K5 has a 0-byte stack frame and no LDL / STL, K1
-                     holds two blocks an SM, K4 four or more of 16 KB
-                     and K5 eight or more of 16 KB; K5's phase-clock
+                     and K4's, K5's and K6's shared memory a block and
+                     blocks per SM; it fails unless each of
+                     K1-K6 has a 0-byte stack frame and no LDL / STL, K1
+                     holds two blocks an SM, K4 four or more of 16 KB,
+                     K5 eight or more and K6 four or more; K5's phase-clock
                      build (-DK5_PHASES, csc_tpu_torch/k5_phases.py)
                      alongside
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
@@ -40,6 +40,14 @@ Phases, each printing its own line; the first failure raises:
                      build on the same inputs, its outputs equal to K5's
                      and its split of block 0's cycles; K5's g++ build
                      against K5 on the first whole 1 MB task stream
+  7c. encode_exact_ap
+                     the exact optimal parse: encode_batch(parse="exact")
+                     of 96 x 16 KB text (filters on) at m3 and m4 and of
+                     the 4 x 1 MB m3 task, its stages (plan, k6, stitch,
+                     k3, remux), K6 / K3 times, a round trip through K1,
+                     the fast parse's (K4) ratio on the same streams;
+                     K6's g++ build (csrc/encode_k6_host.cpp) against K6
+                     on the first whole 1 MB task stream (k6_host)
   8. extract         one archiver extract group: 256 x 1 MB m1 text
   9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
                      --parse exact` then `d` on it, and `d` of the first
@@ -61,12 +69,17 @@ Phases, each printing its own line; the first failure raises:
                      probe's hit); `d` of each restoring it through K1;
                      K5 on the m1 stream's inputs timed and held to its
                      g++ build on every field (run beside phase 9b2)
+  9a3. cli_big_m3    `c -m3` of phase 9a's file (past the cap: one K6
+                     chain, K6 and K3 alone) and `d` restoring it through
+                     K1; K6 on the stream's inputs timed and held to its
+                     g++ build on every field, block types included
   9b. archiver       csarc on a tree built here (the first 1 000 .py
                      files of torch under torch/, libc10.so, 3 MB of
                      seeded random bytes and a 2 MB DLT ramp past the 1
                      MB task cap, an empty file): `a -r` at the default
-                     level and at -m1, `a -m2 --parse=exact` of the whole
-                     tree (BAD and DLT tasks included), each then `x`
+                     level and at -m1, `a -m2 --parse=exact` and `a -m3
+                     --parse=exact` of the whole tree (BAD and DLT tasks
+                     included; K5, K6), each then `x`
                      (the tree restored byte-exact), `t` and `l`, the
                      trailer's parse (the exact one, always), the walls
                      split by layer;
@@ -79,10 +92,11 @@ Phases, each printing its own line; the first failure raises:
                      (its ring wraps), then `x` (every file restored) and
                      `t`; the trailer read back equals the packed index
  10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
-                     text streams at m3 and, exactly, at m1 and m2): the
-                     candidates on the card equal those on the CPU; K2, K4
-                     or K5, the stitch and K3 equal their plain versions
-                     (on the card)
+                     text streams at m3 and, exactly, at m1, m2 and m3):
+                     the candidates on the card equal those on the CPU;
+                     K2, K4, K5 or K6, the stitch and K3 equal their plain
+                     versions (on the card's inputs; K6's runs on the
+                     host)
  11. parity          K1 against its plain version (on the card) on the
                      parity batch, a corrupted stream among them
  12. plain           each kernel against its plain version on the first
@@ -92,15 +106,17 @@ Phases, each printing its own line; the first failure raises:
                      past its 36 KB dictionary, the whole stream, every
                      field; torch_edge_cases), and K5 against its g++
                      build (csrc/encode_k5_host.cpp) on the first 8
-                     whole streams of its m1 cell
+                     whole streams of its m1 cell; K6 on the first 4
+                     streams of its m3 cell
  13. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
                      layouts, at every size the runner times, against its
                      plain version on the card, with
-                     K1-K5's own ns per step of their longest stream (K3:
+                     K1-K6's own ns per step of their longest stream (K3:
                      per tape entry and per modelled bit; K5: per
-                     position and per lockstep micro-op)
+                     position and per lockstep micro-op; K6: per
+                     position)
 Every count of launches is read around a main-path run (phases 4-9b2,
 13).
 Phase 12's plain versions run on the host's CPU in worker processes
@@ -135,8 +151,9 @@ from csc_tpu_torch.archiver import csarc, index  # noqa: E402
 from csc_tpu_torch.constants import (DT_NO_LZ, DT_NORMAL, K_END,  # noqa: E402
                                      K_SENT_A)
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
-                               decode_scan, encode_host, exact_kernel,
-                               exact_scan, parse_ap_kernel, parse_ap_scan,
+                               decode_scan, encode_host, exact_ap_kernel,
+                               exact_ap_scan, exact_kernel, exact_scan,
+                               parse_ap_kernel, parse_ap_scan,
                                parse_kernel, parse_pre, parse_scan, pipeline,
                                stitch)
 from csc_tpu_torch.parallel import mesh  # noqa: E402
@@ -144,6 +161,7 @@ from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
 import torch_edge_cases  # noqa: E402
+from test_torch_exact_ap_host import build_k6_host, k6_host  # noqa: E402
 from test_torch_exact_host import build_k5_host, k5_host  # noqa: E402
 from test_torch_parse_ap_host import build_k4_host, k4_host  # noqa: E402
 from torch_archiver_trees import listing, run_in, tree_bytes  # noqa: E402
@@ -155,7 +173,7 @@ HEAD_STREAMS, HEAD_BYTES = 128, 16 * KB   # bench.py's decode headline shape
 ENC_STREAMS = 96                      # bench.py's encode shape: 96 x 16 KB
 AP_STREAMS = 32                       # bench.py's m3 / m5 shape: 32 x 16 KB
 # headline streams each kernel's plain version runs on (the first ones)
-PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8, "K4": 4, "K5": 4}
+PLAIN_STREAMS = {"K1": 16, "K2": 8, "K3": 8, "K4": 4, "K5": 4, "K6": 4}
 # K5's plain job: its first streams cut by this step budget (about 40 %
 # of a 16 KB m1 stream's micro-ops), K5 launched under the same budget;
 # and the g++ build of K5 on this many whole streams
@@ -186,14 +204,15 @@ FIELDS = {"K1": ("wnd", "blk_log", "wnd_pos", "done", "err", "blk_cnt"),
           "K2": ("tape", "tok_cnt", "done", "err"),
           "K4": ("tape", "tok_cnt", "done", "err", "finds"),
           "K5": ("tape", "tok_cnt", "done", "err", "steps", "btypes"),
+          "K6": ("tape", "tok_cnt", "done", "err", "btypes"),
           "K3": ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log",
                  "stats")}
 PLAIN = {"K1": decode_scan.decode_plain, "K2": parse_scan.parse_plain,
          "K3": bits_scan.bits_plain, "K4": parse_ap_scan.parse_ap_plain,
-         "K5": exact_scan.exact_plain}
+         "K5": exact_scan.exact_plain, "K6": exact_ap_scan.exact_ap_plain}
 LAUNCH = {"K1": decode_kernel.decode_k1, "K2": parse_kernel.parse_k2,
           "K3": bits_kernel.code_k3, "K4": parse_ap_kernel.parse_k4,
-          "K5": exact_kernel.parse_k5}
+          "K5": exact_kernel.parse_k5, "K6": exact_ap_kernel.parse_k6}
 # arguments of a kernel that are not batch-first (K4's price tables)
 WHOLE = {"K4": (6,)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -330,9 +349,10 @@ def same_rows(tag, kernel, full, sub, k):
 # ----------------------------------------------------------- phase 5 parts
 def parse_stage(values):
     """The parse kernel of an encode pass from its on_stage values: K2 at
-    m1 / m2, K4 at m3-m5, K5 under the exact parse; (kernel, its
-    arguments, its outputs)."""
-    kernel = ("K5" if "k5_args" in values else
+    m1 / m2, K4 at m3-m5, K5 (m1 / m2) or K6 (m3 / m4) under the exact
+    parse; (kernel, its arguments, its outputs)."""
+    kernel = ("K6" if "k6_args" in values else
+              "K5" if "k5_args" in values else
               "K4" if "k4_args" in values else "K2")
     low = kernel.lower()
     return kernel, values[low + "_args"], values[low + "_out"]
@@ -341,15 +361,17 @@ def parse_stage(values):
 def encode_cell(tag, props, datas, dev, reps, parse="fast"):
     """The encode main path on one preset group: encode_batch once with
     the launch counts set to 0 (it must launch its parse kernel, K2, K4
-    or, under parse="exact", K5, and K3), `reps` timed calls, one pass
+    or, under parse="exact", K5 or K6, and K3), `reps` timed calls, one pass
     split by stage, a round trip through K1, and the parse kernel and K3
     timed on the inputs that pass gave them.  Returns the phase's
     numbers."""
     parse_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
     exact_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
+    exact_ap_kernel.LAUNCHES = 0
     outs = pipeline.encode_batch(props, datas, device=dev, parse=parse)
     counts = {"K2": parse_kernel.LAUNCHES, "K4": parse_ap_kernel.LAUNCHES,
-              "K5": exact_kernel.LAUNCHES, "K3": bits_kernel.LAUNCHES}
+              "K5": exact_kernel.LAUNCHES, "K6": exact_ap_kernel.LAUNCHES,
+              "K3": bits_kernel.LAUNCHES}
     walls = []
     for _ in range(reps):
         t0 = time.time()
@@ -386,6 +408,11 @@ def encode_cell(tag, props, datas, dev, reps, parse="fast"):
         # operation at least for each lockstep micro-op it counts
         probes = lz
         p_bound = bound(total + 8 * ntok, int(p_out[4].long().sum()))
+    elif parse_k == "K6":
+        # K6 reads the data once and writes 8 bytes a token; it takes one
+        # operation at least for each position it parses
+        probes = lz
+        p_bound = bound(total + 8 * ntok, total)
     else:
         # The parse reads all C candidate words at each position it
         # probes and writes 8 bytes a token.  K2: every LZ token (kinds
@@ -438,16 +465,18 @@ def encode_parity(props, plans, idxs, dev):
     """One preset group of the parity batch through encode_group, its
     stages held to their counterparts on the same inputs: the candidates
     (of K2 and K4) and the stitch on the CPU, the parse kernel (K2, K4
-    or, for exact plans, K5) and K3 against their plain versions on
-    the card.  Returns (streams, the parse kernel, fields compared, max
-    abs difference, plain seconds of the parse kernel and of K3)."""
+    or, for exact plans, K5 or K6) and K3 against their plain versions
+    on the card's inputs.  Returns (streams, the parse kernel, fields
+    compared, max abs difference, plain seconds of the parse kernel and of
+    K3)."""
     p0 = props[idxs[0]]
     stages = Stages()
     outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
     v = stages.values
     kernel, p_args, p_out = parse_stage(v)
     err = 0
-    if kernel != "K5":
+    fast = kernel not in ("K5", "K6")
+    if fast:
         data, _, run_ends = p_args[:3]
         width = (p0.hash_width or 8) if kernel == "K4" else p0.hash_width
         cand_cpu = parse_pre.precompute_candidates(
@@ -467,7 +496,7 @@ def encode_parity(props, plans, idxs, dev):
     want = bits_scan.bits_plain(*v["k3_args"])
     k3_plain_s = sync_time() - t0
     err = max(err, compare("encode parity", "K3", v["k3_out"], want))
-    nfields = (kernel != "K5") + len(FIELDS[kernel]) + 4 + len(FIELDS["K3"])
+    nfields = fast + len(FIELDS[kernel]) + 4 + len(FIELDS["K3"])
     return outs, kernel, nfields, err, parse_plain_s, k3_plain_s
 
 
@@ -662,6 +691,66 @@ def cli_big_phase(dev, data, sdir, k5_lib):
     return launches, k5_ms, bnd, err
 
 
+def cli_big_m3_phase(dev, data, sdir, k6_lib):
+    """Phase 9a3: `c -m3` of `data` (past the cap, routed to the exact
+    parse: one K6 chain) and `d`; K6 on the stream's inputs timed and
+    held to its g++ build on every field.  Returns ({run: K6 launches},
+    K6's ms, its bound, the g++ comparison's max abs difference)."""
+    from csc_tpu_torch import cli
+    src = os.path.join(sdir, "big.bin")
+    enc, dst = (os.path.join(sdir, f"big_m3.{x}") for x in ("csc", "out"))
+    exact_ap_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
+    bits_kernel.LAUNCHES = 0
+    t0 = time.time()
+    check(cli.main(["c", "-m", "3", "--backend", "cuda", src, enc]) == 0,
+          "cli_big_m3: c failed")
+    t1 = time.time()
+    launches = {"cli_c_big m3": exact_ap_kernel.LAUNCHES}
+    check(exact_ap_kernel.LAUNCHES >= 1 and bits_kernel.LAUNCHES >= 1
+          and parse_ap_kernel.LAUNCHES == 0,
+          "cli_big_m3: c did not launch K6 and K3 alone")
+    decode_kernel.LAUNCHES = 0
+    check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0,
+          "cli_big_m3: d failed")
+    t2 = time.time()
+    check(decode_kernel.LAUNCHES >= 1, "cli_big_m3: d did not launch K1")
+    with open(dst, "rb") as f:
+        check(f.read() == data, "cli_big_m3: d restored other bytes")
+    with open(enc, "rb") as f:
+        blob = f.read()
+    props = props_init(len(data), 3)
+    stages = Stages()
+    outs = pipeline.encode_batch([props], [data], device=dev,
+                                 on_stage=stages)
+    check(write_properties(props) + outs[0] == blob,
+          "cli_big_m3: the staged encode differs from the CLI's")
+    v = stages.values
+    args, out = v["k6_args"], v["k6_out"]
+    k6_ms, again = event_ms(lambda: exact_ap_kernel.parse_k6(*args), 1)
+    compare("cli_big_m3 relaunch", "K6", again, out)
+    t3 = time.time()
+    host = k6_host(k6_lib, to_cpu(args))
+    gxx_s = time.time() - t3
+    err = compare("cli_big_m3 against K6's g++ build", "K6", out,
+                  [torch.from_numpy(h) for h in host])
+    plan = v["plans"][0]
+    btypes = out[4][0].cpu().numpy()
+    runs = encode_host.exact_run_table(plan, btypes)
+    ntok = int(out[1].sum())
+    bnd = bound(len(data) + 8 * ntok, len(data))
+    phase("cli_big_m3", bytes=len(data), compressed=len(blob),
+          ratio=f"{len(blob) / len(data):.6f}", c_s=f"{t1 - t0:.3f}",
+          d_s=f"{t2 - t1:.3f}", c_mbps=f"{len(data) / (t1 - t0) / 1e6:.2f}",
+          k6_ms=f"{k6_ms:.3f}", k6_bound_ms=f"{bnd[0]:.6f}",
+          ns_per_position=f"{k6_ms * 1e6 / len(data):.1f}", tokens=ntok,
+          blocks=len(plan.blocks), runs=len(runs), run_types=",".join(
+              sorted({str(r[0]) for r in runs})), gxx_s=f"{gxx_s:.2f}",
+          gxx_max_abs_err=err, round_trip="K1 byte-exact",
+          launches_k6=launches["cli_c_big m3"])
+    phase("cli_big_m3_layers", **stages.ms())
+    return launches, k6_ms, bnd, err
+
+
 def cli_ring_phase(dev, data, sdir, k5_lib, meanwhile):
     """Phase 9a2: `c -m1 -d 1m` and `c -m2 -d 1m` of `data` (phase 9a's
     file, already at sdir/big.bin), `d` of each; K5 on the m1 stream's
@@ -749,7 +838,7 @@ def cli_ring_phase(dev, data, sdir, k5_lib, meanwhile):
 # ---------------------------------------------------------- phase 9b parts
 KERNEL_MODULES = {"K1": decode_kernel, "K2": parse_kernel,
                   "K3": bits_kernel, "K4": parse_ap_kernel,
-                  "K5": exact_kernel}
+                  "K5": exact_kernel, "K6": exact_ap_kernel}
 
 
 def arc_tree(root):
@@ -875,17 +964,20 @@ def archiver_phase(dev, backend, datas):
     for tag, opts, sub, restored in (
             ("default", [], "tree", want),
             ("m1", ["-m1"], "tree", want),
-            ("exact", ["-m2", "--parse=exact"], "tree", want)):
+            ("exact", ["-m2", "--parse=exact"], "tree", want),
+            ("exact_m3", ["-m3", "--parse=exact"], "tree", want)):
         arc = os.path.join(root, f"{tag}.csa")
         nbytes = sum(map(len, restored.values()))
         rc, _, a_wall, a_n, a_layers = csarc_run(
             root, ["a", "-r", bk] + opts + [arc, sub], dev)
         check(rc == 0, f"archiver {tag}: a returned {rc}")
-        parse_k = "K5" if tag == "exact" else "K2"
-        check(a_n[parse_k] >= 1 and a_n["K3"] >= 1 and a_n["K1"] == 0,
-              f"archiver {tag}: a did not launch {parse_k} and K3 ({a_n})")
-        # the trailer's parse, always the exact one (K5): an exact `a`
-        # launches no K2, a fast one K5 for the trailer alone
+        parse_k = {"exact": "K5", "exact_m3": "K6"}.get(tag, "K2")
+        check(a_n[parse_k] >= 1 and a_n["K3"] >= 1 and a_n["K1"] == 0
+              and a_n["K4"] == 0, f"archiver {tag}: a did not launch "
+              f"{parse_k} and K3 ({a_n})")
+        # the trailer's parse, always the exact one of m2 (K5): an exact
+        # `a` launches no K2, a fast one (and the exact m3 one) K5 for the
+        # trailer alone
         trailer = ("fast" if (a_n["K2"] if tag == "exact" else
                               not a_n["K5"]) else "exact")
         check(trailer == "exact", f"archiver {tag}: the trailer did not "
@@ -915,7 +1007,7 @@ def archiver_phase(dev, backend, datas):
               trailer_parse=trailer, a_s=f"{a_wall:.3f}",
               a_mbps=f"{nbytes / a_wall / 1e6:.2f}", x_s=f"{x_wall:.3f}",
               x_mbps=f"{nbytes / x_wall / 1e6:.2f}", t_s=f"{t_wall:.3f}",
-              **{f"a_{k}": a_n[k] for k in ("K2", "K3", "K4", "K5")},
+              **{f"a_{k}": a_n[k] for k in ("K2", "K3", "K4", "K5", "K6")},
               x_K1=x_n["K1"], round_trip="byte-exact", t_rc=0)
         phase("archiver_layers", run=tag, **{f"a_{k}_ms": v for k, v in
                                              a_layers.items()},
@@ -1031,8 +1123,8 @@ def main(procs):
     # K1-K5's registers, stack frame and local-memory traffic (ptxas
     # -v and cuobjdump -sass; _build.resources raises if either cannot be
     # read), and K1's blocks per SM (the design's two)
-    res = {n: _build.resources(n)
-           for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4", "csc_k5")}
+    res = {n: _build.resources(n) for n in ("csc_k1", "csc_k2", "csc_k3",
+                                            "csc_k4", "csc_k5", "csc_k6")}
     res["csc_k1"]["blocks_per_sm"] = decode_kernel.blocks_per_sm()
     # K4's shared memory a block and blocks an SM: price tables, the
     # stretch's cells and a stream's data (16 KB: the m3-m5 cells), or no
@@ -1041,7 +1133,8 @@ def main(procs):
     # need
     # K5's likewise: a stream's staged data (16 KB), or none (1 MB); the
     # design keeps eight or more 16 KB streams on an SM, so that the
-    # 1 024-stream group is resident at once
+    # 1 024-stream group is resident at once; K6's: the staged data and
+    # its model's tables (its registers cut it to fewer)
     for tag, n in (("16k", HEAD_BYTES), ("1m", MB)):
         res["csc_k4"]["smem_" + tag] = parse_ap_kernel.smem_bytes(n)
         res["csc_k4"]["blocks_per_sm_" + tag] = \
@@ -1049,6 +1142,9 @@ def main(procs):
         res["csc_k5"]["smem_" + tag] = exact_kernel.smem_bytes(n)
         res["csc_k5"]["blocks_per_sm_" + tag] = \
             exact_kernel.blocks_per_sm(n)
+        res["csc_k6"]["smem_" + tag] = exact_ap_kernel.smem_bytes(n)
+        res["csc_k6"]["blocks_per_sm_" + tag] = \
+            exact_ap_kernel.blocks_per_sm(n)
     # and of K5's kernel for streams longer than their dictionary
     res["csc_k5"]["blocks_per_sm_1m_ring"] = exact_kernel.blocks_per_sm(
         MB, ring=True)
@@ -1062,6 +1158,9 @@ def main(procs):
     check(res["csc_k5"]["blocks_per_sm_16k"] >= 8,
           f"K5 holds {res['csc_k5']['blocks_per_sm_16k']} blocks of 16 KB "
           f"streams per SM, not 8 or more")
+    check(res["csc_k6"]["blocks_per_sm_16k"] >= 4,
+          f"K6 holds {res['csc_k6']['blocks_per_sm_16k']} blocks of 16 KB "
+          f"streams per SM, not 4 or more")
     for name, r in res.items():
         check(r["stack_frame"] == 0 and r["ldl"] == 0 and r["stl"] == 0,
               f"{name} has a {r['stack_frame']}-byte stack frame, "
@@ -1295,6 +1394,53 @@ def main(procs):
           gxx_seconds=f"{k5_task_s:.2f}", build="csrc/encode_k5_host.cpp "
           "with g++, the full step budget")
 
+    # -------------------------------------------------- 7c encode_exact_ap
+    # the exact optimal parse (K6) at the encode shape, 96 x 16 KB text,
+    # filters on, at m3 and m4, and on the 4 x 1 MB task at m3 (K6 reads
+    # data past its 64 KB staging from device memory), beside the fast
+    # parse's (K4) streams of the same inputs; K6's g++ build on the
+    # task's first whole 1 MB stream
+    k6_lib = build_k6_host(pathlib.Path(sdir))
+    for name, level, datas, reps in (("m3", 3, ed, 3), ("m4", 4, ed, 3),
+                                     ("task", 3, group, 1)):
+        tag = f"encode_exact_ap {name}"
+        ep = [props_init(len(datas[0]), level) for _ in datas]
+        cell = encode_cell(tag, ep, datas, dev, reps, parse="exact")
+        cells[tag] = cell
+        fast = pipeline.encode_batch(ep, datas, device=dev)
+        fast_ratio = sum(map(len, fast)) / cell["total"]
+        if name == "m3":
+            jobs.append(plain_job(tag, "K6", cell["parse_args"], 3))
+            same_rows(tag, "K6", cell["parse_out"], jobs[-1]["kernel_out"],
+                      PLAIN_STREAMS["K6"])
+        if name == "task":
+            t0 = time.time()
+            host = k6_host(k6_lib, to_cpu(first_args(cell["parse_args"], 1,
+                                                     "K6")))
+            k6_task_s = time.time() - t0
+            k6_task_err = compare(f"{tag} (the first whole 1 MB stream) "
+                                  f"against K6's g++ build", "K6",
+                                  [t[:1] for t in cell["parse_out"]],
+                                  [torch.from_numpy(h) for h in host])
+        phase("encode_exact_ap_layers", cell=name, **cell["layers"])
+        phase("encode_exact_ap", cell=name, level=f"m{level}",
+              streams=len(datas), bytes=cell["total"],
+              wall_median_s=f"{cell['wall']:.4f}",
+              wall_mbps=f"{cell['total'] / cell['wall'] / 1e6:.2f}",
+              k6_ms=f"{cell['parse_ms']:.3f}", k3_ms=f"{cell['k3_ms']:.3f}",
+              k6_bound_ms=f"{cell['parse_bound'][0]:.6f}",
+              ns_per_position=f"{cell['parse_ms'] * 1e6 / len(datas[0]):.1f}",
+              tokens=cell["ntok"], lz_tokens=cell["lz"],
+              ratio=f"{cell['ratio']:.6f}", fast_ratio=f"{fast_ratio:.6f}",
+              round_trip="K1 byte-exact",
+              launches_k6=cell["launches"]["K6"],
+              launches_k3=cell["launches"]["K3"])
+        drop_inputs(cell)
+    phase("k6_host", cell="task", streams=1, bytes=GROUP_BYTES,
+          fields_compared=len(FIELDS["K6"]), max_abs_err=k6_task_err,
+          gxx_seconds=f"{k6_task_s:.2f}", build="csrc/encode_k6_host.cpp "
+          "with g++")
+
     # ----------------------------------------------------------- 8 extract
     gps = gp * GROUP_REPEAT
     gb = group_blobs * GROUP_REPEAT
@@ -1407,6 +1553,12 @@ def main(procs):
         cli_ring_phase(dev, big, sdir, k5_lib, lambda: arc_many_phase(dev))
     phase("cli_ring_done", seconds=f"{time.time() - t0:.1f}")
 
+    # ------------------------------------------------------- 9a3 cli_big_m3
+    t0 = time.time()
+    big_m3_launches, big_k6_ms, big_k6_bound, big_m3_err = cli_big_m3_phase(
+        dev, big, sdir, k6_lib)
+    phase("cli_big_m3_done", seconds=f"{time.time() - t0:.1f}")
+
     # ---------------------------------------------------------- 9b archiver
     t0 = time.time()
     arc_launches = archiver_phase(dev, "cuda", hd[:MESH_STREAMS])
@@ -1463,10 +1615,10 @@ def main(procs):
     phase("encode_parity", level="m3", streams=3, fields_compared=nf,
           max_abs_err=err, k4_plain_s=f"{p_plain_s:.3f}",
           k3_plain_s=f"{k3_plain_s:.3f}")
-    # the same streams under the exact parse at m1 and m2: K5 against its
-    # plain version, then a round trip through K1
-    plain_card_s["K5"] = 0.0
-    for level in (1, 2):
+    # the same streams under the exact parse at m1, m2 (K5) and m3 (K6)
+    # against its plain version, then a round trip through K1
+    plain_card_s["K5"] = plain_card_s["K6"] = 0.0
+    for level in (1, 2, 3):
         x_props = []
         for _, p, _ in par[:3]:
             q = props_init(PARITY_BYTES, level)
@@ -1477,17 +1629,19 @@ def main(procs):
                                         "exact")
         outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
             x_props, x_plans, [0, 1, 2], dev)
-        check(parse == "K5", f"parity exact m{level}: the group did not "
-              f"run K5")
+        want_k = "K6" if level == 3 else "K5"
+        check(parse == want_k, f"parity exact m{level}: the group did not "
+              f"run {want_k}")
         back = pipeline.decode_batch(x_props, outs, device=dev)
         check(back == [c[2] for c in par[:3]], f"parity exact m{level}: "
               f"the round trip through K1 differs")
         max_err = max(max_err, err)
-        plain_card_s["K5"] += p_plain_s
+        plain_card_s[want_k] += p_plain_s
         plain_card_s["K3"] += k3_plain_s
         phase("encode_parity", level=f"m{level} exact", streams=3,
               fields_compared=nf, max_abs_err=err,
-              k5_plain_s=f"{p_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
+              **{f"{want_k.lower()}_plain_s": f"{p_plain_s:.3f}"},
+              k3_plain_s=f"{k3_plain_s:.3f}")
 
     # ----------------------------------------------------------- 11 parity
     par_blobs[-1] = corpus.flip(par_blobs[-1])
@@ -1539,15 +1693,18 @@ def main(procs):
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
                   k5_phases_err, k5_task_err, k4_host_err, big_err,
-                  ring_err)
+                  ring_err, k6_task_err, big_m3_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
+    xa3, xa4 = cells["encode_exact_ap m3"], cells["encode_exact_ap m4"]
+    xat = cells["encode_exact_ap task"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
     launches = {"K1": k1_launches}
-    for kernel in ("K2", "K3", "K4", "K5"):
+    for kernel in ("K2", "K3", "K4", "K5", "K6"):
         launches[kernel] = {tag: c["launches"][kernel]
                             for tag, c in cells.items()
                             if kernel in c["launches"]}
+    launches["K6"].update(big_m3_launches)
     launches["K5"]["cli_c_exact"] = k5_cli_launches
     launches["K5"].update(big_launches)
     launches["K5"].update({f"cli_c_ring m{level}": n
@@ -1558,11 +1715,13 @@ def main(procs):
             if n:
                 launches[kernel][run] = n
     card_on = {"K1": "the parity batch", "K2": "the m1 + m2 parity groups",
-               "K3": "the m1 + m2 + m3 + exact m1 + m2 parity groups",
+               "K3": "the m1 + m2 + m3 + exact m1 + m2 + m3 parity groups",
                "K4": "the m3 parity group (the batch's text and EXE "
                      "streams)",
                "K5": "the exact m1 + m2 parity groups (the batch's text "
-                     "and EXE streams)"}
+                     "and EXE streams)",
+               "K6": "the exact m3 parity group (the batch's text and EXE "
+                     "streams; the plain version runs on the host)"}
 
     def row(kernel, name, source, replaces, ms, on, bnd, tag):
         j = plain[(kernel, tag)]
@@ -1636,7 +1795,13 @@ def main(procs):
                "ns_per_micro_op": x1["parse_ms"] * 1e6
                / x1["longest"]["micro_ops"],
                "longest": {k: x1["longest"][k]
-                           for k in ("positions", "micro_ops", "tokens")}}}
+                           for k in ("positions", "micro_ops", "tokens")}},
+        "K6": {"ns_per_position": xa3["parse_ms"] * 1e6
+               / xa3["longest"]["positions"],
+               "ns_per_lz_token": xa3["parse_ms"] * 1e6
+               / xa3["longest"]["lz_tokens"],
+               "longest": {k: xa3["longest"][k]
+                           for k in ("positions", "lz_tokens", "tokens")}}}
     phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
                         for u, v in d.items() if u != "longest"})
     phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
@@ -1695,6 +1860,26 @@ def main(procs):
              max_abs_err_ring_gxx=ring_err,
              ring_on="phase 9a2: the same file under -d 1m (a 1 MB + 10 "
                      "KB ring, four wraps), m1, one stream"),
+        dict(row("K6", "K6 exact optimal parse of m3/m4 priced by the live "
+                 "model (one warp a stream: K5's finder, slide, walk and "
+                 "probe; the stretch's DP a length a lane, its back-walk's "
+                 "tokens and the shadow model's updates by lane 0; the "
+                 "model's small trees, its length cache and a stream of up "
+                 "to 64 KB in shared memory, p_lit and the cells in device "
+                 "memory)", "csc_tpu_torch/csrc/encode_k6.cu",
+                 "csc_tpu/ops/pipeline.py:248 (no TPU kernel: csc_tpu "
+                 "codes these streams with its golden host encoder)",
+                 xa3["parse_ms"], f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB "
+                 f"m3 text, exact parse", xa3["parse_bound"],
+                 "encode_exact_ap m3"),
+             ms_m4=round(xa4["parse_ms"], 4),
+             bound_ms_m4=round(xa4["parse_bound"][0], 6),
+             ms_task=round(xat["parse_ms"], 4),
+             bound_ms_task=round(xat["parse_bound"][0], 6),
+             task_on="the 4 x 1 MB m3 task (phase 7c)",
+             ms_past_cap=round(big_k6_ms, 4),
+             bound_ms_past_cap=round(big_k6_bound[0], 6),
+             past_cap_on="phase 9a's ~4.5 MB file at m3, one stream"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

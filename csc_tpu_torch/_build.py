@@ -31,6 +31,7 @@ KERNELS = {
     "csc_k3": ["encode_k3.cu", "encode_k3.cuh"],
     "csc_k4": ["encode_k4.cu", "encode_k4.cuh"],
     "csc_k5": ["encode_k5.cu", "encode_k5.cuh"],
+    "csc_k6": ["encode_k6.cu", "encode_k6.cuh", "encode_k5.cuh"],
 }
 # the spike probes (csc_tpu_torch/spikes): one library per spike file
 SPIKE_FILES = ("carry", "dma", "gather", "marginal", "mxu_stage", "pallas",
@@ -53,6 +54,9 @@ _ARGTYPES = {
                                  _p]),
     "csc_k5": ("csc_k5_launch", [_p, _i64, _p, _i32, _p, _p, _i32, _i32,
                                  _i32, _i32, _p, _p, _p, _p, _i64, _i64, _p,
+                                 _p, _i32, _p]),
+    "csc_k6": ("csc_k6_launch", [_p, _i64, _p, _i32, _p, _p, _i32, _i32,
+                                 _i32, _p, _p, _p, _p, _p, _p, _p, _i64, _p,
                                  _p, _i32, _p]),
 }
 _ARGTYPES.update({f"spike_{f}": (f"spike_{f}_launch",
@@ -210,7 +214,7 @@ def load(name, csrc=CSRC):
 
 
 def kernel_library(name):
-    """The ctypes library of one kernel ("csc_k1" .. "csc_k5",
+    """The ctypes library of one kernel ("csc_k1" .. "csc_k6",
     "spike_<file>"), built on first use."""
     with _lock:
         lib = _libs.get(name)

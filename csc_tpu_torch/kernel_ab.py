@@ -1,12 +1,13 @@
-"""Time K1-K5 of this checkout against another checkout's, on one card,
+"""Time K1-K6 of this checkout against another checkout's, on one card,
 in turns, at the cells of chip_smoke.py.
 
-    python -m csc_tpu_torch.kernel_ab --other DIR [--kernels K1,K2,K3,K4,K5]
+    python -m csc_tpu_torch.kernel_ab --other DIR
+                                      [--kernels K1,K2,K3,K4,K5,K6]
                                       [--json FILE]
 
 DIR is the root of another checkout (for example a `git archive` of the
 parent commit unpacked under build/).  Its csc_tpu_torch/csrc/decode_k1.*,
-encode_k2.* .. encode_k5.* are built beside this checkout's and launched
+encode_k2.* .. encode_k6.* are built beside this checkout's and launched
 through this checkout's wrappers on the same inputs (the kernels' C
 interface must be the same: a K5 that takes the LZ runs' ends rather
 than the block table is left out with --kernels K1,K2,K3,K4); a kernel
@@ -21,12 +22,15 @@ ENCODE_GROUP_BYTES) and at m3 on the encode task (4 x 1 MB text: the
 streams that keep their data in device memory); K5 (the exact parse) at
 m1 and m2 on the encode headline, at m1 on 1 024 and 4 096 x 16 KB text
 (the encode path's large groups; 4 096 needs more than eight K5 blocks
-an SM) and on the encode task.  The inputs come from this
-checkout's encode path on the card.  K4 and K5 are launched directly,
-with no debug copy (as on the encode path): the tape and K5's hash
-tables are zeroed before each timed call, outside its events, and the
-builds are compared on tape, tok_cnt, done and err (K5: and steps and
-the block types).
+an SM) and on the encode task; K6 (the exact optimal parse) at m3 and
+m4 on the encode headline, at m3 on 1 024 x 16 KB text and on the m3
+encode task (K6 against a checkout without it: `--other .`, this
+checkout against itself).  The inputs come from this
+checkout's encode path on the card.  K4, K5 and K6 are launched
+directly, with no debug copy (as on the encode path): the tape and the
+hash tables are zeroed before each timed call, outside its events, and
+the builds are compared on tape, tok_cnt, done and err (K5: and steps
+and the block types; K6: and the block types).
 Each cell is timed in turns, forward then backward (other, this, this,
 other; CUDA events, the median of `reps` calls a turn, the best turn
 kept), and the other build's outputs must equal this one's on every
@@ -49,8 +53,8 @@ import torch
 
 from . import _build, corpus
 from .constants import K_END, K_SENT_A
-from .ops import (bits_kernel, bits_scan, decode_kernel, exact_kernel,
-                  parse_ap_kernel, parse_kernel, pipeline)
+from .ops import (bits_kernel, bits_scan, decode_kernel, exact_ap_kernel,
+                  exact_kernel, parse_ap_kernel, parse_kernel, pipeline)
 from .props import props_init
 
 KB, MB = 1024, 1024 * 1024
@@ -122,15 +126,16 @@ def k1_cell(props, blobs, sizes, dev, other, reps):
 
 
 def stage_args(props, datas, dev, parse="fast"):
-    """The parse kernel's (K2's, K4's or K5's) and K3's inputs on the
-    encode path, and the encoded streams."""
+    """The parse kernel's (K2's, K4's, K5's or K6's) and K3's inputs on
+    the encode path, and the encoded streams."""
     seen = {}
 
     def on_stage(name, **values):
         seen.update(values)
     outs = pipeline.encode_batch(props, datas, device=dev, on_stage=on_stage,
                                  parse=parse)
-    args = seen.get("k2_args", seen.get("k4_args", seen.get("k5_args")))
+    args = next(seen[k] for k in ("k2_args", "k4_args", "k5_args",
+                                  "k6_args") if k in seen)
     return args, seen["k3_args"], outs
 
 
@@ -185,16 +190,47 @@ def k5_calls(args, other):
     return calls
 
 
+def k6_calls(args, other):
+    """(prepare, launch) of each build for K6's raw launch on the encode
+    path's arguments: its zeroed hash tables, its model and cell scratch
+    (set up by the kernel), tape, counters and block types."""
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap = args
+    b = data.shape[0]
+    dev = data.device
+    p2b = exact_ap_kernel.p2b_table(dev)
+    calls = {}
+    for who, lib in (("this", _build.kernel_library("csc_k6")),
+                     ("other", other)):
+        scratch = exact_ap_kernel.new_scratch(b, hash_bits, hash_width, dev)
+        tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
+        out = torch.zeros((3, b), dtype=torch.int32, device=dev)
+        btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
+
+        def prepare(scratch=scratch, tape=tape, btypes=btypes):
+            for t in scratch[0] + (tape, btypes):
+                t.zero_()
+
+        def call(lib=lib, scratch=scratch, tape=tape, out=out,
+                 btypes=btypes):
+            exact_ap_kernel.launch(lib, data, blocks, sizes, dicts,
+                                   hash_bits, hash_width, good_len, p2b,
+                                   scratch, tape, out, btypes)
+            return tape, out[0], out[1], out[2], btypes
+        calls[who] = (prepare, call)
+    return calls
+
+
 def parse_cell(name, args, sizes, other, reps):
-    """A parse kernel's cell (name "csc_k2", "csc_k4" or "csc_k5"): ms,
-    and ns per position and per LZ token of the longest stream (K5: and
-    per lockstep micro-op).  K2 through its wrapper; K4 and K5 launched
-    directly (k4_calls, k5_calls)."""
+    """A parse kernel's cell (name "csc_k2", "csc_k4", "csc_k5" or
+    "csc_k6"): ms, and ns per position and per LZ token of the longest
+    stream (K5: and per lockstep micro-op).  K2 through its wrapper; K4,
+    K5 and K6 launched directly (k4_calls, k5_calls, k6_calls)."""
     if name == "csc_k2":
         ms, out = turns(name, other,
                         lambda: parse_kernel.parse_k2(*args), reps)
     else:
-        calls = (k4_calls if name == "csc_k4" else k5_calls)(args, other)
+        calls = {"csc_k4": k4_calls, "csc_k5": k5_calls,
+                 "csc_k6": k6_calls}[name](args, other)
         ms, out = turns(name, other, None, reps, calls)
     tape, tok_cnt = out[0], out[1]
     live = (torch.arange(tape.shape[1], device=tape.device)[None, :]
@@ -208,9 +244,11 @@ def parse_cell(name, args, sizes, other, reps):
                 ns_per_byte={k: v * 1e6 / sum(sizes) for k, v in ms.items()},
                 streams=len(sizes), longest=dict(positions=pos,
                                                  lz_tokens=lz))
-    if name == "csc_k5":
+    if name in ("csc_k5", "csc_k6"):
         if not (bool(out[2].all()) and not bool(out[3].any())):
-            raise RuntimeError("kernel_ab: K5 did not finish every stream")
+            raise RuntimeError(f"kernel_ab: {name} did not finish every "
+                               f"stream")
+    if name == "csc_k5":
         ops = int(out[4].max())
         cell["longest"]["micro_ops"] = ops
         cell["ns_per_micro_op"] = {k: v * 1e6 / ops for k, v in ms.items()}
@@ -239,7 +277,7 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--json", help="write the results here too")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5",
+    ap.add_argument("--kernels", default="K1,K2,K3,K4,K5,K6",
                     help="the kernels whose cells to time")
     a = ap.parse_args(argv)
     want = set(a.kernels.split(","))
@@ -252,17 +290,17 @@ def main(argv=None):
     print(smi, flush=True)
     other_csrc = os.path.join(os.path.abspath(a.other), "csc_tpu_torch",
                               "csrc")
-    # a kernel the other checkout does not have (K5 before its port) is
-    # left out
+    # a kernel the other checkout does not have (K5, K6 before their
+    # ports) is left out
     names = tuple(n for n in ("csc_k1", "csc_k2", "csc_k3", "csc_k4",
-                              "csc_k5")
+                              "csc_k5", "csc_k6")
                   if os.path.exists(os.path.join(other_csrc,
                                                  _build.KERNELS[n][0])))
     want &= {"K" + n[-1] for n in names}
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
     other = {n: _build.load(n, other_csrc) for n in names}
-    k1, k2, k3, k4, k5 = (other.get(f"csc_k{i}") for i in range(1, 6))
+    k1, k2, k3, k4, k5, k6 = (other.get(f"csc_k{i}") for i in range(1, 7))
     res = {"card": smi, "resources": {
         "this": {n: _build.resources(n) for n in names},
         "other": {n: _build.resources(n, other_csrc) for n in names}}}
@@ -347,6 +385,26 @@ def main(argv=None):
         args5, _, _ = stage_args(gp, group, dev, "exact")
         cells["K5 task m1 4 x 1 MB"] = parse_cell(
             "csc_k5", args5, [len(d) for d in group], k5, 1)
+    if "K6" in want:
+        for level in (3, 4):
+            args6, _, _ = stage_args([props_init(16 * KB, level)
+                                      for _ in enc], enc, dev, "exact")
+            cells[f"K6 m{level} 96 x 16 KB"] = parse_cell(
+                "csc_k6", args6, [len(d) for d in enc], k6, 3)
+        many = [text[i * 16 * KB % (len(text) - 16 * KB):][:16 * KB]
+                for i in range(1024)]
+        args6, _, _ = stage_args([props_init(16 * KB, 3) for _ in many],
+                                 many, dev, "exact")
+        if args6[0].shape[0] != len(many):
+            raise RuntimeError("kernel_ab: 1 024 x 16 KB m3 took more than "
+                               "one K6 launch")
+        cells["K6 m3 1024 x 16 KB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in many], k6, 1)
+        del args6
+        args6, _, _ = stage_args([props_init(MB, 3) for _ in group], group,
+                                 dev, "exact")
+        cells["K6 task m3 4 x 1 MB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in group], k6, 1)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

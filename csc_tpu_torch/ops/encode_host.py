@@ -272,12 +272,12 @@ class FastPlan(NamedTuple):
 
 
 class ExactPlan(NamedTuple):
-    """A stream's plan for the exact parse (K5): its filtered LZ input,
+    """A stream's plan for the exact parse (K5, K6): its filtered LZ input,
     the block table [NB, 2] int32 of the analyzer's 8 KB blocks before
     the duplicate-block probe (each block's cumulative end and its info
     word, BLK_TYPE / BLK_SKIP / BLK_CHUNK), and its EXE and ENGTXT runs
     by their offset in the LZ input (`exact_run_table` takes them as
-    they are and builds the other runs from K5's block types)."""
+    they are and builds the other runs from the parse's block types)."""
     lz: bytes
     blocks: np.ndarray
     filtered: dict
@@ -301,13 +301,12 @@ def plan_stream(props, data, exact=False):
     duplicated 8KB block stays BAD/ENTROPY/DLT instead of being re-LZ'd,
     a rare ratio-only divergence from the reference.
 
-    exact=True (the exact parse, K5) returns an ExactPlan: the same LZ
-    input, the block table of the analyzer's 8 KB blocks before that probe
-    and the EXE / ENGTXT runs.  The probe reads the live hash tables, so
-    K5 makes it and merges the blocks into runs; the run table is then
-    built from its block types (`exact_run_table`).  The LZ input does not
-    depend on the
-    probe: a block it re-types DT_NORMAL keeps its raw bytes (a no-LZ
+    exact=True (the exact parse, K5 at m1 / m2, K6 at m3 / m4) returns an
+    ExactPlan: the same LZ input, the block table of the analyzer's 8 KB
+    blocks before that probe and the EXE / ENGTXT runs.  The probe reads
+    the live hash tables, so the parse makes it and merges the blocks
+    into runs; the run table is then built from its block types
+    (`exact_run_table`).  The LZ input does not depend on the probe: a block it re-types DT_NORMAL keeps its raw bytes (a no-LZ
     block's LZ input is its raw bytes, which the probe reads), and EXE /
     ENGTXT blocks are never re-typed.
     """
@@ -391,7 +390,7 @@ def plan_stream(props, data, exact=False):
                     run_table.append((DT_NORMAL, rsize, -1, chunk_last,
                                       None))
             elif exact:
-                # the other runs come from K5's block types
+                # the other runs come from the parse's block types
                 pass
             elif t >= DT_DLT:
                 # window gets the RAW bytes (mf-skip, csc_lz.cpp:114);
@@ -416,7 +415,7 @@ def plan_stream(props, data, exact=False):
 
 def exact_run_table(plan, btypes):
     """The run table of an ExactPlan from the final type of each block
-    that K5 returns (after the
+    that K5 or K6 returns (after the
     duplicate-block probe and the skipped blocks' resolution): blocks of
     one type in one raw chunk merge into a run, as CSCEncoder::Compress
     merges them (the rawblock_limit split, csc_encoder_main.cpp:129, never

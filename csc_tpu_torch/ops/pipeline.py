@@ -9,23 +9,25 @@ encode: host plan (analyzer + forward filters) -> candidates (parse_pre)
 -> K2 lazy parse (m1/m2) or K4 optimal parse (m3-m5) -> stitch -> K3
 phase-B coder -> host remux.  The counterpart of csc_tpu/ops/pipeline.py
 `encode_batch` on its fast path (pipeline.py:335-389 and, at m3-m5,
-391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1 and
-m2 only): host plan (the analyzer's 8 KB blocks) -> K5, the exact parse
-with live hash tables, which also makes the duplicate-block probe and
-merges the blocks into runs -> the run table rebuilt from K5's block
-types -> stitch -> K3 -> remux, byte-identical to the reference encoder:
-csc_tpu's bytes under CSC_ENCODE_PARSE=exact, where csc_tpu takes a
-stream with a BAD / ENTROPY / DLT run or one over its 1 MB device cap to
-its golden encoder, and the port's exact parse writes golden's bytes on
-the card.  An m1 / m2 stream over MAX_ENCODE takes the exact parse under
-parse="fast" too, as csc_tpu takes it to golden (pipeline.py:240-262),
-and so does one longer than its dictionary, whose window wraps as a
-ring of the dictionary's size (golden's bytes; csc_tpu's fast path
-writes a stream golden rejects there).  Where csc_tpu still falls back
-to golden and the port has no device path (m3-m5 under the exact parse,
-over the cap or past its dictionary, a stream over 1 GB, a K3 output
-overflow) this port raises EncodeError naming the stream and the
-reason: it never encodes on the host.
+391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1-m4):
+host plan (the analyzer's 8 KB blocks) -> K5, the exact lazy parse of m1
+/ m2 with live hash tables, or K6, the exact optimal parse of m3 / m4
+priced by the live model, either of which also makes the duplicate-block
+probe and merges the blocks into runs -> the run table rebuilt from the
+parse's block types -> stitch -> K3 -> remux, byte-identical to the
+reference encoder: csc_tpu's bytes under CSC_ENCODE_PARSE=exact, where
+csc_tpu takes a stream with a BAD / ENTROPY / DLT run, one over its 1 MB
+device cap or, at m3 / m4, every stream to its golden encoder, and the
+port's exact parse writes golden's bytes on the card.  An m1-m4 stream
+over MAX_ENCODE takes the exact parse under parse="fast" too, as csc_tpu
+takes it to golden (pipeline.py:240-262), and so does an m1 / m2 one
+longer than its dictionary, whose window wraps as a ring of the
+dictionary's size (golden's bytes; csc_tpu's fast path writes a stream
+golden rejects there).  Where csc_tpu still falls back to golden and the
+port has no device path (m5 under the exact parse or over the cap, m3-m5
+past its dictionary, a stream over 1 GB, a K3 output overflow) this port
+raises EncodeError naming the stream and the reason: it never encodes on
+the host.
 """
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
 from . import encode_host, exact_scan, framing, parse_pre, prices, stitch
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
+from .exact_ap_kernel import parse_k6
 from .exact_kernel import parse_k5
 from .parse_ap_kernel import parse_k4
 from .parse_ap_scan import max_steps_for
@@ -201,10 +204,12 @@ def decode_stream(props, blob, pos=0, *, device=CUDA):
 def exact_refusal(props):
     """Why the exact parse does not take a stream of this preset, which
     csc_tpu encodes with its golden encoder (pipeline.py:229-262), or
-    None: the exact parse is the lazy parse of m1 / m2."""
-    if props.lz_mode == 3 or props.bt_size:
-        return (f"the exact parse takes lz_mode 1 and 2 (m1, m2), not "
-                f"lz_mode {props.lz_mode}")
+    None: the exact parse is the lazy parse of m1 / m2 (K5) and the
+    optimal parse of m3 / m4 (K6), whose finders are hash chains; m5's
+    binary-tree finder (bt_size > 0) has none yet."""
+    if props.bt_size:
+        return (f"the exact parse has no binary-tree finder (m5, bt_size "
+                f"{props.bt_size}): it takes m1-m4")
     return None
 
 
@@ -212,13 +217,13 @@ def plan_streams(props_list, datas, parse="fast"):
     """Per-stream plans, or None for an empty stream: an
     encode_host.FastPlan for the fast parse, an ExactPlan for the exact
     one (each says its parse).
-    An m1 / m2 stream over MAX_ENCODE or longer than its dictionary takes
-    the exact parse whatever `parse` says: csc_tpu hands the first to
-    golden, and its fast path writes a stream golden rejects for the
-    second (ROADMAP queue 3), where the exact parse writes golden's
-    bytes.  EncodeError for a stream the device path does not take: over
-    MAX_WINDOW (1 GB), or at m3-m5 under the exact parse, over the cap or
-    past its dictionary."""
+    An m1-m4 stream over MAX_ENCODE, or an m1 / m2 one longer than its
+    dictionary, takes the exact parse whatever `parse` says: csc_tpu
+    hands the first to golden, and its fast path writes a stream golden
+    rejects for the second (ROADMAP queue 3), where the exact parse
+    writes golden's bytes.  EncodeError for a stream the device path does
+    not take: over MAX_WINDOW (1 GB), at m5 under the exact parse or over
+    the cap, or at m3-m5 past its dictionary."""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
@@ -236,12 +241,14 @@ def plan_streams(props_list, datas, parse="fast"):
         # stream as one window with no wrap, csc_tpu parse_pre.py:6)
         ring = len(data) > props.dict_size
         reason = exact_refusal(props)
-        if ring and reason:
+        if ring and props.lz_mode == 3:
+            # golden's ring window is followed by K5 alone (m1 / m2)
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is more than its "
-                f"{props.dict_size}-byte dictionary and {reason}; only the "
-                f"exact parse follows the ring window past the dictionary",
-                [i])
+                f"{props.dict_size}-byte dictionary and the exact parse "
+                f"of lz_mode 3 (m3-m5) does not follow golden's ring window "
+                f"yet; only the exact parse of m1 / m2 follows the ring "
+                f"window past the dictionary", [i])
         if big and reason:
             raise EncodeError(
                 f"stream {i}: {len(data)} bytes is over the "
@@ -395,9 +402,10 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
                  width=None):
     """Encode the streams `idxs` of a batch, all of one preset and parse,
     on `device` from their plans (plan_streams'): candidates, K2 (m1 /
-    m2) or K4 (m3-m5), stitch, K3, remux; for exact plans K5 (m1 / m2),
-    with no candidates, in the parse's place, and the run tables rebuilt
-    from its block types.  Returns their raw streams in `idxs` order.
+    m2) or K4 (m3-m5), stitch, K3, remux; for exact plans K5 (m1 / m2)
+    or K6 (m3 / m4), with no candidates, in the parse's place, and the
+    run tables rebuilt from its block types.  Returns their raw streams
+    in `idxs` order.
     width: the data width (the longest stream by default; at m3-m5 and
     under the exact parse, `ap_width` of the streams).
 
@@ -407,8 +415,9 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
       "precompute"  cand ([B, 2C, N] candidates), k2_args or k4_args (the
                     parse kernel's arguments)
       "k2" / "k4"   k2_out / k4_out (its outputs)
-      "k5"          under the exact parse, in place of the two above:
-                    k5_args and k5_out (K5's arguments and outputs)
+      "k5" / "k6"   under the exact parse, in place of the two above:
+                    k5_args and k5_out (K5's arguments and outputs, m1 /
+                    m2), or k6_args and k6_out (K6's, m3 / m4)
       "stitch"      stitch_args (the stitch's), k3_args (K3's arguments)
       "k3"          k3_out (K3's outputs)
       "remux"       outs (the raw streams)
@@ -429,11 +438,16 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
                                                   device, width)
         n = data.shape[1]
         args = (data, blocks, sizes, dicts, p0.hash_bits, p0.hash_width,
-                p0.good_len, p0.lz_mode == 2,
-                tape_capacity(n, blocks.shape[1]),
-                exact_scan.max_steps_for(n))
-        out = parse_k5(*args)
-        note("k5", k5_args=args, k5_out=out)
+                p0.good_len)
+        if ap:
+            args += (tape_capacity(n, blocks.shape[1]),)
+            out = parse_k6(*args)
+            note("k6", k6_args=args, k6_out=out)
+        else:
+            args += (p0.lz_mode == 2, tape_capacity(n, blocks.shape[1]),
+                     exact_scan.max_steps_for(n))
+            out = parse_k5(*args)
+            note("k5", k5_args=args, k5_out=out)
     else:
         data, run_ends, run_skip, sizes, dicts = group_inputs(
             props_list, plans, idxs, device, width)
@@ -468,7 +482,7 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
                           f"step budget)", bad)
     tape = tape[:, :int(tok_cnt.max())].contiguous()
     if exact:
-        btypes = out[5].cpu().numpy()
+        btypes = out[-1].cpu().numpy()
         run_tables = [encode_host.exact_run_table(
             plans[i], btypes[j, :len(plans[i].blocks)])
             for j, i in enumerate(idxs)]
@@ -499,21 +513,21 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
 
     parse="fast" (the default) returns list[bytes], the raw streams
     without the property header, byte-identical to csc_tpu's encode_batch
-    on its fast path; an m1 / m2 stream over MAX_ENCODE (1 MB) takes the
+    on its fast path; an m1-m4 stream over MAX_ENCODE (1 MB) takes the
     exact parse all the same, as csc_tpu codes it with its golden encoder,
     so its bytes are csc_tpu's and golden's; so does an m1 / m2 stream
     longer than its dictionary (up to 1 GB), whose window wraps as
     golden's ring: over 1 MB its bytes are csc_tpu's and golden's, at 1
     MB or less golden's, where csc_tpu's fast path writes a stream golden
-    rejects (ROADMAP queue 3).  parse="exact" (m1 and m2)
-    returns the reference encoder's own bytes for every stream, as
-    csc_tpu's under CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the
-    duplicate-block probe and several raw chunks included.  Streams are
-    grouped by preset and parse (one device call per preset and size
-    group).  An empty stream is the SIG_EOF chunk alone.  Raises
-    EncodeError for a stream it cannot take (over 1 GB; m3-m5 over
-    MAX_ENCODE, longer than its dictionary or under parse="exact") or that
-    a kernel flags (a K3 output overflow).  on_stage: as encode_group's,
+    rejects (ROADMAP queue 3).  parse="exact" (m1-m4) returns the
+    reference encoder's own bytes for every stream, as csc_tpu's under
+    CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the duplicate-block
+    probe and several raw chunks included.  Streams are grouped by preset
+    and parse (one device call per preset and size group).  An empty
+    stream is the SIG_EOF chunk alone.  Raises EncodeError for a stream
+    it cannot take (over 1 GB; m5 over MAX_ENCODE or under
+    parse="exact"; m3-m5 longer than its dictionary) or that a kernel
+    flags (a K3 output overflow).  on_stage: as encode_group's,
     called once more as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)

@@ -30,7 +30,7 @@ def declared(fn, source):
 
 
 @pytest.mark.parametrize("name", ["csc_k1", "csc_k2", "csc_k3", "csc_k4",
-                                  "csc_k5"])
+                                  "csc_k5", "csc_k6"])
 def test_launch_argtypes_match_the_source(name):
     fn, argtypes = _build._ARGTYPES[name]
     assert declared(fn, _build.KERNELS[name][0]) == argtypes

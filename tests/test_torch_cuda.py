@@ -17,7 +17,12 @@ CUDA tensor reaching K5 and never the plain version, and exact streams
 through K5,
 K3 and K1 equal to the CPU's and golden's bytes; K5 on a stream longer
 than its dictionary (a ring window) against the plain version, and
-encode_batch of such streams equal to golden's bytes; K1's block log
+encode_batch of such streams equal to golden's bytes; K6
+(encode_k6.cu, the exact optimal parse of m3 / m4) at m3 and m4 on its
+edge streams and K5's, with tapes too short, launched twice on the same
+96 streams, a CUDA tensor reaching K6 and never the plain version, and
+exact m3 / m4 streams through K6, K3 and K1 equal to the CPU's and
+golden's bytes; K1's block log
 sized from the stream past MAX_BLOCKS; the A/B tool
 (csc_tpu_torch/kernel_ab.py) run against this checkout; the archiver's
 a / x / t round trip of a 2.5 MB tree split into several tasks, its
@@ -40,8 +45,9 @@ from csc_tpu.golden.api import decompress_stream
 from csc_tpu.golden.encoder import encode_stream
 from csc_tpu_torch import _build, constants, corpus, kernel_ab
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,
-                               decode_scan, encode_host, exact_kernel,
-                               exact_scan, parse_ap_kernel, parse_ap_scan,
+                               decode_scan, encode_host, exact_ap_kernel,
+                               exact_ap_scan, exact_kernel, exact_scan,
+                               parse_ap_kernel, parse_ap_scan,
                                parse_kernel, parse_pre, parse_scan, pipeline,
                                prices, stitch)
 from csc_tpu_torch.ops.pipeline import DecodeError, EncodeError
@@ -49,6 +55,7 @@ from csc_tpu_torch.props import props_init
 
 import torch_edge_cases as edges
 import torch_ring_cases as ring
+from test_torch_exact_ap_host import k6_args
 from test_torch_exact_host import exact_args
 from test_torch_parse_ap_host import plain_cells
 from torch_archiver_trees import CROSS_FILES, TEXT_FILES, make_tree, \
@@ -336,7 +343,9 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K4 m3 32 x 16 KB", "K4 m4 32 x 16 KB", "K4 m5 32 x 16 KB",
         "K4 m3 1024 x 16 KB", "K4 m3 4096 x 16 KB", "K4 task m3 4 x 1 MB",
         "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
-        "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB"])
+        "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB",
+        "K6 m3 96 x 16 KB", "K6 m4 96 x 16 KB", "K6 m3 1024 x 16 KB",
+        "K6 task m3 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -677,6 +686,115 @@ def test_encode_past_the_dictionary_is_golden(dev, level):
         assert len(data) > p.dict_size, name
         assert blob == encode_stream(p, data), name
     assert pipeline.decode_batch(props, card, device=dev) == datas
+
+
+# ------------------------------------- K6, the exact optimal parse (m3/m4)
+K6_FIELDS = ("tape", "tok_cnt", "done", "err", "btypes")
+
+
+def _k6_against_plain(args, dev):
+    launches = exact_ap_kernel.LAUNCHES
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    got = exact_ap_kernel.parse_k6(*card)
+    torch.cuda.synchronize()
+    assert exact_ap_kernel.LAUNCHES == launches + 1
+    want = exact_ap_scan.exact_ap_plain(*args)
+    for name, g, w in zip(K6_FIELDS, got, want, strict=True):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_k6_matches_plain(dev, level):
+    """The edge streams of the exact optimal parse (torch_edge_cases
+    `exact_ap_cases`: every run type, the probe, raw chunks, a stretch at
+    AP_LIMIT, the length cache rebuilt) and K5's (`exact_cases`,
+    `k5_lane_cases`) at m3 / m4: every field."""
+    for cases in (edges.exact_ap_cases(level), edges.exact_cases(level),
+                  edges.k5_lane_cases(level)):
+        got = _k6_against_plain(k6_args(cases), dev)
+        assert bool(got[2].all()) and not bool(got[3].any())
+
+
+@pytest.mark.parametrize("tcap", [1, 40, 700])
+def test_k6_tape_overflow(dev, tcap):
+    """A tape too short: K6 stops at the token where the plain version
+    stops (done 0, ERR_OVERFLOW, tok_cnt the capacity)."""
+    cases = [c for c in edges.exact_ap_cases(3)
+             if c[0] in ("text", "dlt", "entropy_lz", "chunks")]
+    got = _k6_against_plain(k6_args(cases, tcap=tcap), dev)
+    assert (got[3] == constants.ERR_OVERFLOW).any()
+
+
+def test_k6_launches_on_a_cuda_tensor(dev, monkeypatch):
+    """parse_k6 on CUDA tensors launches K6 (LAUNCHES counts it) and never
+    runs the plain version; on another device it raises."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+    args = k6_args(edges.exact_small_cases(3))
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    monkeypatch.setattr(exact_ap_scan, "exact_ap_plain", plain)
+    before = exact_ap_kernel.LAUNCHES
+    got = exact_ap_kernel.parse_k6(*card)
+    assert exact_ap_kernel.LAUNCHES == before + 1
+    assert got[0].device.type == "cuda" and bool(got[2].all())
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError, match="CUDA"):
+        exact_ap_kernel.parse_k6(*meta)
+
+
+def test_k6_relaunch_gives_the_same_outputs(dev):
+    """K6 launched twice on the same 96 x 16 KB m3 and m4 text gives the
+    same tape, counters and block types, and its first streams equal the
+    plain version's."""
+    text = corpus.torch_python_text(4 * 1024 * 1024)
+    kb = 16 * 1024
+    for level in (3, 4):
+        cases = [("t", props_init(kb, level), text[i * kb:(i + 1) * kb])
+                 for i in range(96)]
+        args = k6_args(cases)
+        card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        first = exact_ap_kernel.parse_k6(*card)
+        second = exact_ap_kernel.parse_k6(*card)
+        assert bool(first[2].all()) and not bool(first[3].any())
+        for name, a, b in zip(K6_FIELDS, first, second, strict=True):
+            assert torch.equal(a, b), name
+        want = exact_ap_scan.exact_ap_plain(*(a[:3] if torch.is_tensor(a)
+                                              else a for a in args))
+        for name, g, w in zip(K6_FIELDS, first, want, strict=True):
+            np.testing.assert_array_equal(g[:3].cpu().numpy(), w.numpy(),
+                                          err_msg=name)
+
+
+def test_exact_ap_streams_through_k6_k3_k1(dev):
+    """Exact m3 and m4 streams encoded on the card (K6 and K3 launched
+    once each, no K4) are the CPU's (the plain versions) and golden's
+    byte for byte and decode through K1; a 96 KB stream, long for the
+    plain K3, is golden's and round-trips on the card alone."""
+    text = corpus.torch_python_text(1024 * 1024)
+    exe = corpus.torch_library_exe()
+    datas = [text[:3000], exe[len(exe) // 2:len(exe) // 2 + 2000],
+             b"A" * 700 + text[9000:9800]]
+    for level in (3, 4):
+        props = [props_init(len(d), level) for d in datas]
+        launches = (exact_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+                    parse_ap_kernel.LAUNCHES)
+        card = pipeline.encode_batch(props, datas, device=dev,
+                                     parse="exact")
+        assert (exact_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+                parse_ap_kernel.LAUNCHES) == (
+            launches[0] + 1, launches[1] + 1, launches[2])
+        assert card == pipeline.encode_batch(
+            props, datas, device=torch.device("cpu"), parse="exact")
+        assert pipeline.decode_batch(props, card, device=dev) == datas
+        for p, blob, data in zip(props, card, datas):
+            assert blob == encode_stream(p, data)
+    big = text[300 * 1024:396 * 1024]
+    p = props_init(len(big), 3)
+    blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
+    assert blob == encode_stream(p, big)
+    assert pipeline.decode_batch([p], [blob], device=dev) == [big]
 
 
 @pytest.mark.parametrize("sized", [True, False])

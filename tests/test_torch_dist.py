@@ -124,19 +124,19 @@ def test_two_process_archive_equals_one_process(tmp_path):
 
 
 def test_a_task_one_rank_cannot_encode_stops_both(tmp_path):
-    """One task, rank 0's, at m3 under the exact parse (which takes m1 /
-    m2 only, since it codes a BAD run too): rank 0 cannot encode it, and
+    """One task, rank 0's, at m5 under the exact parse (which has no
+    binary-tree finder, so it takes m1-m4): rank 0 cannot encode it, and
     rank 1, with no task, stops as well."""
     import numpy as np
     rng = np.random.default_rng(7)
     make_tree(str(tmp_path / "tree"), {
         "r.bin": rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()})
-    res = _ranks(["-m", "csc_tpu_torch.archiver.csarc", "a", "-r", "-m3",
+    res = _ranks(["-m", "csc_tpu_torch.archiver.csarc", "a", "-r", "-m5",
                   "--parse=exact", "--backend=cpu", "x.csa", "tree"],
                  str(tmp_path))
     for rc, out, err in res:
         assert rc == 1
-        assert "tree/r.bin" in err and "lz_mode 3" in err
+        assert "tree/r.bin" in err and "binary-tree finder (m5" in err
 
 
 @pytest.mark.parametrize("failing", [0, 1])

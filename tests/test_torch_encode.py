@@ -64,7 +64,7 @@ def check_streams(cases, ours, ref):
             with pytest.raises(DecodeError):
                 decompress_stream(p, o, 0)
             if p.lz_mode == 3:
-                # no exact parse at m3-m5
+                # no ring window in the exact parse at m3-m5
                 with pytest.raises(pipeline.EncodeError, match="dictionary"):
                     pipeline.encode_batch([p], [data], device=CPU)
             else:
@@ -112,12 +112,12 @@ def test_refuses_what_it_cannot_encode():
     with pytest.raises(pipeline.EncodeError, match="stream 1.*dictionary"):
         pipeline.encode_batch([props_init(500, 1), props_init(500, 3)],
                               [data, longer], device=CPU)
-    # past the fast parse's cap an m1 / m2 stream takes the exact parse;
-    # m3-m5 has no exact parse
+    # past the fast parse's cap an m1-m4 stream takes the exact parse;
+    # m5 (its binary-tree finder) has none
     big = b"z" * (encode_host.MAX_ENCODE + 1)
     with pytest.raises(pipeline.EncodeError,
-                       match="stream 0.*cap.*lz_mode 3"):
-        pipeline.encode_batch([props_init(len(big), 3)], [big], device=CPU)
+                       match=r"stream 0.*cap.*binary-tree finder \(m5"):
+        pipeline.encode_batch([props_init(len(big), 5)], [big], device=CPU)
     with pytest.raises(ValueError, match="meta"):
         pipeline.encode_batch([props_init(500, 1)], [data],
                               device=torch.device("meta"))

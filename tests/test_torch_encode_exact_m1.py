@@ -11,9 +11,9 @@ golden decoder; the fast parse's kernels (K2, K4) are not launched.
 What csc_tpu hands to its golden encoder on this path: a BAD, an ENTROPY
 and a DLT run give golden's bytes (and csc_tpu's, from its fallback); a
 dictionary smaller than the stream takes the exact parse, its ring window
-wrapping; lz_mode 3 raises EncodeError naming the stream.  m2 is in a
-file of its own (test_torch_encode_exact_m2.py), so the levels' JAX
-references run on two test workers."""
+wrapping; m5 (its binary-tree finder) raises EncodeError naming the
+stream.  m2 is in a file of its own (test_torch_encode_exact_m2.py), so
+the levels' JAX references run on two test workers."""
 import os
 
 import pytest
@@ -70,8 +70,8 @@ def check_refused(level, refused):
     before it followed golden's ring window, is taken by it under either
     parse (its bytes are golden's in test_torch_exact_ring_m1.py / _m2.py;
     csc_tpu's device parse, which has no ring, writes a stream golden
-    rejects, test_torch_encode.py); lz_mode 3 still raises EncodeError
-    naming the stream (its index in a batch behind a stream the path
+    rejects, test_torch_encode.py); m5 still raises EncodeError naming
+    the stream (its index in a batch behind a stream the path
     takes) and the reason."""
     from csc_tpu.ops import pipeline as j_pipeline
     text = corpus.encode_cases(level, n=1024, seed=71)[0]
@@ -94,8 +94,9 @@ def check_refused(level, refused):
         assert decompress_stream(p, o, 0) == data, name
     assert pipeline.decode_batch([c[1] for c in taken], ours,
                                  device=CPU) == [c[2] for c in taken]
-    ap = props_init(len(text[2]), 3)
-    with pytest.raises(pipeline.EncodeError, match="stream 1: .*lz_mode 3"):
+    ap = props_init(len(text[2]), 5)
+    with pytest.raises(pipeline.EncodeError,
+                       match=r"stream 1: .*binary-tree finder \(m5"):
         pipeline.encode_batch([text[1], ap], [text[2], text[2]], device=CPU,
                               parse="exact")
 

@@ -2,8 +2,8 @@
 m1 / m2 stream over encode_host.MAX_ENCODE with the exact parse (K5's
 plain version here), as csc_tpu hands such a stream to its golden
 encoder, so its bytes are golden's and equal parse="exact"'s; a stream
-under the cap in the same batch keeps the fast parse (K2); m3-m5 past
-the cap raises EncodeError naming the stream, the cap and the reason;
+under the cap in the same batch keeps the fast parse (K2); m5 past the
+cap raises EncodeError naming the stream, the cap and the reason;
 the CLI's default `c` writes golden's stream past the cap.  The cap is
 lowered to 2 KB with monkeypatch so that the plain versions run in
 seconds; the real size runs in tests/test_torch_exact_golden_big.py (the
@@ -49,8 +49,8 @@ def test_fast_parse_past_the_cap_takes_the_exact_parse(small_cap):
     assert decompress_stream(props[1], outs[1], 0) == big
     assert pipeline.decode_batch(props, outs, device=CPU) == [small, big]
     with pytest.raises(pipeline.EncodeError,
-                       match="stream 1: .*cap.*lz_mode 3"):
-        pipeline.encode_batch([props[0], props_init(len(big), 3)],
+                       match=r"stream 1: .*cap.*binary-tree finder \(m5"):
+        pipeline.encode_batch([props[0], props_init(len(big), 5)],
                               [small, big], device=CPU)
 
 

@@ -621,3 +621,49 @@ def k3_cases():
             ("cuts", cut_tapes, cut_args, "jax"),
             ("random", _k3_random(rng), (32768, 8192, 64, 64, 64), "jax"),
             ("no_end", no_end, (4096, 4096, 64, 64, 512), "port")]
+
+
+def exact_ap_cases(level):
+    """(name, props, data) streams for the exact optimal parse of m3 / m4
+    (K6: csrc/encode_k6.cuh, its plain version ops/exact_ap_scan.py), one
+    preset (a 64 KB dictionary), each driving a mechanism the plain
+    version counts (`stats`, the shadow model's `lp_calls`):
+
+      text      12 KB of torch source, filters off: stretches ending at a
+                literal tail and at good_len, rep0len1 picks, more than
+                4 097 counted length prices (the cache rebuilt twice)
+      engtxt    20 KB of text the TXT filter codes DT_ENGTXT
+      exe       16 KB of an executable, DT_EXE
+      limit     10 KB over four symbols: a stretch reaching AP_LIMIT
+      split     12 000 bytes over five symbols: finds whose length cache
+                is rebuilt after their first counted call, where the lanes
+                before it must read the old cache (undone in K6's g++
+                build, this stream's tape changes at m3 and m4)
+      entropy_lz
+                8 KB over ten symbols (DT_ENTROPY), then 4 KB of text: the
+                text's literal prices read p_lit as CompressLiterals left
+                it
+      bad, entropy, dlt, dup_skip, chunks
+                exact_nolz_cases': a DT_BAD, a DT_ENTROPY and a DT_DLT run
+                (its delta's runs past 10 through the matchlen trees, read
+                by the text after it), a probe hit, raw chunks
+    """
+    text = corpus.torch_python_text(256 * 1024)
+    exe = corpus.torch_library_exe()
+
+    def p(filters=True):
+        q = props.props_init(64 * 1024, level)
+        if not filters:
+            q.DLTFilter = q.EXEFilter = q.TXTFilter = 0
+        return q
+    ex = exe[len(exe) // 3:len(exe) // 3 + 16000]
+    rng = np.random.default_rng(29)
+    ten = (rng.integers(0, 10, 8192, dtype=np.uint8) * 7 + 65).tobytes()
+    cases = [("text", p(False), text[100000:112000]),
+             ("engtxt", p(), text[30000:50000]),
+             ("exe", p(), ex),
+             ("limit", p(False), four_symbols(10000, 3 + level)),
+             ("split", p(False), (np.random.default_rng(26).integers(
+                 0, 5, 12000) + 97).astype(np.uint8).tobytes()),
+             ("entropy_lz", p(), ten + text[20000:24000])]
+    return cases + exact_nolz_cases(level)
