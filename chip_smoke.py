@@ -11,10 +11,13 @@ Phases, each printing its own line; the first failure raises:
                      registers (K5's of each of its two kernels), stack
                      frame, LDL / STL counts (SASS), K1's blocks per SM
                      and K4's, K5's and K6's shared memory a block and
-                     blocks per SM; it fails unless each of
-                     K1-K6 has a 0-byte stack frame and no LDL / STL, K1
+                     blocks per SM (K6's of each of its two kernels, the
+                     hash chains' and m5's binary tree's); it fails
+                     unless each of K1-K6 (both of K6's kernels) has a
+                     0-byte stack frame and no LDL / STL, K1
                      holds two blocks an SM, K4 four or more of 16 KB,
-                     K5 eight or more and K6 four or more; K5's phase-clock
+                     K5 eight or more and each K6 kernel four or more;
+                     K5's phase-clock
                      build (-DK5_PHASES, csc_tpu_torch/k5_phases.py)
                      alongside
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
@@ -42,8 +45,9 @@ Phases, each printing its own line; the first failure raises:
                      against K5 on the first whole 1 MB task stream
   7c. encode_exact_ap
                      the exact optimal parse: encode_batch(parse="exact")
-                     of 96 x 16 KB text (filters on) at m3 and m4 and of
-                     the 4 x 1 MB m3 task, its stages (plan, k6, stitch,
+                     of 96 x 16 KB text (filters on) at m3, m4 and m5 and
+                     of the 4 x 1 MB task at m3 and m5 (m5: K6's
+                     binary-tree kernel), its stages (plan, k6, stitch,
                      k3, remux), K6 / K3 times, a round trip through K1,
                      the fast parse's (K4) ratio on the same streams;
                      K6's g++ build (csrc/encode_k6_host.cpp) against K6
@@ -73,13 +77,15 @@ Phases, each printing its own line; the first failure raises:
                      chain, K6 and K3 alone) and `d` restoring it through
                      K1; K6 on the stream's inputs timed and held to its
                      g++ build on every field, block types included
+  9a4. cli_big_m5    the same at m5 (`c -m5`: K6's binary-tree kernel)
   9b. archiver       csarc on a tree built here (the first 1 000 .py
                      files of torch under torch/, libc10.so, 3 MB of
                      seeded random bytes and a 2 MB DLT ramp past the 1
                      MB task cap, an empty file): `a -r` at the default
-                     level and at -m1, `a -m2 --parse=exact` and `a -m3
-                     --parse=exact` of the whole tree (BAD and DLT tasks
-                     included; K5, K6), each then `x`
+                     level and at -m1, `a -m2 --parse=exact`, `a -m3
+                     --parse=exact` and `a -m5 --parse=exact` of the
+                     whole tree (BAD and DLT tasks included; K5, K6),
+                     each then `x`
                      (the tree restored byte-exact), `t` and `l`, the
                      trailer's parse (the exact one, always), the walls
                      split by layer;
@@ -92,7 +98,8 @@ Phases, each printing its own line; the first failure raises:
                      (its ring wraps), then `x` (every file restored) and
                      `t`; the trailer read back equals the packed index
  10. encode_parity   on the parity batch (2 KB streams, m1 and m2, and its
-                     text streams at m3 and, exactly, at m1, m2 and m3):
+                     text and EXE streams at m3 and, exactly, at m3 and
+                     m5, its text streams exactly at m1 and m2):
                      the candidates on the card equal those on the CPU;
                      K2, K4, K5 or K6, the stitch and K3 equal their plain
                      versions (on the card's inputs; K6's runs on the
@@ -107,7 +114,7 @@ Phases, each printing its own line; the first failure raises:
                      field; torch_edge_cases), and K5 against its g++
                      build (csrc/encode_k5_host.cpp) on the first 8
                      whole streams of its m1 cell; K6 on the first 4
-                     streams of its m3 cell
+                     streams of its m3 and m5 cells
  13. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
@@ -367,11 +374,12 @@ def encode_cell(tag, props, datas, dev, reps, parse="fast"):
     numbers."""
     parse_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
     exact_kernel.LAUNCHES = bits_kernel.LAUNCHES = 0
-    exact_ap_kernel.LAUNCHES = 0
+    exact_ap_kernel.LAUNCHES = exact_ap_kernel.TREE_LAUNCHES = 0
     outs = pipeline.encode_batch(props, datas, device=dev, parse=parse)
     counts = {"K2": parse_kernel.LAUNCHES, "K4": parse_ap_kernel.LAUNCHES,
               "K5": exact_kernel.LAUNCHES, "K6": exact_ap_kernel.LAUNCHES,
               "K3": bits_kernel.LAUNCHES}
+    tree_launches = exact_ap_kernel.TREE_LAUNCHES
     walls = []
     for _ in range(reps):
         t0 = time.time()
@@ -447,6 +455,7 @@ def encode_cell(tag, props, datas, dev, reps, parse="fast"):
         *k3_args[:4]).max())
     return dict(wall=statistics.median(walls), outs=outs, parse=parse_k,
                 parse_ms=p_ms, k3_ms=k3_ms, launches=launches,
+                tree_launches=tree_launches,
                 layers=stages.ms(), ratio=sum(len(o) for o in outs) / total,
                 total=total, parse_bound=p_bound, k3_bound=k3_bound,
                 lz=lz, probes=probes, ntok=ntok, longest=longest,
@@ -584,7 +593,7 @@ def plain_worker(path):
     # below the main process, whose plain versions on the card (phases 10
     # and 11) are bound by its one core's kernel launches
     os.nice(10)
-    job = torch.load(path)
+    job = torch.load(path, weights_only=False)
     t0 = time.time()
     out = PLAIN[job["kernel"]](*job["args"])
     torch.save({"out": out, "seconds": time.time() - t0}, path + ".out")
@@ -691,54 +700,65 @@ def cli_big_phase(dev, data, sdir, k5_lib):
     return launches, k5_ms, bnd, err
 
 
-def cli_big_m3_phase(dev, data, sdir, k6_lib):
-    """Phase 9a3: `c -m3` of `data` (past the cap, routed to the exact
-    parse: one K6 chain) and `d`; K6 on the stream's inputs timed and
-    held to its g++ build on every field.  Returns ({run: K6 launches},
-    K6's ms, its bound, the g++ comparison's max abs difference)."""
+def cli_big_ap_phase(dev, data, sdir, k6_lib, level):
+    """Phases 9a3 / 9a4: `c -m3` or `c -m5` of `data` (past the cap,
+    routed to the exact parse: one K6 chain; at m5 K6's binary-tree
+    kernel) and `d`; K6 on the stream's inputs timed and held to its g++
+    build on every field.  Returns ({run: K6 launches}, K6's ms, its
+    bound, the g++ comparison's max abs difference)."""
     from csc_tpu_torch import cli
+    tag = f"cli_big_m{level}"
     src = os.path.join(sdir, "big.bin")
-    enc, dst = (os.path.join(sdir, f"big_m3.{x}") for x in ("csc", "out"))
+    enc, dst = (os.path.join(sdir, f"big_m{level}.{x}")
+                for x in ("csc", "out"))
     exact_ap_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
-    bits_kernel.LAUNCHES = 0
+    exact_ap_kernel.TREE_LAUNCHES = bits_kernel.LAUNCHES = 0
     t0 = time.time()
-    check(cli.main(["c", "-m", "3", "--backend", "cuda", src, enc]) == 0,
-          "cli_big_m3: c failed")
+    check(cli.main(["c", "-m", str(level), "--backend", "cuda", src,
+                    enc]) == 0, f"{tag}: c failed")
     t1 = time.time()
-    launches = {"cli_c_big m3": exact_ap_kernel.LAUNCHES}
+    launches = {f"cli_c_big m{level}": exact_ap_kernel.LAUNCHES}
     check(exact_ap_kernel.LAUNCHES >= 1 and bits_kernel.LAUNCHES >= 1
           and parse_ap_kernel.LAUNCHES == 0,
-          "cli_big_m3: c did not launch K6 and K3 alone")
+          f"{tag}: c did not launch K6 and K3 alone")
+    check(exact_ap_kernel.TREE_LAUNCHES == (exact_ap_kernel.LAUNCHES
+                                            if level == 5 else 0),
+          f"{tag}: c launched K6's binary-tree kernel "
+          f"{exact_ap_kernel.TREE_LAUNCHES} times")
     decode_kernel.LAUNCHES = 0
     check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0,
-          "cli_big_m3: d failed")
+          f"{tag}: d failed")
     t2 = time.time()
-    check(decode_kernel.LAUNCHES >= 1, "cli_big_m3: d did not launch K1")
+    check(decode_kernel.LAUNCHES >= 1, f"{tag}: d did not launch K1")
     with open(dst, "rb") as f:
-        check(f.read() == data, "cli_big_m3: d restored other bytes")
+        check(f.read() == data, f"{tag}: d restored other bytes")
     with open(enc, "rb") as f:
         blob = f.read()
-    props = props_init(len(data), 3)
+    props = props_init(len(data), level)
     stages = Stages()
     outs = pipeline.encode_batch([props], [data], device=dev,
                                  on_stage=stages)
     check(write_properties(props) + outs[0] == blob,
-          "cli_big_m3: the staged encode differs from the CLI's")
+          f"{tag}: the staged encode differs from the CLI's")
     v = stages.values
     args, out = v["k6_args"], v["k6_out"]
     k6_ms, again = event_ms(lambda: exact_ap_kernel.parse_k6(*args), 1)
-    compare("cli_big_m3 relaunch", "K6", again, out)
+    compare(f"{tag} relaunch", "K6", again, out)
     t3 = time.time()
     host = k6_host(k6_lib, to_cpu(args))
     gxx_s = time.time() - t3
-    err = compare("cli_big_m3 against K6's g++ build", "K6", out,
+    err = compare(f"{tag} against K6's g++ build", "K6", out,
                   [torch.from_numpy(h) for h in host])
     plan = v["plans"][0]
     btypes = out[4][0].cpu().numpy()
     runs = encode_host.exact_run_table(plan, btypes)
     ntok = int(out[1].sum())
     bnd = bound(len(data) + 8 * ntok, len(data))
-    phase("cli_big_m3", bytes=len(data), compressed=len(blob),
+    extra = {}
+    if level == 5:
+        extra["tree_bytes"] = exact_ap_kernel.tree_bytes(
+            1, len(data), args[8], args[9])
+    phase(tag, bytes=len(data), compressed=len(blob),
           ratio=f"{len(blob) / len(data):.6f}", c_s=f"{t1 - t0:.3f}",
           d_s=f"{t2 - t1:.3f}", c_mbps=f"{len(data) / (t1 - t0) / 1e6:.2f}",
           k6_ms=f"{k6_ms:.3f}", k6_bound_ms=f"{bnd[0]:.6f}",
@@ -746,8 +766,8 @@ def cli_big_m3_phase(dev, data, sdir, k6_lib):
           blocks=len(plan.blocks), runs=len(runs), run_types=",".join(
               sorted({str(r[0]) for r in runs})), gxx_s=f"{gxx_s:.2f}",
           gxx_max_abs_err=err, round_trip="K1 byte-exact",
-          launches_k6=launches["cli_c_big m3"])
-    phase("cli_big_m3_layers", **stages.ms())
+          launches_k6=launches[f"cli_c_big m{level}"], **extra)
+    phase(f"{tag}_layers", **stages.ms())
     return launches, k6_ms, bnd, err
 
 
@@ -876,6 +896,7 @@ def csarc_run(cwd, argv, dev):
     stream reads and the attributes)."""
     for m in KERNEL_MODULES.values():
         m.LAUNCHES = 0
+    exact_ap_kernel.TREE_LAUNCHES = 0
     spent = {name: 0.0 for name in ARC_LAYERS.get(argv[0], ())}
     saved = {name: getattr(csarc, name) for name in spent}
 
@@ -901,8 +922,9 @@ def csarc_run(cwd, argv, dev):
     layers = {name.strip("_"): round(v * 1e3, 1) for name, v in
               spent.items()}
     layers["rest"] = round((wall - sum(spent.values())) * 1e3, 1)
-    return (rc, out, wall, {k: m.LAUNCHES for k, m in
-                            KERNEL_MODULES.items()}, layers)
+    counts = {k: m.LAUNCHES for k, m in KERNEL_MODULES.items()}
+    counts["K6 tree"] = exact_ap_kernel.TREE_LAUNCHES
+    return rc, out, wall, counts, layers
 
 
 def arc_layout(path, dev):
@@ -965,16 +987,21 @@ def archiver_phase(dev, backend, datas):
             ("default", [], "tree", want),
             ("m1", ["-m1"], "tree", want),
             ("exact", ["-m2", "--parse=exact"], "tree", want),
-            ("exact_m3", ["-m3", "--parse=exact"], "tree", want)):
+            ("exact_m3", ["-m3", "--parse=exact"], "tree", want),
+            ("exact_m5", ["-m5", "--parse=exact"], "tree", want)):
         arc = os.path.join(root, f"{tag}.csa")
         nbytes = sum(map(len, restored.values()))
         rc, _, a_wall, a_n, a_layers = csarc_run(
             root, ["a", "-r", bk] + opts + [arc, sub], dev)
         check(rc == 0, f"archiver {tag}: a returned {rc}")
-        parse_k = {"exact": "K5", "exact_m3": "K6"}.get(tag, "K2")
+        parse_k = {"exact": "K5", "exact_m3": "K6",
+                   "exact_m5": "K6"}.get(tag, "K2")
         check(a_n[parse_k] >= 1 and a_n["K3"] >= 1 and a_n["K1"] == 0
               and a_n["K4"] == 0, f"archiver {tag}: a did not launch "
               f"{parse_k} and K3 ({a_n})")
+        check((a_n["K6 tree"] >= 1) == (tag == "exact_m5"),
+              f"archiver {tag}: a launched K6's binary-tree kernel "
+              f"{a_n['K6 tree']} times")
         # the trailer's parse, always the exact one of m2 (K5): an exact
         # `a` launches no K2, a fast one (and the exact m3 one) K5 for the
         # trailer alone
@@ -1008,6 +1035,7 @@ def archiver_phase(dev, backend, datas):
               a_mbps=f"{nbytes / a_wall / 1e6:.2f}", x_s=f"{x_wall:.3f}",
               x_mbps=f"{nbytes / x_wall / 1e6:.2f}", t_s=f"{t_wall:.3f}",
               **{f"a_{k}": a_n[k] for k in ("K2", "K3", "K4", "K5", "K6")},
+              a_K6_tree=a_n["K6 tree"],
               x_K1=x_n["K1"], round_trip="byte-exact", t_rc=0)
         phase("archiver_layers", run=tag, **{f"a_{k}_ms": v for k, v in
                                              a_layers.items()},
@@ -1145,6 +1173,8 @@ def main(procs):
         res["csc_k6"]["smem_" + tag] = exact_ap_kernel.smem_bytes(n)
         res["csc_k6"]["blocks_per_sm_" + tag] = \
             exact_ap_kernel.blocks_per_sm(n)
+        res["csc_k6"]["blocks_per_sm_" + tag + "_tree"] = \
+            exact_ap_kernel.blocks_per_sm(n, tree=True)
     # and of K5's kernel for streams longer than their dictionary
     res["csc_k5"]["blocks_per_sm_1m_ring"] = exact_kernel.blocks_per_sm(
         MB, ring=True)
@@ -1158,9 +1188,10 @@ def main(procs):
     check(res["csc_k5"]["blocks_per_sm_16k"] >= 8,
           f"K5 holds {res['csc_k5']['blocks_per_sm_16k']} blocks of 16 KB "
           f"streams per SM, not 8 or more")
-    check(res["csc_k6"]["blocks_per_sm_16k"] >= 4,
-          f"K6 holds {res['csc_k6']['blocks_per_sm_16k']} blocks of 16 KB "
-          f"streams per SM, not 4 or more")
+    for key in ("blocks_per_sm_16k", "blocks_per_sm_16k_tree"):
+        check(res["csc_k6"][key] >= 4,
+              f"K6 holds {res['csc_k6'][key]} blocks of 16 KB streams per "
+              f"SM ({key}), not 4 or more")
     for name, r in res.items():
         check(r["stack_frame"] == 0 and r["ldl"] == 0 and r["stl"] == 0,
               f"{name} has a {r['stack_frame']}-byte stack frame, "
@@ -1396,20 +1427,24 @@ def main(procs):
 
     # -------------------------------------------------- 7c encode_exact_ap
     # the exact optimal parse (K6) at the encode shape, 96 x 16 KB text,
-    # filters on, at m3 and m4, and on the 4 x 1 MB task at m3 (K6 reads
-    # data past its 64 KB staging from device memory), beside the fast
-    # parse's (K4) streams of the same inputs; K6's g++ build on the
-    # task's first whole 1 MB stream
+    # filters on, at m3, m4 and m5 (K6's binary-tree kernel), and on the 4
+    # x 1 MB task at m3 and m5 (K6 reads data past its 64 KB staging from
+    # device memory), beside the fast parse's (K4) streams of the same
+    # inputs; K6's g++ build on the m3 task's first whole 1 MB stream
     k6_lib = build_k6_host(pathlib.Path(sdir))
     for name, level, datas, reps in (("m3", 3, ed, 3), ("m4", 4, ed, 3),
-                                     ("task", 3, group, 1)):
+                                     ("m5", 5, ed, 3), ("task", 3, group, 1),
+                                     ("task m5", 5, group, 1)):
         tag = f"encode_exact_ap {name}"
         ep = [props_init(len(datas[0]), level) for _ in datas]
         cell = encode_cell(tag, ep, datas, dev, reps, parse="exact")
         cells[tag] = cell
+        check((cell["tree_launches"] >= 1) == (level == 5),
+              f"{tag}: K6's binary-tree kernel launched "
+              f"{cell['tree_launches']} times")
         fast = pipeline.encode_batch(ep, datas, device=dev)
         fast_ratio = sum(map(len, fast)) / cell["total"]
-        if name == "m3":
+        if name in ("m3", "m5"):
             jobs.append(plain_job(tag, "K6", cell["parse_args"], 3))
             same_rows(tag, "K6", cell["parse_out"], jobs[-1]["kernel_out"],
                       PLAIN_STREAMS["K6"])
@@ -1434,7 +1469,11 @@ def main(procs):
               ratio=f"{cell['ratio']:.6f}", fast_ratio=f"{fast_ratio:.6f}",
               round_trip="K1 byte-exact",
               launches_k6=cell["launches"]["K6"],
-              launches_k3=cell["launches"]["K3"])
+              launches_k6_tree=cell["tree_launches"],
+              launches_k3=cell["launches"]["K3"],
+              tree_bytes=exact_ap_kernel.tree_bytes(
+                  len(datas), len(datas[0]), exact_ap_scan.BT.of(ep[0]),
+                  torch.tensor([p.bt_size for p in ep])))
         drop_inputs(cell)
     phase("k6_host", cell="task", streams=1, bytes=GROUP_BYTES,
           fields_compared=len(FIELDS["K6"]), max_abs_err=k6_task_err,
@@ -1553,11 +1592,15 @@ def main(procs):
         cli_ring_phase(dev, big, sdir, k5_lib, lambda: arc_many_phase(dev))
     phase("cli_ring_done", seconds=f"{time.time() - t0:.1f}")
 
-    # ------------------------------------------------------- 9a3 cli_big_m3
+    # ----------------------------------------- 9a3 cli_big_m3, 9a4 cli_big_m5
     t0 = time.time()
-    big_m3_launches, big_k6_ms, big_k6_bound, big_m3_err = cli_big_m3_phase(
-        dev, big, sdir, k6_lib)
+    big_m3_launches, big_k6_ms, big_k6_bound, big_m3_err = cli_big_ap_phase(
+        dev, big, sdir, k6_lib, 3)
     phase("cli_big_m3_done", seconds=f"{time.time() - t0:.1f}")
+    t0 = time.time()
+    big_m5_launches, big_m5_ms, big_m5_bound, big_m5_err = cli_big_ap_phase(
+        dev, big, sdir, k6_lib, 5)
+    phase("cli_big_m5_done", seconds=f"{time.time() - t0:.1f}")
 
     # ---------------------------------------------------------- 9b archiver
     t0 = time.time()
@@ -1615,30 +1658,34 @@ def main(procs):
     phase("encode_parity", level="m3", streams=3, fields_compared=nf,
           max_abs_err=err, k4_plain_s=f"{p_plain_s:.3f}",
           k3_plain_s=f"{k3_plain_s:.3f}")
-    # the same streams under the exact parse at m1, m2 (K5) and m3 (K6)
-    # against its plain version, then a round trip through K1
-    plain_card_s["K5"] = plain_card_s["K6"] = 0.0
-    for level in (1, 2, 3):
+    # the same streams under the exact parse at m1, m2 (K5) and m3 and m5
+    # (K6) against its plain version, then a round trip through K1; at m1
+    # and m2 the two text streams alone (the plain K5 on the card takes
+    # most of a minute a stream; the EXE stream's exact parse runs in
+    # phases 7b, 9a and 9b)
+    plain_card_s["K5"] = plain_card_s["K6"] = plain_card_s["K6 tree"] = 0.0
+    for level in (1, 2, 3, 5):
+        xs = par[:2] if level <= 2 else par[:3]
         x_props = []
-        for _, p, _ in par[:3]:
+        for _, p, _ in xs:
             q = props_init(PARITY_BYTES, level)
             q.DLTFilter, q.EXEFilter, q.TXTFilter = (p.DLTFilter, p.EXEFilter,
                                                      p.TXTFilter)
             x_props.append(q)
-        x_plans = pipeline.plan_streams(x_props, [c[2] for c in par[:3]],
+        x_plans = pipeline.plan_streams(x_props, [c[2] for c in xs],
                                         "exact")
         outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
-            x_props, x_plans, [0, 1, 2], dev)
-        want_k = "K6" if level == 3 else "K5"
+            x_props, x_plans, list(range(len(xs))), dev)
+        want_k = "K6" if level >= 3 else "K5"
         check(parse == want_k, f"parity exact m{level}: the group did not "
               f"run {want_k}")
         back = pipeline.decode_batch(x_props, outs, device=dev)
-        check(back == [c[2] for c in par[:3]], f"parity exact m{level}: "
+        check(back == [c[2] for c in xs], f"parity exact m{level}: "
               f"the round trip through K1 differs")
         max_err = max(max_err, err)
-        plain_card_s[want_k] += p_plain_s
+        plain_card_s["K6 tree" if level == 5 else want_k] += p_plain_s
         plain_card_s["K3"] += k3_plain_s
-        phase("encode_parity", level=f"m{level} exact", streams=3,
+        phase("encode_parity", level=f"m{level} exact", streams=len(xs),
               fields_compared=nf, max_abs_err=err,
               **{f"{want_k.lower()}_plain_s": f"{p_plain_s:.3f}"},
               k3_plain_s=f"{k3_plain_s:.3f}")
@@ -1693,11 +1740,12 @@ def main(procs):
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
                   k5_phases_err, k5_task_err, k4_host_err, big_err,
-                  ring_err, k6_task_err, big_m3_err)
+                  ring_err, k6_task_err, big_m3_err, big_m5_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     xa3, xa4 = cells["encode_exact_ap m3"], cells["encode_exact_ap m4"]
     xat = cells["encode_exact_ap task"]
+    xa5, xat5 = cells["encode_exact_ap m5"], cells["encode_exact_ap task m5"]
     plain = {(j["kernel"], j["tag"]): j for j in jobs}
     launches = {"K1": k1_launches}
     for kernel in ("K2", "K3", "K4", "K5", "K6"):
@@ -1705,6 +1753,11 @@ def main(procs):
                             for tag, c in cells.items()
                             if kernel in c["launches"]}
     launches["K6"].update(big_m3_launches)
+    launches["K6"].update(big_m5_launches)
+    # K6's binary-tree kernel (m5): its own count
+    launches["K6 tree"] = {tag: c["tree_launches"] for tag, c in
+                           cells.items() if c.get("tree_launches")}
+    launches["K6 tree"].update(big_m5_launches)
     launches["K5"]["cli_c_exact"] = k5_cli_launches
     launches["K5"].update(big_launches)
     launches["K5"].update({f"cli_c_ring m{level}": n
@@ -1718,17 +1771,24 @@ def main(procs):
                "K3": "the m1 + m2 + m3 + exact m1 + m2 + m3 parity groups",
                "K4": "the m3 parity group (the batch's text and EXE "
                      "streams)",
-               "K5": "the exact m1 + m2 parity groups (the batch's text "
-                     "and EXE streams)",
+               "K5": "the exact m1 + m2 parity groups (the batch's two "
+                     "text streams)",
                "K6": "the exact m3 parity group (the batch's text and EXE "
-                     "streams; the plain version runs on the host)"}
+                     "streams; the plain version runs on the host)",
+               "K6 tree": "the exact m5 parity group (the batch's text and "
+                          "EXE streams; the plain version runs on the "
+                          "host)"}
 
-    def row(kernel, name, source, replaces, ms, on, bnd, tag):
+    def row(kernel, name, source, replaces, ms, on, bnd, tag, key=None):
+        """A kernel's row; key (default `kernel`) names its launches,
+        card plain time, step table and resources where a kernel of the
+        library has its own (K6's binary-tree kernel)."""
         j = plain[(kernel, tag)]
+        key = key or kernel
         cut = (f", cut at {K5_PLAIN_STEPS} lockstep steps (K5 launched "
                f"under the same budget)" if kernel == "K5" else "")
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kernel][tag],
+                "replaces": replaces, "launches": launches[key][tag],
                 "max_abs_err": max_err, "ms": round(ms, 4),
                 "plain_ms": round(j["plain_s"] * 1e3, 2),
                 "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
@@ -1736,10 +1796,10 @@ def main(procs):
                 "plain_on": f"the first {j['streams']} of those streams"
                             f"{cut}, on one CPU core of the card's host",
                 "kernel_ms_on_those_streams": round(j["kernel_ms"], 4),
-                "plain_card_ms": round(plain_card_s[kernel] * 1e3, 2),
-                "plain_card_on": card_on[kernel],
-                "launches_by_path": launches[kernel],
-                "ns_per_step": k_steps[kernel],
+                "plain_card_ms": round(plain_card_s[key] * 1e3, 2),
+                "plain_card_on": card_on[key],
+                "launches_by_path": launches[key],
+                "ns_per_step": k_steps[key],
                 "resources": res.get(f"csc_{kernel.lower()}")}
 
     # ----------------------------------------------------------- 13 spikes
@@ -1801,8 +1861,16 @@ def main(procs):
                "ns_per_lz_token": xa3["parse_ms"] * 1e6
                / xa3["longest"]["lz_tokens"],
                "longest": {k: xa3["longest"][k]
-                           for k in ("positions", "lz_tokens", "tokens")}}}
-    phase("k_steps", **{f"{k}_{u}": f"{v:.2f}" for k, d in k_steps.items()
+                           for k in ("positions", "lz_tokens", "tokens")}},
+        "K6 tree": {"ns_per_position": xa5["parse_ms"] * 1e6
+                    / xa5["longest"]["positions"],
+                    "ns_per_lz_token": xa5["parse_ms"] * 1e6
+                    / xa5["longest"]["lz_tokens"],
+                    "longest": {k: xa5["longest"][k]
+                                for k in ("positions", "lz_tokens",
+                                          "tokens")}}}
+    phase("k_steps", **{f"{k.replace(' ', '_')}_{u}": f"{v:.2f}"
+                        for k, d in k_steps.items()
                         for u, v in d.items() if u != "longest"})
     phase("spikes_done", probes=len(spikes.PROBES), timings=len(srows),
           main_path_s=f"{t_main:.1f}", seconds=f"{time.time() - t0:.1f}")
@@ -1880,6 +1948,25 @@ def main(procs):
              ms_past_cap=round(big_k6_ms, 4),
              bound_ms_past_cap=round(big_k6_bound[0], 6),
              past_cap_on="phase 9a's ~4.5 MB file at m3, one stream"),
+        dict(row("K6", "K6 exact optimal parse of m5 with golden's "
+                 "binary-tree finder (k6_parse_kernel<true>: K6's parse "
+                 "with the tree in the HT6 row's place, its walk one "
+                 "dependent chain of link loads on the warp, each "
+                 "compare spread over the lanes, lane 0 re-linking the "
+                 "position; lengths 2-47 two a lane; the head and links "
+                 "in device memory)", "csc_tpu_torch/csrc/encode_k6.cu",
+                 "csc_tpu/ops/pipeline.py:248 (no TPU kernel: csc_tpu "
+                 "codes m5 under the exact parse and past its cap with its "
+                 "golden host encoder)", xa5["parse_ms"],
+                 f"{ENC_STREAMS} x {HEAD_BYTES // KB} KB m5 text, exact "
+                 f"parse", xa5["parse_bound"], "encode_exact_ap m5",
+                 key="K6 tree"),
+             ms_task=round(xat5["parse_ms"], 4),
+             bound_ms_task=round(xat5["parse_bound"][0], 6),
+             task_on="the 4 x 1 MB m5 task (phase 7c)",
+             ms_past_cap=round(big_m5_ms, 4),
+             bound_ms_past_cap=round(big_m5_bound[0], 6),
+             past_cap_on="phase 9a's ~4.5 MB file at m5, one stream"),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -18,14 +18,14 @@ MAX_ENCODE`, 1 MB), per-task CSC streams appended as archive blocks with
 and `t` decode the tasks in size-bucketed `decode_batch` groups.  Both
 run on the first CUDA device with --backend=cuda (the default; the
 kernels K1-K6) and raise when there is none; --backend=cpu runs the
-kernels' plain versions.  --parse=exact (m1-m4) codes every task with
-the exact parse, the reference encoder's own bytes (csc_tpu's, whose
-golden encoder takes the tasks with BAD / ENTROPY / DLT blocks at m1 /
-m2 and every task at m3 / m4); the index trailer always takes it.
-Where csc_tpu still falls back to its golden codec this archiver stops
-with an error: a task the device encode does not take (m5 under
---parse=exact) ends `a` naming the task's first file, a corrupt stream
-ends `x` / `t` with "decode error" and -1.  -t is accepted and ignored, as csc_tpu's device backend ignores
+kernels' plain versions.  --parse=exact codes every task with the exact
+parse, the reference encoder's own bytes (csc_tpu's, whose golden
+encoder takes the tasks with BAD / ENTROPY / DLT blocks at m1 / m2 and
+every task at m3-m5); the index trailer always takes it.  Where csc_tpu
+still falls back to its golden codec this archiver stops with an error:
+a task the device encode does not take (m3-m5 past a -d smaller than
+the task) ends `a` naming the task's first file, a corrupt stream ends
+`x` / `t` with "decode error" and -1.  -t is accepted and ignored, as csc_tpu's device backend ignores
 it.
 
 With CSC_DIST_COORD / CSC_DIST_NPROCS / CSC_DIST_PID set, the processes

@@ -6,16 +6,16 @@ pipeline (ops/pipeline.py) on one stream.  --backend cuda (the default)
 runs the kernels (K2 or K4, then K3, to encode at levels 1-2 or 3-5; K1
 to decode) on the first CUDA device and raises when there is none;
 --backend cpu runs their plain PyTorch versions on the CPU.  --parse
-exact (levels 1-4) encodes with the exact parse, K5 in K2's place at
-levels 1-2 and K6 in K4's at levels 3-4: the reference encoder's own
-bytes, as csc_tpu's CLI gives them under CSC_ENCODE_PARSE=exact (this
-CLI reads no environment variable for it).  A file over 1 MB
-(encode_host.MAX_ENCODE) at levels 1-4 takes the exact parse under the
-default too, as csc_tpu codes it with its golden encoder, up to 1 GB;
-so does a file longer than -d at levels 1-2 (32 MB by default; the
+exact encodes with the exact parse, K5 in K2's place at levels 1-2 and
+K6 in K4's at levels 3-5 (at 5 with golden's binary-tree finder): the
+reference encoder's own bytes, as csc_tpu's CLI gives them under
+CSC_ENCODE_PARSE=exact (this CLI reads no environment variable for it).
+A file over 1 MB (encode_host.MAX_ENCODE) takes the exact parse under
+the default too, as csc_tpu codes it with its golden encoder, up to 1
+GB; so does a file longer than -d at levels 1-2 (32 MB by default; the
 dictionary is clamped to the file, so only a file past -d outgrows it),
-whose window wraps as golden's ring.  Level 5 takes files up to 1 MB,
-levels 3-5 files up to the dictionary.
+whose window wraps as golden's ring.  Levels 3-5 take files up to the
+dictionary.
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
     python -m csc_tpu_torch.cli c -m 3 --parse exact in.bin out.csc
@@ -67,8 +67,7 @@ def main(argv=None):
     ap.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--parse", choices=["fast", "exact"], default="fast",
                     help="c: the fast parse (the exact one past 1 MB), or "
-                    "the exact parse of m1-m4 (the reference encoder's "
-                    "bytes)")
+                    "the exact parse (the reference encoder's bytes)")
     args = ap.parse_args(argv)
     device = device_for(args.backend)
     from .ops.pipeline import decode_stream, encode_stream

@@ -198,6 +198,9 @@ POST_MATCH = 2     # a good_len or cap-straddling match after the path
 # K4's per-stream error beside ERR_OVERFLOW (the tape is full): the step
 # budget ran out before K_END
 ERR_STEPS = 2
+# K6's, where golden's binary tree raises IndexError (a link index past
+# 2 * bt_size, ops/exact_ap_scan.py): the parse stops there
+ERR_BT = 3
 
 # exact m1/m2 parse (encode_scan.py:31-57): the hash tables' sizes, the
 # candidate slots of one find, the fsm states and the probe phases

@@ -260,6 +260,10 @@ K5_FN Lanes match(const Lanes& x) {
     return Lanes{(int32_t)__match_any_sync(FULL, x.v)};
 }
 K5_FN int32_t sum_all(const Lanes& x) { return __reduce_add_sync(FULL, x.v); }
+// the largest value over the lanes (values >= 0)
+K5_FN int32_t max_all(const Lanes& x) {
+    return (int32_t)__reduce_max_sync(FULL, (uint32_t)x.v);
+}
 // lane l gets lane src[l]'s value
 K5_FN Lanes gather(const Lanes& x, const Lanes& src) {
     return Lanes{__shfl_sync(FULL, x.v, src.v)};
@@ -340,6 +344,11 @@ K5_FN int32_t sum_all(const Lanes& x) {
     int32_t s = 0;
     for (int l = 0; l < WARP; ++l) s += x.v[l];
     return s;
+}
+K5_FN int32_t max_all(const Lanes& x) {
+    int32_t m = 0;
+    for (int l = 0; l < WARP; ++l) m = x.v[l] > m ? x.v[l] : m;
+    return m;
 }
 K5_FN Lanes gather(const Lanes& x, const Lanes& src) {
     Lanes y;
@@ -423,7 +432,27 @@ struct Probe {
 // and insert sparsely; without, neither is compiled in, and the parse of
 // LZ runs keeps the code it had before them.  RING (with NOLZ): the
 // stream is longer than its dictionary and the window wraps.
-template <bool STAGED, bool NOLZ, bool RING>
+//
+// BT: golden's binary-tree finder (m5, mf.py:46-71, 114-195, 198-231,
+// 335-404, 504-508) in the HT6 row's place (hash_width 0; s.hash_bits is
+// then the tree's bits, so `h6` is its hash), for K6, which sets the
+// tree's fields after init().  A find (find_records) folds the reps,
+// HT2 and HT3 as without it, then walks the tree (`bt_walk`) with the
+// fold's minlen: the head candidate beyond the tree's range first, then
+// at most bt_cyc nodes, each a dependent load of a node's link and a
+// compare from min(lenl, lenr) that the warp spreads over its lanes,
+// lane 0 re-linking the position as it goes; the walk's records (each
+// longer than the last, within the distance bound) go to bl / bd, the
+// k-th in lane k, bn of them, those past MF_CAND_LIMIT's 30 slots
+// dropped.  The slide inserts the positions it does not skip into the
+// tree one after the other (the compare capped at good_len, no records),
+// the sparse insertion zeroes the links of the 1/16 it inserts and sets
+// the head, and the duplicate probe reads the head.  bt_pos follows
+// golden's rule (the slide advances it past an insertion without a
+// wrap); an insertion that starts at bt_pos >= bt_size, where golden's
+// first link access raises IndexError, sets bt_bad and writes nothing.
+// A stream its dictionary covers (no RING) is the only kind with a tree.
+template <bool STAGED, bool NOLZ, bool RING, bool BT = false>
 struct Parser {
     Stream s;
     int64_t steps, budget;   // micro-ops taken, the step budget
@@ -446,6 +475,14 @@ struct Parser {
     // the current sub-block
     int32_t win;
     Lanes wh2, wh3, wh6;
+    // the binary tree (BT): its head, its links, size, cycles and slot;
+    // a fault (golden's IndexError); the last find's tree records
+    int32_t* bt_head;
+    int32_t* bt_nodes;
+    int32_t bt_size, bt_cyc, bt_pos;
+    bool bt_bad;
+    Lanes bl, bd;
+    int32_t bn;
 #if defined(K5_PHASES) && defined(__CUDA_ARCH__)
     long long mark;
 
@@ -683,6 +720,118 @@ struct Parser {
         }
     }
 
+    // the first k in [from, lim) where the bytes at a + k and b + k
+    // differ, or lim; 32 words a compare over the warp
+    K5_FN int32_t common(int32_t a, int32_t b, int32_t from,
+                         int32_t lim) const {
+        for (int32_t k0 = from; k0 < lim; k0 += 4 * WARP) {
+            const Lanes x = lanes([&](int l) -> int32_t {
+                const int32_t k = k0 + 4 * l;
+                return k < lim ? (int32_t)(word(a + k) ^ word(b + k)) : 0;
+            });
+            const uint32_t m = ballot(x);
+            if (m) {
+                const int32_t l = ctz32(m);
+                const int32_t k = k0 + 4 * l + eq_bytes((uint32_t)get(x, l));
+                return k < lim ? k : lim;
+            }
+        }
+        return lim;
+    }
+
+    // the tree walk at ppos (find: find_match's, mf.py:335-400, the
+    // compare up to climit, records past minlen; else slide_pos's
+    // insertion, mf.py:155-192, the compare capped at good_len), pv the
+    // position's finder value and hbt its hash; limit the bytes to the
+    // piece's end (in a stream its dictionary covers, the climit of every
+    // source).  nrec: the find's records before the tree's.  The caller
+    // has checked bt_pos < bt_size.  Sets the head.
+    K5_FN void bt_walk(bool find, int32_t ppos, int32_t limit, int32_t pv,
+                       int32_t hbt, int32_t minlen, int32_t nrec) {
+        const uint32_t vld = (uint32_t)vld_rge;
+        const uint32_t bsz = (uint32_t)bt_size;
+        const int32_t good = s.good_len;
+        uint32_t dist = (uint32_t)(pv - bt_head[hbt]);
+        bn = 0;
+        // a record: the k-th of the tree's in lane k, while the find's
+        // slots last
+        auto record = [&](int32_t len) {
+            if (nrec + bn < 30) {
+                const int32_t k = bn;
+                each([&](int l) {
+                    if (l == k) {
+                        set(bl, l, len);
+                        set(bd, l, (int32_t)dist);
+                    }
+                });
+            }
+            ++bn;
+        };
+        if (find && dist >= bsz && dist < vld) {
+            // the head beyond the tree's range: no distance limit
+            const int32_t c = ppos - (int32_t)dist;
+            if (minlen < limit && byte(c + minlen) == byte(ppos + minlen)) {
+                const int32_t ml = common(ppos, c, 0, limit);
+                if (ml > minlen) {
+                    minlen = ml;
+                    if (ml > 6 || dist < (uint32_t)dist_bound(ml)) record(ml);
+                }
+            }
+        }
+        int32_t li = 2 * bt_pos, ri = li + 1, lenl = 0, lenr = 0;
+        int32_t* nodes = bt_nodes;
+        for (int32_t cyc = 0;; ++cyc) {
+            if (cyc >= bt_cyc || dist >= bsz || dist >= vld) {
+                if (leader()) nodes[li] = nodes[ri] = 0;
+                break;
+            }
+            const int32_t c = ppos - (int32_t)dist;
+            int32_t clen = lenl < lenr ? lenl : lenr;
+            const int32_t climit = find || limit < good ? limit : good;
+            if (clen >= limit) {
+                if (leader()) nodes[li] = nodes[ri] = 0;
+                break;
+            }
+            const int32_t npos = bt_pos >= (int32_t)dist
+                ? bt_pos - (int32_t)dist : bt_pos + bt_size - (int32_t)dist;
+            const int32_t tlast = 2 * npos;
+            const int32_t k = common(ppos, c, clen, climit);
+            if (k > clen) {       // equal at clen: extended to k
+                clen = k;
+                if (find && clen > minlen) {
+                    minlen = clen;
+                    if (clen > 6 || dist < (uint32_t)dist_bound(clen))
+                        record(clen);
+                }
+                if (clen >= good) {
+                    const int32_t a = nodes[tlast], b = nodes[tlast + 1];
+                    if (leader()) {
+                        nodes[li] = a;
+                        nodes[ri] = b;
+                    }
+                    break;
+                }
+                if (clen >= climit) {
+                    if (leader()) nodes[li] = nodes[ri] = 0;
+                    break;
+                }
+            }
+            if (byte(c + clen) < byte(ppos + clen)) {
+                if (leader()) nodes[li] = pv - (int32_t)dist;
+                li = tlast + 1;
+                lenl = clen;
+                dist = (uint32_t)(pv - nodes[li]);
+            } else {
+                if (leader()) nodes[ri] = pv - (int32_t)dist;
+                ri = tlast;
+                lenr = clen;
+                dist = (uint32_t)(pv - nodes[ri]);
+            }
+        }
+        if (leader()) bt_head[hbt] = pv;
+        sync();
+    }
+
     // one find_match at ppos (limit bytes to the sub-block end): the
     // candidates and the tables' insertion of ppos.  The records, in
     // find_match's order (csc_mf.cpp:243-495): rep0len1's when rep 0
@@ -794,7 +943,7 @@ struct Parser {
         // shifted down from the slots its lanes loaded
         each([&](int l) {
             const bool shift = l >= L_HT6 && l < L_HT6 + w - 1;
-            if (l == L_HT2 || l == L_HT3 || l == L_ROW0 || shift)
+            if (l == L_HT2 || l == L_HT3 || (l == L_ROW0 && !BT) || shift)
                 entry(cur.h, l)[shift] = shift ? own(cur.slot, l) : pos;
         });
         sync();
@@ -812,8 +961,10 @@ struct Parser {
             });
         }
         pf = nxt;
-        ++pos;
-        K5_PHASE(P_FINISH);
+        if constexpr (!BT) {
+            ++pos;
+            K5_PHASE(P_FINISH);
+        }
         // a record: a length past minlen, at an HT slot within the
         // distance bound
         recs = ballot(lanes([&](int l) -> int32_t {
@@ -822,6 +973,22 @@ struct Parser {
             return own(pre, l) && ln > ml
                 && (l < 4 || ln > 6 || d < dist_bound(ln));
         }));
+        if constexpr (BT) {
+            // the tree after the fold: minlen the longest length of the
+            // lanes up to the exit (a lane that failed its precheck is
+            // no longer than minlen was)
+            const int32_t ml = max_all(lanes([&](int l) -> int32_t {
+                return own(cand, l) && l <= xl ? own(len, l) : 0;
+            }));
+            if (bt_pos >= bt_size) {
+                bt_bad = true;    // the walk's first link past the table
+                return true;
+            }
+            bt_walk(true, ppos, limit, pos, cur.h.h6, ml > 1 ? ml : 1,
+                    (recs & 1) + popc(recs));
+            if (++bt_pos >= bt_size) bt_pos -= bt_size;
+            ++pos;
+        }
         return true;
     }
 
@@ -943,6 +1110,7 @@ struct Parser {
         if (!spend(nfast + nslow + 1)) return false;
         const int32_t w = s.hash_width;
         const int32_t blk_end = blk_off + blk_len;
+        if constexpr (BT) bt_pos += 4 * nfast;
         const bool ahead = pf.at >= 0;
         // every value the tables hold is an earlier position, at least
         // vld_rge, or 0
@@ -988,6 +1156,10 @@ struct Parser {
             if (ahead) {
                 forward(k2, ok, val, pf.h.h2, L_HT2);
                 forward(k3, ok, val, pf.h.h3, L_HT3);
+            }
+            if constexpr (BT) {  // no row: the tree's insertions below
+                sync();
+                continue;
             }
             if (w == 1) {        // a row of one: its last writer
                 put_last(s.ht6, k6, ok, val, grow);
@@ -1051,6 +1223,21 @@ struct Parser {
                 if (l >= L_HT6)
                     set(pf.slot, l, ht_lane(l) ? *entry(pf.h, l) : 0);
             });
+        if constexpr (BT) {
+            // the tree's insertions, one after the other; bt_pos wrapped
+            // before each, advanced after it without a wrap
+            for (int32_t i = i0; i < len; ++i) {
+                const int32_t p = base + i;
+                if (bt_pos >= bt_size) bt_pos -= bt_size;
+                if (bt_pos >= bt_size) {
+                    bt_bad = true;
+                    return true;
+                }
+                bt_walk(false, p, blk_end - p, pos + i - 1, hash_at(p).h6,
+                        0, 0);
+                ++bt_pos;
+            }
+        }
         pos += len - 1;
         K5_PHASE(P_SLIDE);
         return true;
@@ -1097,7 +1284,8 @@ struct Parser {
                 const uint32_t v2 = word(p + 4) & 0xFFFF;
                 const int64_t h6 = ((v4 ^ (v2 << 13)) * 2654435761u)
                                  >> (32 - s.hash_bits);
-                const uint32_t dist = (uint32_t)(pos - s.ht6[h6 * w]);
+                const int32_t head = BT ? bt_head[h6] : s.ht6[h6 * w];
+                const uint32_t dist = (uint32_t)(pos - head);
                 if (dist >= vld) continue;
                 if constexpr (RING) {
                     // a source in the previous lap ends at the ring's
@@ -1190,6 +1378,10 @@ struct Parser {
     // sub-block) is a multiple of 16, the HT6 row shifts down and takes
     // the position's pos; 32 positions a pass, one a lane
     K5_FN void sparse() {
+        if constexpr (BT) {
+            sparse_bt();
+            return;
+        }
         const int32_t w = s.hash_width;
         for (int32_t q0 = 0; q0 < blk_len; q0 += WARP) {
             fill(blk_off + q0);
@@ -1229,6 +1421,46 @@ struct Parser {
                 const int32_t k = popc(m & above);
                 if (k < w) r[k] = pos + q0 + l;
             });
+            sync();
+        }
+        pos += blk_len;
+    }
+
+    // SlidePosFast with the tree (mf.py:198-231): at each position whose
+    // HASH2 is a multiple of 16 its links zeroed and the head set to it,
+    // bt_pos advancing and wrapping at every position; 32 positions a
+    // pass, one a lane (the highest lane of a head writes it)
+    K5_FN void sparse_bt() {
+        const bool grow = vld_rge >= 0;
+        int32_t q0 = 0;
+        // a bt_pos the slide left past the table: position by position
+        // until it wraps below it
+        for (; q0 < blk_len && bt_pos >= bt_size; ++q0) {
+            if (!(hash_at(blk_off + q0).h2 & 15)) {
+                bt_bad = true;
+                return;
+            }
+            bt_pos += 1 - bt_size;
+        }
+        for (; q0 < blk_len; q0 += WARP) {
+            fill(blk_off + q0);
+            const Lanes ok = lanes([&](int l) -> int32_t {
+                return q0 + l < blk_len && !(own(wh2, l) & 15);
+            });
+            each([&](int l) {
+                if (!own(ok, l)) return;
+                const int32_t b = bt_pos + l >= bt_size ? bt_pos + l - bt_size
+                                                        : bt_pos + l;
+                bt_nodes[2 * b] = bt_nodes[2 * b + 1] = 0;
+            });
+            put_last(bt_head, lanes([&](int l) -> int32_t {
+                return own(ok, l) ? own(wh6, l) : -1 - l;
+            }), ok, lanes([&](int l) -> int32_t {
+                return pos + q0 + l;
+            }), grow);
+            const int32_t cnt = blk_len - q0 < WARP ? blk_len - q0 : WARP;
+            bt_pos += cnt;
+            if (bt_pos >= bt_size) bt_pos -= bt_size;
             sync();
         }
         pos += blk_len;

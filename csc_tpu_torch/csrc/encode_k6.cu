@@ -1,10 +1,13 @@
-// K6 on Hopper: the batched exact optimal parse of m3 / m4, priced by the
+// K6 on Hopper: the batched exact optimal parse of m3-m5, priced by the
 // live model, one warp a stream.
 //
 // Replaces nothing on the TPU: csc_tpu codes these streams with its
 // golden host encoder (csc_tpu/ops/pipeline.py:248-262: m3-m5 under
 // CSC_ENCODE_PARSE=exact, and every m3-m5 stream over its 1 MB device
-// cap).  Each block is one warp that runs its stream's whole parse
+// cap).  m5's binary tree is a kernel of its own (k6_parse_kernel<true>,
+// csc_k6_bt_launch), so the parse of m3 / m4 keeps its code and its
+// registers; its head and links are a slice a stream of device memory.
+// Each block is one warp that runs its stream's whole parse
 // (encode_k6.cuh): K5's finder, slide, walk and probe, the stretch DP
 // a length a lane, the back-walk's tokens and the shadow model's
 // updates by lane 0.  A stream of at most 64 KB is staged as words in
@@ -17,8 +20,9 @@
 // The bound: the data read once and the tape written once, over the
 // card's 3.35 TB/s, microseconds for the encode path's groups.  Each
 // position's find is K5's chain of dependent table loads and compares,
-// and its DP step a chain of dependent cell and probability loads: K6 is
-// bound by load latency, not by bytes.
+// and its DP step a chain of dependent cell and probability loads (at
+// m5 the tree's walk a chain of dependent link loads too): K6 is bound
+// by load latency, not by bytes.
 #include <cuda_runtime.h>
 
 #include "encode_k6.cuh"
@@ -34,8 +38,19 @@ static size_t k6_words(int64_t n) {
 
 static size_t k6_smem(int64_t n) { return k6_words(n) + K6_MODEL; }
 
+// the tree's arguments of a launch (BT): bits, cycles, each stream's
+// size, the head and links, the links' words a stream
+struct K6Tree {
+    int32_t bits, cyc;
+    const int32_t* sizes;
+    int32_t* head;
+    int32_t* nodes;
+    int64_t stride;
+};
+
 // one block a stream, one warp a block; the whole register file allowed
 // one block, as K5's (the covered streams' parse of K5 is K6's finder)
+template <bool BT>
 __global__ void __launch_bounds__(k5::WARP, 1) k6_parse_kernel(
     const uint8_t* __restrict__ data, int64_t n,
     const int32_t* __restrict__ blocks, int32_t nblk,
@@ -45,7 +60,7 @@ __global__ void __launch_bounds__(k5::WARP, 1) k6_parse_kernel(
     int32_t* __restrict__ ht3, int32_t* __restrict__ ht6,
     uint16_t* __restrict__ lit, int32_t* __restrict__ cells,
     int32_t* __restrict__ tape, int64_t tcap, int32_t* __restrict__ out,
-    int32_t* __restrict__ btypes) {
+    int32_t* __restrict__ btypes, K6Tree tree) {
     const int64_t b = blockIdx.x;
     const uint8_t* row = data + b * n;
     const bool staged = n <= k5::STAGE_MAX;
@@ -94,8 +109,15 @@ __global__ void __launch_bounds__(k5::WARP, 1) k6_parse_kernel(
     x.p2b = table;
     x.lit = lit + b * k6::NLIT;
     x.cells = cells + b * (int64_t)k6::NFIELD * k6::CELLS;
-    const k6::Result r = staged ? k6::parse_stream<true>(x)
-                                : k6::parse_stream<false>(x);
+    if constexpr (BT) {
+        s.hash_bits = tree.bits;
+        x.bt_head = tree.head + (b << tree.bits);
+        x.bt_nodes = tree.nodes + b * tree.stride;
+        x.bt_size = tree.sizes[b];
+        x.bt_cyc = tree.cyc;
+    }
+    const k6::Result r = staged ? k6::parse_stream<true, BT>(x)
+                                : k6::parse_stream<false, BT>(x);
     if (threadIdx.x == 0) {
         const int64_t B = gridDim.x;
         out[0 * B + b] = r.tok_cnt;
@@ -105,13 +127,14 @@ __global__ void __launch_bounds__(k5::WARP, 1) k6_parse_kernel(
 }
 
 // staged launches take shared memory first, the others L1
+template <bool BT>
 static cudaError_t k6_setup(int64_t n) {
     cudaError_t e = cudaFuncSetAttribute(
-        k6_parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k6_parse_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)k6_smem(k5::STAGE_MAX));
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(
-        k6_parse_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        k6_parse_kernel<BT>, cudaFuncAttributePreferredSharedMemoryCarveout,
         n <= k5::STAGE_MAX ? cudaSharedmemCarveoutMaxShared
                            : cudaSharedmemCarveoutMaxL1);
 }
@@ -135,14 +158,44 @@ extern "C" int csc_k6_launch(
         || hash_bits > 24 || good_len < 2 || good_len > k6::MAX_GOOD
         || tcap < 1 || nblk < 1)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = k6_setup(n);
+    cudaError_t e = k6_setup<false>(n);
     if (e != cudaSuccess) return (int)e;
-    k6_parse_kernel<<<batch, k5::WARP, k6_smem(n), (cudaStream_t)stream>>>(
-        (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
-        (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
-        hash_width, good_len, (const uint16_t*)p2b, (int32_t*)ht2,
-        (int32_t*)ht3, (int32_t*)ht6, (uint16_t*)lit, (int32_t*)cells,
-        (int32_t*)tape, tcap, (int32_t*)out, (int32_t*)btypes);
+    k6_parse_kernel<false>
+        <<<batch, k5::WARP, k6_smem(n), (cudaStream_t)stream>>>(
+            (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+            (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
+            hash_width, good_len, (const uint16_t*)p2b, (int32_t*)ht2,
+            (int32_t*)ht3, (int32_t*)ht6, (uint16_t*)lit, (int32_t*)cells,
+            (int32_t*)tape, tcap, (int32_t*)out, (int32_t*)btypes, K6Tree{});
+    return (int)cudaGetLastError();
+}
+
+// csc_k6_launch of m5's parse, with the binary tree (hash_width 0, no
+// HT6: ht6 may be null): bt_bits in [1, 25], bt_cyc >= 1, bt_sizes [B]
+// int32 (each at least 32), bt_head [B, 1 << bt_bits] and bt_nodes [B,
+// stride] int32 zeros, stride >= 2 * min(bt_size, n + 1); 2 <= good_len
+// <= 48.
+extern "C" int csc_k6_bt_launch(
+    const void* data, int64_t n, const void* blocks, int32_t nblk,
+    const void* sizes, const void* dict_sizes, int32_t bt_bits,
+    int32_t bt_cyc, const void* bt_sizes, int32_t good_len, const void* p2b,
+    void* ht2, void* ht3, void* bt_head, void* bt_nodes, int64_t stride,
+    void* lit, void* cells, void* tape, int64_t tcap, void* out,
+    void* btypes, int32_t batch, void* stream) {
+    if (bt_bits < 1 || bt_bits > 25 || bt_cyc < 1 || good_len < 2
+        || good_len > k6::MAX_GOOD_BT || tcap < 1 || nblk < 1 || stride < 2)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = k6_setup<true>(n);
+    if (e != cudaSuccess) return (int)e;
+    k6_parse_kernel<true>
+        <<<batch, k5::WARP, k6_smem(n), (cudaStream_t)stream>>>(
+            (const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+            (const int32_t*)sizes, (const int32_t*)dict_sizes, bt_bits, 0,
+            good_len, (const uint16_t*)p2b, (int32_t*)ht2, (int32_t*)ht3,
+            nullptr, (uint16_t*)lit, (int32_t*)cells, (int32_t*)tape, tcap,
+            (int32_t*)out, (int32_t*)btypes,
+            K6Tree{bt_bits, bt_cyc, (const int32_t*)bt_sizes,
+                   (int32_t*)bt_head, (int32_t*)bt_nodes, stride});
     return (int)cudaGetLastError();
 }
 
@@ -156,8 +209,16 @@ extern "C" int64_t csc_k6_cell_words() {
 
 // blocks of streams n bytes wide that one SM holds at once
 extern "C" int csc_k6_blocks_per_sm(int64_t n, int* blocks) {
-    cudaError_t e = k6_setup(n);
+    cudaError_t e = k6_setup<false>(n);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, k6_parse_kernel, k5::WARP, k6_smem(n));
+        blocks, k6_parse_kernel<false>, k5::WARP, k6_smem(n));
+}
+
+// the same of m5's kernel (the tree's)
+extern "C" int csc_k6_bt_blocks_per_sm(int64_t n, int* blocks) {
+    cudaError_t e = k6_setup<true>(n);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, k6_parse_kernel<true>, k5::WARP, k6_smem(n));
 }

@@ -1,9 +1,10 @@
-// K6: per-stream exact optimal parse of m3 / m4, priced by the live
+// K6: per-stream exact optimal parse of m3-m5, priced by the live
 // model, one warp a stream: golden's compress_advanced (csc_lz.cpp:
-// 207-362, golden/lz.py:156-295) over csc_mf.cpp's hash-chain finders,
-// with the run walk, duplicate-block probe and sparse insertion of
-// CSCEncoder::Compress, so the tape it writes codes, through the stitch
-// and K3, the reference encoder's own bytes.
+// 207-362, golden/lz.py:156-295) over csc_mf.cpp's finders (the hash
+// chains of m3 / m4, the binary tree of m5), with the run walk,
+// duplicate-block probe and sparse insertion of CSCEncoder::Compress, so
+// the tape it writes codes, through the stitch and K3, the reference
+// encoder's own bytes.
 //
 // The finder, the window of hashes, the slide, the walk, the probe and
 // the sparse insertion are K5's (encode_k5.cuh, `k5::Parser`, its
@@ -46,6 +47,17 @@
 // run's literals each adapt one level of the literal tree (no two levels
 // share a probability).
 //
+// m5 (BT, an instantiation of its own: the parse of m3 / m4 keeps its
+// code): K5's finder with the binary tree (encode_k5.cuh, `BT`), whose
+// records past the lanes' are the tree's; find_match keeps 30 of them
+// (MF_CAND_LIMIT).  A find relaxes lengths 2 .. good_len - 1 = 47, two a
+// lane: lane l the lengths l and 32 + l; a length of 34 or more prices
+// 768 and makes no call of the length cache (GetMatchLenPrice), so the
+// calls are the lengths up to 33, the low half's before the high half's.
+// Where golden's tree raises IndexError (a link past 2 * bt_size,
+// ops/exact_ap_scan.py), the finder sets bt_bad and the parse ends
+// before it codes anything more (done 0, err ERR_BT).
+//
 // The tape is a capacity: a token past it ends the parse (done 0, err
 // ERR_OVERFLOW, tok_cnt the capacity).  K6 has no step budget: csc_tpu
 // has no device loop for these streams (it codes them with golden).
@@ -76,6 +88,9 @@ constexpr int32_t AP_LIMIT = 2048;          // csc_lz.h:43
 constexpr int32_t CELLS = AP_LIMIT + 8;     // a cell row, padded
 constexpr uint32_t INF = 0xFFFFFFFFu;
 constexpr int32_t MAX_GOOD = 32;            // a length a lane
+constexpr int32_t MAX_GOOD_BT = 48;         // two lengths a lane (m5)
+constexpr int32_t CAND_SLOTS = 30;          // find_match's records read
+constexpr int32_t ERR_BT = 3;               // golden's tree IndexError
 // the cells' rows
 enum { C_PRICE, C_BACK, C_DIST, C_NEXT, C_STATE, C_REP, NFIELD = C_REP + 4 };
 // the small trees, in one array of probabilities
@@ -101,6 +116,11 @@ struct Stream {
     uint16_t* p2b;         // [NP2B], the p_2_bits table
     uint16_t* lit;         // [NLIT]
     int32_t* cells;        // [NFIELD][CELLS]
+    // the binary tree (m5): head [1 << bits], links [2 * min(bt_size,
+    // n + 1)], size and cycles
+    int32_t* bt_head;
+    int32_t* bt_nodes;
+    int32_t bt_size, bt_cyc;
 };
 
 struct Result {
@@ -109,17 +129,18 @@ struct Result {
 
 // a find priced: ret[0] (len, code: 0 a literal, 1-4 a rep, else 4 +
 // the distance), rep0len1's ret[1], and lane L's ret[L] for L in [2,
-// len] (code 0: none)
+// len] (code 0: none); with the tree, lane l's ret[32 + l] too
 struct Found {
     int32_t len, code;
     bool r01;
     uint32_t r01p;
     Lanes code_at, price_at;
+    Lanes code_hi, price_hi;
 };
 
-template <bool STAGED, bool NOLZ>
+template <bool STAGED, bool NOLZ, bool BT>
 struct ApParser {
-    k5::Parser<STAGED, NOLZ, false> f;
+    k5::Parser<STAGED, NOLZ, false, BT> f;
     Stream x;
     int32_t state, ctx, lp;  // the model's pack state, context, counter
     int32_t tok;
@@ -290,6 +311,10 @@ struct ApParser {
     // priced at state st with the rep queue in f.reps
     K5_FN void find_priced(int32_t st, int32_t ppos, int32_t limit,
                            Found& o) {
+        if constexpr (BT) {
+            find_priced_bt(st, ppos, limit, o);
+            return;
+        }
         Lanes len, dist;
         uint32_t recs = 0;
         f.find_records(ppos, limit, len, dist, recs);  // no budget to pass
@@ -353,6 +378,129 @@ struct ApParser {
             const uint32_t d = j < 4 ? repd_price(st, j)
                                      : matchd_price(st, own(dj, l));
             return (int32_t)(d + (uint32_t)own(lenp, l));
+        });
+    }
+
+    // the distance price of record code c (a rep's or a match's)
+    K5_FN uint32_t dist_price(int32_t st, int32_t c) const {
+        return c <= 4 ? repd_price(st, c - 1) : matchd_price(st, c - 4);
+    }
+
+    // find_priced with the tree: the records in find_match's order
+    // (rep0len1's, the lanes', the tree's), the first CAND_SLOTS read;
+    // lengths 2 .. len - 1 in two halves, lane l the lengths l and 32 + l
+    K5_FN void find_priced_bt(int32_t st, int32_t ppos, int32_t limit,
+                              Found& o) {
+        Lanes len, dist;
+        uint32_t recs = 0;
+        f.find_records(ppos, limit, len, dist, recs);
+        if (f.bt_bad) return;
+        const int32_t r01 = recs & 1;
+        const int32_t nl = r01 + popc(recs);
+        const int32_t nv = nl + f.bn < CAND_SLOTS ? nl + f.bn : CAND_SLOTS;
+        // record e's length and code in lane e
+        const Lanes tl = gather(f.bl, lanes([&](int l) -> int32_t {
+            return l >= nl ? l - nl : 0;
+        }));
+        const Lanes td = gather(f.bd, lanes([&](int l) -> int32_t {
+            return l >= nl ? l - nl : 0;
+        }));
+        Lanes ulen = lanes([&](int l) -> int32_t {
+            return l >= nl && l < nv ? own(tl, l) : l == 0 && r01;
+        });
+        Lanes ucode = lanes([&](int l) -> int32_t {
+            return l >= nl && l < nv ? own(td, l) + 4 : l == 0 && r01;
+        });
+        int32_t e = r01;
+        for (uint32_t m = recs; m; m &= m - 1, ++e) {
+            const int32_t j = k5::ctz32(m);
+            const int32_t lj = get(len, j);
+            const int32_t cj = j < 4 ? j + 1 : get(dist, j) + 4;
+            each([&](int l) {
+                if (l == e) {
+                    set(ulen, l, lj);
+                    set(ucode, l, cj);
+                }
+            });
+        }
+        o.len = nv ? get(ulen, nv - 1) : 1;
+        o.code = nv ? get(ucode, nv - 1) : 0;
+        o.r01 = false;
+        if (o.len >= f.s.good_len) return;   // ret[0] alone
+        o.r01 = r01;
+        o.r01p = r01 ? r01_price(st) : 0;
+        // the first record that reaches each length
+        Lanes rlo = lanes([&](int) -> int32_t { return -1; });
+        Lanes rhi = rlo;
+        for (int32_t q = r01; q < nv; ++q) {
+            const int32_t lq = get(ulen, q);
+            each([&](int l) {
+                if (own(rlo, l) < 0 && l >= 2 && l <= lq) set(rlo, l, q);
+                if (own(rhi, l) < 0 && 32 + l <= lq) set(rhi, l, q);
+            });
+        }
+        const Lanes clo = gather(ucode, lanes([&](int l) -> int32_t {
+            return own(rlo, l) < 0 ? 0 : own(rlo, l);
+        }));
+        const Lanes chi = gather(ucode, lanes([&](int l) -> int32_t {
+            return own(rhi, l) < 0 ? 0 : own(rhi, l);
+        }));
+        // the distance gate at lengths up to 6; counted calls of the
+        // length cache: the low half's, then lengths 32 and 33
+        const Lanes ok = lanes([&](int l) -> int32_t {
+            const int32_t c = own(clo, l);
+            return own(rlo, l) >= 0
+                && (c <= 4 || l > 6
+                    || (uint32_t)(c - 4) < (uint32_t)k5::dist_bound(l));
+        });
+        const uint32_t calls = ballot(ok);
+        const uint32_t calls_hi = ballot(lanes([&](int l) -> int32_t {
+            return l < 2 && own(rhi, l) >= 0;
+        }));
+        const int32_t nlo = popc(calls);
+        const int32_t total = nlo + popc(calls_hi);
+        Lanes plo = lanes([&](int l) -> int32_t {
+            return own(ok, l) ? x.lenp[l - 2] : 0;
+        });
+        Lanes phi = lanes([&](int l) -> int32_t {
+            return calls_hi >> l & 1 ? x.lenp[30 + l] : 128 * 6;
+        });
+        if (total > lp) {
+            const Lanes fresh = rebuild();
+            const Lanes flo = gather(fresh, lanes([&](int l) -> int32_t {
+                return l >= 2 ? l - 2 : 0;
+            }));
+            const Lanes fhi = gather(fresh, lanes([&](int l) -> int32_t {
+                return l < 2 ? 30 + l : 0;
+            }));
+            sync();
+            each([&](int l) {
+                x.lenp[l] = own(fresh, l);
+                if (own(ok, l) && popc(calls & ((1u << l) - 1)) >= lp)
+                    set(plo, l, own(flo, l));
+                if ((calls_hi >> l & 1)
+                    && nlo + popc(calls_hi & ((1u << l) - 1)) >= lp)
+                    set(phi, l, own(fhi, l));
+            });
+            sync();
+            lp = 4096 - (total - lp - 1);
+        } else {
+            lp -= total;
+        }
+        o.code_at = lanes([&](int l) -> int32_t {
+            return own(ok, l) ? own(clo, l) : 0;
+        });
+        o.price_at = lanes([&](int l) -> int32_t {
+            return own(ok, l) ? (int32_t)(dist_price(st, own(clo, l))
+                                          + (uint32_t)own(plo, l)) : 0;
+        });
+        o.code_hi = lanes([&](int l) -> int32_t {
+            return own(rhi, l) >= 0 ? own(chi, l) : 0;
+        });
+        o.price_hi = lanes([&](int l) -> int32_t {
+            return own(rhi, l) >= 0 ? (int32_t)(dist_price(st, own(chi, l))
+                                                + (uint32_t)own(phi, l))
+                                    : 0;
         });
     }
 
@@ -440,6 +588,9 @@ struct ApParser {
                 });
                 if (apcur < aplimit)
                     find_priced(st, cur, avail - apcur, fd);
+                if constexpr (BT) {
+                    if (f.bt_bad) return apcur;   // nothing coded
+                }
             }
             if (apcur == aplimit) {  // never: an exit below comes first
                 backward(wpos, apcur);
@@ -499,6 +650,22 @@ struct ApParser {
                     price[c] = INF;
                 }
             });
+            if constexpr (BT) {
+                // the lengths 32 + l
+                each([&](int l) {
+                    if (32 + l > flen) return;
+                    const int32_t c = apcur + 32 + l;
+                    const uint32_t old = c >= apend ? INF : price[c];
+                    const uint32_t np = (uint32_t)own(fd.price_hi, l) + here;
+                    if (own(fd.code_hi, l) && np < old) {
+                        price[c] = np;
+                        dist[c] = own(fd.code_hi, l);
+                        back[c] = apcur;
+                    } else if (c >= apend) {
+                        price[c] = INF;
+                    }
+                });
+            }
             if (apcur + flen >= apend) apend = apcur + flen + 1;
             sync();
             ++apcur;
@@ -587,6 +754,14 @@ struct ApParser {
     K5_FN Result run() {
         f.init();
         f.budget = INT64_MAX;     // no step budget
+        if constexpr (BT) {
+            f.bt_head = x.bt_head;
+            f.bt_nodes = x.bt_nodes;
+            f.bt_size = x.bt_size;
+            f.bt_cyc = x.bt_cyc;
+            f.bt_pos = 0;
+            f.bt_bad = false;
+        }
         tok = 0;
         full = false;
         state = ctx = lp = 0;
@@ -629,6 +804,7 @@ struct ApParser {
                 if constexpr (NOLZ) {
                     if (f.run_type >= k5::DT_NO_LZ) {
                         f.sparse();
+                        if (bad()) break;
                         f.blk_i = f.blk_len;
                         wpos += f.blk_len;
                         continue;
@@ -639,12 +815,14 @@ struct ApParser {
             const int32_t avail = f.blk_len - f.blk_i;
             Found fd;
             find_priced(state, wpos, avail, fd);
+            if (bad()) break;
             int32_t used = 1, slen = 0;
             if (fd.code == 0) {
                 token(1, 0, (int32_t)f.byte(wpos));
                 sync();
             } else {
                 used = stretch(wpos, avail, fd, slen);
+                if (bad()) break;
             }
             f.blk_i += used;
             wpos += used;
@@ -655,19 +833,26 @@ struct ApParser {
                     ? 1 + 4 * ((slen - k5::FAST_SLIDE - 1 + 3) / 4) : 1;
                 f.ahead(wpos, base + i0);
                 f.slide(base, slen);
+                if (bad()) break;
             }
         }
         Result r;
         r.tok_cnt = tok;
         r.done = done ? 1 : 0;
-        r.err = full ? k5::ERR_OVERFLOW : 0;
+        r.err = full ? k5::ERR_OVERFLOW : bad() ? ERR_BT : 0;
         return r;
+    }
+
+    // the tree faulted (golden's IndexError)
+    K5_FN bool bad() const {
+        if constexpr (BT) return f.bt_bad;
+        return false;
     }
 };
 
-template <bool STAGED, bool NOLZ>
+template <bool STAGED, bool NOLZ, bool BT>
 K5_FN Result parse_as(const Stream& x, int32_t* regs) {
-    ApParser<STAGED, NOLZ> p;
+    ApParser<STAGED, NOLZ, BT> p;
     p.f.s = x.s;
     p.x = x;
     const Result r = p.run();
@@ -681,12 +866,13 @@ K5_FN Result parse_as(const Stream& x, int32_t* regs) {
 
 // the stream's parse; a stream whose block table holds no BAD / ENTROPY
 // / DLT block takes the parse without the probe and the sparse insertion
-// (K5's rule).  regs, when not null, gets the model's state, ctx and
+// (K5's rule).  BT: m5's binary tree (hash_width 0, s.hash_bits the
+// tree's bits).  regs, when not null, gets the model's state, ctx and
 // length-cache counter at the end.
-template <bool STAGED>
+template <bool STAGED, bool BT = false>
 K5_FN Result parse_stream(const Stream& x, int32_t* regs = nullptr) {
-    return k5::has_nolz(x.s) ? parse_as<STAGED, true>(x, regs)
-                             : parse_as<STAGED, false>(x, regs);
+    return k5::has_nolz(x.s) ? parse_as<STAGED, true, BT>(x, regs)
+                             : parse_as<STAGED, false, BT>(x, regs);
 }
 
 }  // namespace k6

@@ -15,20 +15,27 @@ constexpr int64_t MODEL_WORDS = k6::M_SMALL + k6::NLIT + 32 + 3;
 
 // Same arguments and outputs as csc_k6_launch in encode_k6.cu, with host
 // pointers and no stream (btypes zeros; the p_lit and cell scratch made
-// here), and two more: a stream of n <= stage_max bytes is staged as
-// words (STAGE_PAD zero words after it), as the kernel stages one of at
-// most k5::STAGE_MAX bytes, a longer one read from its bytes; `model`
-// [B, MODEL_WORDS] int32, when not null, gets the model each stream
-// leaves.
+// here), and more: a stream of n <= stage_max bytes is staged as words
+// (STAGE_PAD zero words after it), as the kernel stages one of at most
+// k5::STAGE_MAX bytes, a longer one read from its bytes; `model` [B,
+// MODEL_WORDS] int32, when not null, gets the model each stream leaves;
+// bt_bits > 0 takes m5's parse with the binary tree, as csc_k6_bt_launch
+// (hash_width 0, hash_bits unused; bt_sizes, bt_head and bt_nodes as
+// there).
 extern "C" int csc_k6_host_staged(
     const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
     int32_t hash_width, int32_t good_len, const void* p2b, void* ht2,
     void* ht3, void* ht6, void* tape, int64_t tcap, void* out,
-    void* btypes, int32_t batch, int64_t stage_max, void* model) {
-    if (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
-        || hash_bits > 24 || good_len < 2 || good_len > k6::MAX_GOOD
-        || tcap < 1 || nblk < 1)
+    void* btypes, int32_t batch, int64_t stage_max, void* model,
+    int32_t bt_bits, int32_t bt_cyc, const void* bt_sizes, void* bt_head,
+    void* bt_nodes, int64_t stride) {
+    const bool tree = bt_bits > 0;
+    if (tree ? (hash_width != 0 || bt_bits > 25 || bt_cyc < 1 || stride < 2
+                || good_len > k6::MAX_GOOD_BT)
+             : (hash_width < 1 || hash_width > k5::MAX_WIDTH || hash_bits < 1
+                || hash_bits > 24 || good_len > k6::MAX_GOOD)
+        || good_len < 2 || tcap < 1 || nblk < 1)
         return 1;
     std::vector<uint32_t> words((n + 3) / 4 + k5::STAGE_PAD);
     std::vector<uint16_t> small(k6::M_SMALL), lit(k6::NLIT);
@@ -58,13 +65,14 @@ extern "C" int csc_k6_host_staged(
         s.size = ((const int32_t*)sizes)[b];
         s.dict_size = ((const int32_t*)dict_sizes)[b];
         if (s.size > s.dict_size) return 1;
-        s.hash_bits = hash_bits;
+        s.hash_bits = tree ? bt_bits : hash_bits;
         s.hash_width = hash_width;
         s.good_len = good_len;
         s.lazy = 0;
         s.ht2 = (int32_t*)ht2 + b * k5::HT2_SIZE;
         s.ht3 = (int32_t*)ht3 + b * k5::HT3_SIZE;
-        s.ht6 = (int32_t*)ht6 + b * ((int64_t)hash_width << hash_bits);
+        s.ht6 = tree ? nullptr
+                     : (int32_t*)ht6 + b * ((int64_t)hash_width << hash_bits);
         s.tape = (int32_t*)tape + b * 2 * tcap;
         s.tcap = tcap;
         s.max_steps = 0;
@@ -73,12 +81,23 @@ extern "C" int csc_k6_host_staged(
         x.p2b = table.data();
         x.lit = lit.data();
         x.cells = cells.data();
+        if (tree) {
+            x.bt_head = (int32_t*)bt_head + (b << bt_bits);
+            x.bt_nodes = (int32_t*)bt_nodes + b * stride;
+            x.bt_size = ((const int32_t*)bt_sizes)[b];
+            x.bt_cyc = bt_cyc;
+            if (2 * (int64_t)(x.bt_size < s.size + 1 ? x.bt_size : s.size + 1)
+                > stride || x.bt_size < 32)
+                return 1;
+        }
         k6::Result r;
         int32_t regs[3];
         if (s.words)
-            r = k6::parse_stream<true>(x, regs);
+            r = tree ? k6::parse_stream<true, true>(x, regs)
+                     : k6::parse_stream<true>(x, regs);
         else
-            r = k6::parse_stream<false>(x, regs);
+            r = tree ? k6::parse_stream<false, true>(x, regs)
+                     : k6::parse_stream<false>(x, regs);
         if (model) {
             int32_t* m = (int32_t*)model + b * MODEL_WORDS;
             for (int32_t i = 0; i < k6::M_SMALL; ++i) *m++ = small[i];
@@ -103,5 +122,6 @@ extern "C" int csc_k6_host(
     return csc_k6_host_staged(data, n, blocks, nblk, sizes, dict_sizes,
                               hash_bits, hash_width, good_len, p2b, ht2,
                               ht3, ht6, tape, tcap, out, btypes, batch,
-                              k5::STAGE_MAX, nullptr);
+                              k5::STAGE_MAX, nullptr, 0, 0, nullptr,
+                              nullptr, nullptr, 0);
 }

@@ -24,8 +24,10 @@ m1 and m2 on the encode headline, at m1 on 1 024 and 4 096 x 16 KB text
 (the encode path's large groups; 4 096 needs more than eight K5 blocks
 an SM) and on the encode task; K6 (the exact optimal parse) at m3 and
 m4 on the encode headline, at m3 on 1 024 x 16 KB text and on the m3
-encode task (K6 against a checkout without it: `--other .`, this
-checkout against itself).  The inputs come from this
+encode task, and its binary-tree kernel at m5 on the encode headline and
+task (K6 against a checkout without it: `--other .`, this checkout
+against itself; the m5 cells against a checkout without the tree time
+this checkout against itself).  The inputs come from this
 checkout's encode path on the card.  K4, K5 and K6 are launched
 directly, with no debug copy (as on the encode path): the tape and the
 hash tables are zeroed before each timed call, outside its events, and
@@ -194,27 +196,29 @@ def k6_calls(args, other):
     """(prepare, launch) of each build for K6's raw launch on the encode
     path's arguments: its zeroed hash tables, its model and cell scratch
     (set up by the kernel), tape, counters and block types."""
-    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap = args
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap, \
+        bt, bt_sizes = args
     b = data.shape[0]
     dev = data.device
     p2b = exact_ap_kernel.p2b_table(dev)
     calls = {}
     for who, lib in (("this", _build.kernel_library("csc_k6")),
                      ("other", other)):
-        scratch = exact_ap_kernel.new_scratch(b, hash_bits, hash_width, dev)
+        scratch = exact_ap_kernel.new_scratch(b, hash_bits, hash_width, dev,
+                                              bt, data.shape[1], bt_sizes)
         tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
         out = torch.zeros((3, b), dtype=torch.int32, device=dev)
         btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
 
         def prepare(scratch=scratch, tape=tape, btypes=btypes):
-            for t in scratch[0] + (tape, btypes):
+            for t in scratch[0] + (scratch[3] or ()) + (tape, btypes):
                 t.zero_()
 
         def call(lib=lib, scratch=scratch, tape=tape, out=out,
                  btypes=btypes):
             exact_ap_kernel.launch(lib, data, blocks, sizes, dicts,
                                    hash_bits, hash_width, good_len, p2b,
-                                   scratch, tape, out, btypes)
+                                   scratch, tape, out, btypes, bt, bt_sizes)
             return tape, out[0], out[1], out[2], btypes
         calls[who] = (prepare, call)
     return calls
@@ -405,6 +409,18 @@ def main(argv=None):
                                  dev, "exact")
         cells["K6 task m3 4 x 1 MB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in group], k6, 1)
+        # m5, K6's binary-tree kernel (a checkout before it has none: its
+        # cells then time this one's against itself)
+        k6t = k6 if hasattr(k6, "csc_k6_bt_launch") else \
+            _build.kernel_library("csc_k6")
+        args6, _, _ = stage_args([props_init(16 * KB, 5) for _ in enc], enc,
+                                 dev, "exact")
+        cells["K6 m5 96 x 16 KB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in enc], k6t, 3)
+        args6, _, _ = stage_args([props_init(MB, 5) for _ in group], group,
+                                 dev, "exact")
+        cells["K6 task m5 4 x 1 MB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in group], k6t, 1)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

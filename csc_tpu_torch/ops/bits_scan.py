@@ -620,6 +620,8 @@ def outputs_of(st):
             st["chunk_log"], stats)
 
 
+# no autograd state a step: the lockstep loop runs about a fifth faster
+@torch.inference_mode()
 def bits_plain(kind, a, b, c, max_rc, max_bc, nmap, nchunk, bsize,
                max_steps=None):
     """K3's function, as lockstep torch ops on the tapes' device."""

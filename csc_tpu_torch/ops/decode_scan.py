@@ -814,6 +814,8 @@ def run_decode(st, wnd_size, max_steps):
     return st, steps
 
 
+# no autograd state a step: the lockstep loop runs about a fifth faster
+@torch.inference_mode()
 def decode_plain(rc, bc, rc_ends, bc_ends, wnd_size, max_steps,
                  max_blocks=MAX_BLOCKS):
     """The whole decode as K1's wrapper returns it: (wnd [B, wnd_size+16]

@@ -301,7 +301,7 @@ def plan_stream(props, data, exact=False):
     duplicated 8KB block stays BAD/ENTROPY/DLT instead of being re-LZ'd,
     a rare ratio-only divergence from the reference.
 
-    exact=True (the exact parse, K5 at m1 / m2, K6 at m3 / m4) returns an
+    exact=True (the exact parse, K5 at m1 / m2, K6 at m3-m5) returns an
     ExactPlan: the same LZ input, the block table of the analyzer's 8 KB
     blocks before that probe and the EXE / ENGTXT runs.  The probe reads
     the live hash tables, so the parse makes it and merges the blocks
@@ -313,9 +313,10 @@ def plan_stream(props, data, exact=False):
     size = len(data)
     if size == 0 or (size > MAX_ENCODE and not exact):
         return None
-    # m5's binary-tree finder (bt_size > 0) rides the optimal parse with
-    # width-8 hash chains in its place, as csc_tpu's fast path does
-    # (plan_stream with allow_ap, csc_tpu/ops/encode_host.py:272-279)
+    # m5's binary-tree finder (bt_size > 0): the fast parse rides the
+    # optimal parse with width-8 hash chains in its place, as csc_tpu's
+    # fast path does (plan_stream with allow_ap, csc_tpu/ops/
+    # encode_host.py:272-279); the exact parse (K6) walks the tree itself
     if props.lz_mode not in (1, 2, 3):
         return None
     use_filters = (props.DLTFilter + props.EXEFilter + props.TXTFilter) > 0

@@ -1,12 +1,13 @@
-"""Plain version of K6, the exact optimal parse of m3 / m4: golden's
+"""Plain version of K6, the exact optimal parse of m3-m5: golden's
 encoder (csc_tpu/golden/encoder.py, lz.py, mf.py, model.py; csc_lz.cpp's
-compress_advanced and csc_mf.cpp's hash-chain finders) run stream after
-stream, with the token tape in place of the range coder.
+compress_advanced and csc_mf.cpp's finders) run stream after stream, with
+the token tape in place of the range coder.
 
-The port's own copy of what it needs of golden: the HT part of
-MatchFinder (find_match, find_match_with_price, slide_pos,
-slide_pos_fast, test_find; bt_size is 0 at m3 / m4, props.py), the
-optimal parse (`_compress_advanced`, `_ap_backward`, `_encode_nonlit`)
+The port's own copy of what it needs of golden: MatchFinder (find_match,
+find_match_with_price, slide_pos, slide_pos_fast, test_find) with its
+hash chains (m3 / m4) and its binary tree (m5: bt_size > 0, hash_width
+0; below), the optimal parse (`_compress_advanced`, `_ap_backward`,
+`_encode_nonlit`)
 and the run walk of CSCEncoder::Compress over the analyzer's block table
 (encode_host.plan_stream(..., exact=True)), as K5's plain version
 (ops/exact_scan.py) reads it: a DT_SKIP block takes the previous block's
@@ -31,13 +32,34 @@ stream itself (a stream its dictionary covers: golden's ring never
 wraps), holding the sub-blocks copied so far and zeros past them, as
 golden's does.  Used by the tests and by the CPU path; the card runs K6
 (csrc/encode_k6.cuh).
+
+The binary tree (mf.py:46-71, 114-195, 198-231, 335-404, 504-508; m5):
+a head of 1 << bt_bits entries and a left and a right link for each of
+bt_size slots, a position's slot bt_pos advancing with the positions.
+A find walks the tree from the head (after the head candidate beyond
+the tree's range, which has no distance limit but vld_rge), re-linking
+the position into it as it goes, at most bt_cyc nodes, a link copied at
+a good_len match; slide_pos inserts each position it does not skip the
+same way (its compare capped at good_len), slide_pos_fast zeroes the
+links of the 1/16 of positions it inserts, and test_find probes the
+head.  A find records lengths up to good_len - 1 = 47 with their prices
+(a length past 33 prices 768, no call of the length cache); find_match
+keeps 30 records (MF_CAND_LIMIT: a later one lands in a slot nobody
+reads).  Golden's own fault: slide_pos advances bt_pos past an
+insertion without wrapping it, and find_match and slide_pos_fast use it
+before they wrap, so in a stream longer than bt_size a link index can
+reach 2 * bt_size, where golden raises IndexError (mf.py:359).  Here a
+tree insertion that starts at bt_pos >= bt_size (the first link it
+touches lies past the table) ends the parse there: done 0, err ERR_BT,
+the tape as it stands.
 """
 import numpy as np
 import torch
 
 from .. import native
 from ..constants import (DT_NORMAL, DT_NO_LZ, DT_ENTROPY, DT_DLT,
-                         DLT_INDEX, ERR_OVERFLOW, K_LIT, K_MATCH, K_REP,
+                         DLT_INDEX, ERR_BT, ERR_OVERFLOW, K_LIT, K_MATCH,
+                         K_REP,
                          K_REP0L1, K_SENT_A, K_END, MASK32, MF_DIST_BOUND,
                          MF_CAND_LIMIT, MIN_BLOCK_SIZE, HT2_SIZE, HT3_SIZE)
 from . import exact_scan, prices
@@ -49,18 +71,44 @@ INF = 0xFFFFFFFF
 DUP_LEN = 19             # the probe hits past 18 equal bytes
 STATS = ("stretches", "at_limit", "at_end", "lit_tail", "good_exit",
          "imm_lit", "rep0len1", "probes", "dup_hits", "sparse",
-         "entropy_bytes", "rle_runs", "chunks", "gated", "split_rebuilds")
+         "entropy_bytes", "rle_runs", "chunks", "gated", "split_rebuilds",
+         "bt_finds", "bt_steps", "bt_head_hits", "bt_good_exits",
+         "bt_inserts", "bt_sparse", "bt_probe_hits", "bt_records",
+         "bt_wraps", "long_lengths", "cand_cap")
+MAX_GOOD_BT = 48          # m5's good_len: lengths 2 .. 47 a find
+CAND_SLOTS = MF_CAND_LIMIT - 2  # find_match's records that are read
+
+
+class BT:
+    """The binary-tree finder of a preset (props bt_size, bt_hash_bits,
+    bt_cyc), or none (size 0)."""
+
+    def __init__(self, size=0, bits=0, cyc=32):
+        self.size, self.bits, self.cyc = (size, bits, cyc) if size else (
+            0, 0, cyc)
+
+    @classmethod
+    def of(cls, props):
+        return cls(props.bt_size, props.bt_hash_bits, props.bt_cyc)
 
 
 def check_inputs(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
-                 good_len):
+                 good_len, bt=None):
     """Raise on inputs K6 and this version do not take: K5's (ops/
-    exact_scan.py), a good_len past a lane a length, or a stream longer
-    than its dictionary."""
+    exact_scan.py; hash_width 0 with the binary tree), a good_len past
+    the lanes' lengths (32, or 48 with the binary tree), or a stream
+    longer than its dictionary."""
+    tree = bt is not None and bt.size > 0
     exact_scan.check_inputs(data, blocks, sizes, dict_sizes, hash_bits,
-                            hash_width, good_len)
-    if good_len > 32:
-        raise ValueError(f"good_len must be at most 32, got {good_len}")
+                            max(hash_width, 1) if tree else hash_width,
+                            good_len)
+    if good_len > (MAX_GOOD_BT if tree else 32):
+        raise ValueError(f"good_len must be at most "
+                         f"{MAX_GOOD_BT if tree else 32}, got {good_len}")
+    if tree and (hash_width or not 1 <= bt.bits <= 25 or bt.cyc < 1):
+        raise ValueError(f"the binary tree takes hash_width 0, bt_bits in "
+                         f"[1, 25] and bt_cyc >= 1, got {hash_width}, "
+                         f"{bt.bits}, {bt.cyc}")
     if bool((sizes > dict_sizes).any()):
         raise ValueError("a stream longer than its dictionary: K6 takes "
                          "streams their dictionary covers")
@@ -84,16 +132,29 @@ class _Full(Exception):
     """A token past the tape's capacity."""
 
 
+class _BtFault(Exception):
+    """A tree link index past 2 * bt_size: golden's IndexError."""
+
+
 class _Stream:
     """One stream's parse: golden's LZ, MatchFinder (HT) and the walk of
     CSCEncoder::Compress, the shadow model in the coder's place."""
 
     def __init__(self, data, size, dict_size, hash_bits, hash_width,
-                 good_len, cap):
+                 good_len, cap, bt=None, bt_size=None):
         self.data = data
         self.size = size
         self.wnd_size = dict_size
         self.wnd = bytearray(size + 8)
+        bt = bt or BT()
+        self.bt_size = bt.size if bt_size is None else bt_size
+        self.bt_bits, self.bt_cyc = bt.bits, bt.cyc
+        self.bt_pos = 0
+        if self.bt_size:
+            self.bt_head = [0] * (1 << self.bt_bits)
+            # golden's 2 * bt_size links; a stream shorter than bt_size
+            # never reaches past its own positions
+            self.bt_nodes = [0] * (2 * min(self.bt_size, size + 1))
         self.wnd_curpos = 0
         self.rep_dist = [dict_size] * 4
         self.vld_rge = dict_size - MIN_BLOCK_SIZE - 4
@@ -167,14 +228,14 @@ class _Stream:
         return n
 
     def find_match(self, rep_dist, wpos, limit):
-        """find_match (csc_mf.cpp:243-495, HT finders): the candidates
-        into c_len / c_dist [1 ..], their count returned."""
+        """find_match (csc_mf.cpp:243-495): the candidates into c_len /
+        c_dist [1 ..], their count returned (at most CAND_SLOTS: a later
+        record lands in the last slot, which is not counted)."""
         wnd, vld = self.wnd, self.vld_rge
         wnd_size, good, bound = self.wnd_size, self.good_len, MF_DIST_BOUND
         out_len, out_dist = self.c_len, self.c_dist
         h2 = hash2(wnd[wpos], wnd[wpos + 1])
         h3 = hash3(wnd[wpos], wnd[wpos + 1], wnd[wpos + 2])
-        h6 = hash6(wnd, wpos, self.bits)
         minlen, cnt, dist = 1, 1, 0
 
         def rec(length, code):
@@ -183,6 +244,8 @@ class _Stream:
             out_dist[cnt] = code
             if cnt + 1 < MF_CAND_LIMIT:
                 cnt += 1
+            else:
+                self.stats["cand_cap"] += 1
 
         for i in range(4):
             rd = rep_dist[i]
@@ -226,8 +289,12 @@ class _Stream:
                     dist = MASK32
         self.ht2[h2] = self.pos
         self.ht3[h3] = self.pos
+        if self.bt_size:
+            self.bt_walk(wpos, limit, minlen, rec)
+            self.pos += 1
+            return cnt - 1
 
-        ht6, base = self.ht6, h6 * self.width
+        ht6, base = self.ht6, hash6(wnd, wpos, self.bits) * self.width
         for i in range(self.width):
             cand_dist = (self.pos - ht6[base + i]) & MASK32
             if cand_dist <= dist:
@@ -251,6 +318,86 @@ class _Stream:
         ht6[base] = self.pos
         self.pos += 1
         return cnt - 1
+
+    def bt_walk(self, wpos, limit, minlen=1, rec=None):
+        """The tree's walk at wpos (limit the bytes to the piece's end):
+        find_match's (mf.py:335-404; rec given: the head candidate beyond
+        the tree's range first, then the walk that records each longer
+        match, its compare up to climit, bt_pos wrapped after it) or
+        slide_pos's insertion (mf.py:155-192: the compare capped at
+        good_len, no records, bt_pos wrapped before it and advanced after
+        it without a wrap), re-linking wpos into the tree; the head set.
+        minlen is the finder's so far."""
+        wnd, vld, st = self.wnd, self.vld_rge, self.stats
+        wnd_size, good, bound = self.wnd_size, self.good_len, MF_DIST_BOUND
+        bsz, nodes, find = self.bt_size, self.bt_nodes, rec is not None
+        st["bt_finds" if find else "bt_inserts"] += 1
+        hbt = hash6(wnd, wpos, self.bt_bits)
+        dist = (self.pos - self.bt_head[hbt]) & MASK32
+        if find and bsz <= dist < vld:
+            # the head beyond the tree's range: no distance limit
+            cmp_pos = wpos - dist if wpos >= dist else wpos + wnd_size - dist
+            climit = min(limit, wnd_size - cmp_pos)
+            if minlen < climit and wnd[cmp_pos + minlen] == wnd[wpos + minlen]:
+                match_len = self._extend(wpos, cmp_pos, climit)
+                if match_len > minlen:
+                    minlen = match_len
+                    if match_len > 6 or dist < bound[match_len]:
+                        rec(match_len, 4 + dist)
+                        st["bt_head_hits"] += 1
+        if not find and self.bt_pos >= bsz:
+            self.bt_pos -= bsz
+        if self.bt_pos >= bsz:
+            raise _BtFault       # the walk's first link lies past the table
+        l_idx = self.bt_pos * 2
+        r_idx = l_idx + 1
+        lenl = lenr = cyc = 0
+        while True:
+            if cyc >= self.bt_cyc or dist >= bsz or dist >= vld:
+                nodes[l_idx] = nodes[r_idx] = 0
+                break
+            cyc += 1
+            st["bt_steps"] += 1
+            cmp_pos = wpos - dist if wpos >= dist else wpos + wnd_size - dist
+            clen = min(lenl, lenr)
+            climit = min(limit, wnd_size - cmp_pos)
+            if clen >= climit:
+                nodes[l_idx] = nodes[r_idx] = 0
+                break
+            tlast = 2 * (self.bt_pos - dist if self.bt_pos >= dist
+                         else self.bt_pos + bsz - dist)
+            if wnd[wpos + clen] == wnd[cmp_pos + clen]:
+                climit2 = climit if find else min(good, climit)
+                clen += 1 + self._extend(wpos + clen + 1, cmp_pos + clen + 1,
+                                         climit2 - clen - 1)
+                if find and clen > minlen:
+                    minlen = clen
+                    if clen > 6 or dist < bound[clen]:
+                        rec(clen, 4 + dist)
+                        st["bt_records"] += 1
+                if clen >= good:
+                    nodes[l_idx] = nodes[tlast]
+                    nodes[r_idx] = nodes[tlast + 1]
+                    st["bt_good_exits"] += 1
+                    break
+                if clen >= climit2:
+                    nodes[l_idx] = nodes[r_idx] = 0
+                    break
+            if wnd[cmp_pos + clen] < wnd[wpos + clen]:
+                nodes[l_idx] = (self.pos - dist) & MASK32
+                l_idx = tlast + 1
+                dist = (self.pos - nodes[l_idx]) & MASK32
+                lenl = clen
+            else:
+                nodes[r_idx] = (self.pos - dist) & MASK32
+                r_idx = tlast
+                dist = (self.pos - nodes[r_idx]) & MASK32
+                lenr = clen
+        self.bt_head[hbt] = self.pos
+        self.bt_pos += 1
+        if find and self.bt_pos >= bsz:
+            self.bt_pos -= bsz
+            st["bt_wraps"] += 1
 
     def find_match_with_price(self, state, rep_dist, wpos, limit):
         """FindMatchWithPrice (csc_mf.cpp:584-625): r_len[0] / r_dist[0]
@@ -288,6 +435,7 @@ class _Stream:
                     r_dist[lpos] = 0
                     self.stats["gated"] += 1
                     continue
+                self.stats["long_lengths"] += lpos >= 34
                 r_dist[lpos] = code
                 r_price[lpos] = distprice + prices.matchlen_price(
                     m, lpos - 2)
@@ -295,11 +443,13 @@ class _Stream:
                     self.stats["split_rebuilds"] += m.lp_calls - 1 > calls
                     rebuilds = m.lp_rebuilds
 
-    def slide_pos(self, wnd_pos, length):
-        """SlidePos (csc_mf.cpp:134-206) without the binary tree: insert
-        wnd_pos + 1 .. + length - 1, four a step into HT2 / HT3 alone
-        while i + 128 < length, the HT6 row shifted only for a hash other
-        than the last one inserted (lasth6 = 0 at the start)."""
+    def slide_pos(self, wnd_pos, length, limit):
+        """SlidePos (csc_mf.cpp:134-206): insert wnd_pos + 1 .. + length
+        - 1 (limit bytes from wnd_pos to the piece's end), four a step
+        into HT2 / HT3 alone while i + 128 < length (bt_pos advancing by
+        four), then the HT6 row shifted only for a hash other than the
+        last one inserted (lasth6 = 0 at the start), or the tree's
+        insertion."""
         wnd, w = self.wnd, self.width
         ht6 = self.ht6
         lasth6 = 0
@@ -312,6 +462,12 @@ class _Stream:
             if i + 128 < length:
                 i += 4
                 self.pos += 4
+                self.bt_pos += 4
+                continue
+            if self.bt_size:
+                self.bt_walk(wpos, limit - i)
+                self.pos += 1
+                i += 1
                 continue
             h6 = hash6(wnd, wpos, self.bits)
             base = h6 * w
@@ -323,22 +479,38 @@ class _Stream:
             i += 1
 
     def slide_pos_fast(self, wnd_pos, length):
-        """SlidePosFast (csc_mf.cpp:208-241): the HT6 row alone, at the
-        positions whose HASH2 is a multiple of 16."""
+        """SlidePosFast (csc_mf.cpp:208-241): at the positions whose
+        HASH2 is a multiple of 16, the HT6 row alone, or the tree's head
+        with the position's links zeroed; bt_pos advancing and wrapping
+        at every position."""
         wnd, w, ht6 = self.wnd, self.width, self.ht6
+        bsz = self.bt_size
         for i in range(length):
             wpos = wnd_pos + i
             if hash2(wnd[wpos], wnd[wpos + 1]) % 16 == 0:
-                base = hash6(wnd, wpos, self.bits) * w
-                ht6[base + 1:base + w] = ht6[base:base + w - 1]
-                ht6[base] = self.pos
+                if bsz:
+                    if self.bt_pos >= bsz:
+                        raise _BtFault
+                    self.bt_nodes[2 * self.bt_pos] = 0
+                    self.bt_nodes[2 * self.bt_pos + 1] = 0
+                    self.bt_head[hash6(wnd, wpos, self.bt_bits)] = self.pos
+                    self.stats["bt_sparse"] += 1
+                else:
+                    base = hash6(wnd, wpos, self.bits) * w
+                    ht6[base + 1:base + w] = ht6[base:base + w - 1]
+                    ht6[base] = self.pos
             self.pos += 1
+            if bsz:
+                self.bt_pos += 1
+                if self.bt_pos >= bsz:
+                    self.bt_pos -= bsz
 
     def is_duplicate_block(self, off, size):
         """IsDuplicateBlock (csc_lz.cpp:102-112, TestFind csc_mf.cpp:
         526-568): a position whose HASH2 is a multiple of 16 and whose
-        HT6 row head matches more than 18 bytes from the window's
-        frontier on; the block's bytes past the stream read as zeros."""
+        HT6 row head (or the tree's head, mf.py:504-508) matches more than
+        18 bytes from the window's frontier on; the block's bytes past the
+        stream read as zeros."""
         data, wnd, n = self.data, self.wnd, len(self.data)
         wpos = self.wnd_curpos
 
@@ -350,8 +522,12 @@ class _Stream:
                 continue
             v = b(p) | (b(p + 1) << 8) | (b(p + 2) << 16) | (b(p + 3) << 24)
             v2 = b(p + 4) | (b(p + 5) << 8)
-            h = (((v ^ (v2 << 13)) * 2654435761) & MASK32) >> (32 - self.bits)
-            dist = (self.pos - self.ht6[h * self.width]) & MASK32
+            hv = ((v ^ (v2 << 13)) * 2654435761) & MASK32
+            if self.bt_size:
+                head = self.bt_head[hv >> (32 - self.bt_bits)]
+            else:
+                head = self.ht6[(hv >> (32 - self.bits)) * self.width]
+            dist = (self.pos - head) & MASK32
             if dist >= self.vld_rge:
                 continue
             cmp_pos = wpos - dist if wpos >= dist \
@@ -361,6 +537,7 @@ class _Stream:
             while k < climit and b(p + k) == wnd[cmp_pos + k]:
                 k += 1
             if k > DUP_LEN - 1:
+                self.stats["bt_probe_hits"] += self.bt_size > 0
                 return True
         return False
 
@@ -494,7 +671,7 @@ class _Stream:
                     self._cap(apcur + length, aplimit)
                     i += apcur
                     self.encode_nonlit(length, r_dist[0])
-                    self.slide_pos(cur, length)
+                    self.slide_pos(cur, length, size - i)
                     i += length
                     self.wnd_curpos += length
                     break
@@ -587,43 +764,50 @@ class _Stream:
 
 
 def parse_stream(data, blocks, size, dict_size, hash_bits, hash_width,
-                 good_len, cap):
+                 good_len, cap, bt=None, bt_size=None):
     """One stream's parse: (tape words [(w0, w1)], done, err, btypes (the
-    blocks typed so far when the tape filled), the stream's _Stream for
-    its model and counters)."""
+    blocks typed so far when the tape filled or the tree faulted), the
+    stream's _Stream for its model and counters)."""
     s = _Stream(bytes(data[:size]), size, dict_size, hash_bits,
-                hash_width, good_len, cap)
+                hash_width, good_len, cap, bt, bt_size)
     try:
         s.run(blocks)
         done, err = 1, 0
     except _Full:
         done, err = 0, ERR_OVERFLOW
+    except _BtFault:
+        done, err = 0, ERR_BT
     return s.tape, done, err, s.btypes, s
 
 
 def exact_ap_plain(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
-                   good_len, max_tokens, trace=None):
+                   good_len, max_tokens, bt=None, bt_sizes=None,
+                   trace=None):
     """K6's function on data's device (the CPU): (tape [B, max_tokens,
     2] i32 of (kind | wire_len << 3, dist_code), tok_cnt, done, err [B]
-    i32, btypes [B, NB] i32).  trace, a list, gets each stream's _Stream
-    (its `model` and `stats`).  A stream whose tape filled has the types
-    of the blocks its walk reached."""
+    i32, btypes [B, NB] i32).  bt, a BT, gives the binary tree's bits
+    and cycles and, unless bt_sizes ([B] i32) gives each stream's, its
+    size.  trace, a list, gets each stream's _Stream (its `model` and
+    `stats`).  A stream whose tape filled, or whose tree faulted (err
+    ERR_BT), has the types of the blocks its walk reached."""
     check_inputs(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
-                 good_len)
+                 good_len, bt)
     b = data.shape[0]
+    bts = ([int(v) for v in bt_sizes] if bt_sizes is not None
+           else [bt.size if bt else 0] * b)
     data_np = data.cpu().numpy()
     blocks_np = blocks.cpu().numpy()
     tape = np.zeros((b, max_tokens, 2), np.int32)
     out = np.zeros((3, b), np.int32)
     btypes = np.zeros(blocks_np.shape[:2], np.int32)
     for j in range(b):
-        words, done, err, bt, s = parse_stream(
+        words, done, err, types, s = parse_stream(
             data_np[j], blocks_np[j], int(sizes[j]), int(dict_sizes[j]),
-            hash_bits, hash_width, good_len, max_tokens)
+            hash_bits, hash_width, good_len, max_tokens, bt, bts[j])
         if words:
             tape[j, :len(words)] = words
         out[:, j] = (len(words), done, err)
-        btypes[j] = bt
+        btypes[j] = types
         if trace is not None:
             trace.append(s)
     dev = data.device

@@ -838,6 +838,8 @@ def tape_of(st):
         st["btypes"].to(torch.int32))
 
 
+# no autograd state a step: the lockstep loop runs about a fifth faster
+@torch.inference_mode()
 def exact_plain(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
                 good_len, lazy, max_tokens, max_steps=None):
     """K5's function, as lockstep torch ops on data's device."""

@@ -406,6 +406,8 @@ def tape_of(st):
             err.to(torch.int32))
 
 
+# no autograd state a step: the lockstep loop runs about a fifth faster
+@torch.inference_mode()
 def parse_plain(data, candp, run_ends, run_skip, sizes, dict_sizes,
                 good_len, max_tokens, max_steps=None):
     """K2's function, as lockstep torch ops on data's device."""

@@ -9,34 +9,37 @@ encode: host plan (analyzer + forward filters) -> candidates (parse_pre)
 -> K2 lazy parse (m1/m2) or K4 optimal parse (m3-m5) -> stitch -> K3
 phase-B coder -> host remux.  The counterpart of csc_tpu/ops/pipeline.py
 `encode_batch` on its fast path (pipeline.py:335-389 and, at m3-m5,
-391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1-m4):
+391-467).  With parse="exact" (csc_tpu's CSC_ENCODE_PARSE=exact, m1-m5):
 host plan (the analyzer's 8 KB blocks) -> K5, the exact lazy parse of m1
-/ m2 with live hash tables, or K6, the exact optimal parse of m3 / m4
-priced by the live model, either of which also makes the duplicate-block
-probe and merges the blocks into runs -> the run table rebuilt from the
+/ m2 with live hash tables, or K6, the exact optimal parse of m3-m5
+priced by the live model (m5 with golden's binary tree), either of
+which also makes the duplicate-block probe and merges the blocks into
+runs -> the run table rebuilt from the
 parse's block types -> stitch -> K3 -> remux, byte-identical to the
 reference encoder: csc_tpu's bytes under CSC_ENCODE_PARSE=exact, where
 csc_tpu takes a stream with a BAD / ENTROPY / DLT run, one over its 1 MB
-device cap or, at m3 / m4, every stream to its golden encoder, and the
-port's exact parse writes golden's bytes on the card.  An m1-m4 stream
+device cap or, at m3-m5, every stream to its golden encoder, and the
+port's exact parse writes golden's bytes on the card.  A stream
 over MAX_ENCODE takes the exact parse under parse="fast" too, as csc_tpu
 takes it to golden (pipeline.py:240-262), and so does an m1 / m2 one
 longer than its dictionary, whose window wraps as a ring of the
 dictionary's size (golden's bytes; csc_tpu's fast path writes a stream
 golden rejects there).  Where csc_tpu still falls back to golden and the
-port has no device path (m5 under the exact parse or over the cap, m3-m5
-past its dictionary, a stream over 1 GB, a K3 output overflow) this port
-raises EncodeError naming the stream and the reason: it never encodes on
-the host.
+port has no device path (m3-m5 past its dictionary, a stream over 1 GB,
+a K3 output overflow), and where golden itself fails (its binary tree's
+IndexError in an m5 stream longer than bt_size), this port raises
+EncodeError naming the stream and the reason: it never encodes on the
+host.
 """
 import numpy as np
 import torch
 
 from .. import constants, native
 from ..constants import (DT_EXE, DT_ENGTXT, DT_NO_LZ, SIG_EOF, ERR_CORRUPT,
-                         ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW, DECODE_ERROR,
-                         MIN_BLOCK_SIZE)
-from . import encode_host, exact_scan, framing, parse_pre, prices, stitch
+                         ERR_BT, ERR_OVERFLOW, ERR_STEPS, MAX_WINDOW,
+                         DECODE_ERROR, MIN_BLOCK_SIZE)
+from . import (encode_host, exact_ap_scan, exact_scan, framing, parse_pre,
+               prices, stitch)
 from .bits_kernel import code_k3
 from .decode_kernel import decode_k1
 from .exact_ap_kernel import parse_k6
@@ -201,29 +204,16 @@ def decode_stream(props, blob, pos=0, *, device=CUDA):
 
 
 # ================================================================= encode
-def exact_refusal(props):
-    """Why the exact parse does not take a stream of this preset, which
-    csc_tpu encodes with its golden encoder (pipeline.py:229-262), or
-    None: the exact parse is the lazy parse of m1 / m2 (K5) and the
-    optimal parse of m3 / m4 (K6), whose finders are hash chains; m5's
-    binary-tree finder (bt_size > 0) has none yet."""
-    if props.bt_size:
-        return (f"the exact parse has no binary-tree finder (m5, bt_size "
-                f"{props.bt_size}): it takes m1-m4")
-    return None
-
-
 def plan_streams(props_list, datas, parse="fast"):
     """Per-stream plans, or None for an empty stream: an
     encode_host.FastPlan for the fast parse, an ExactPlan for the exact
     one (each says its parse).
-    An m1-m4 stream over MAX_ENCODE, or an m1 / m2 one longer than its
+    A stream over MAX_ENCODE, or an m1 / m2 one longer than its
     dictionary, takes the exact parse whatever `parse` says: csc_tpu
     hands the first to golden, and its fast path writes a stream golden
     rejects for the second (ROADMAP queue 3), where the exact parse
     writes golden's bytes.  EncodeError for a stream the device path does
-    not take: over MAX_WINDOW (1 GB), at m5 under the exact parse or over
-    the cap, or at m3-m5 past its dictionary."""
+    not take: over MAX_WINDOW (1 GB), or at m3-m5 past its dictionary."""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
@@ -240,7 +230,6 @@ def plan_streams(props_list, datas, parse="fast"):
         # which only the exact parse follows (the fast parse treats the
         # stream as one window with no wrap, csc_tpu parse_pre.py:6)
         ring = len(data) > props.dict_size
-        reason = exact_refusal(props)
         if ring and props.lz_mode == 3:
             # golden's ring window is followed by K5 alone (m1 / m2)
             raise EncodeError(
@@ -249,14 +238,6 @@ def plan_streams(props_list, datas, parse="fast"):
                 f"of lz_mode 3 (m3-m5) does not follow golden's ring window "
                 f"yet; only the exact parse of m1 / m2 follows the ring "
                 f"window past the dictionary", [i])
-        if big and reason:
-            raise EncodeError(
-                f"stream {i}: {len(data)} bytes is over the "
-                f"{encode_host.MAX_ENCODE}-byte cap of the fast parse and "
-                f"{reason}; split it", [i])
-        if parse == "exact" and reason:
-            raise EncodeError(f"stream {i}: {reason}; csc_tpu encodes it "
-                              f"with its golden encoder", [i])
         plans.append(encode_host.plan_stream(
             props, data, exact=parse == "exact" or big or ring)
             if data else None)
@@ -281,7 +262,8 @@ def _groups(props_list, plans):
         if plan is not None:
             p = props_list[i]
             key = (p.hash_bits, p.hash_width, p.good_len, p.lz_mode,
-                   p.csc_blocksize, plan.parse == "exact")
+                   p.csc_blocksize, plan.parse == "exact", p.bt_size > 0,
+                   p.bt_hash_bits, p.bt_cyc)
             if p.lz_mode == 3:
                 key += (_bucket(len(plan.lz)),)
             elif plan.parse == "exact":
@@ -403,7 +385,7 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     """Encode the streams `idxs` of a batch, all of one preset and parse,
     on `device` from their plans (plan_streams'): candidates, K2 (m1 /
     m2) or K4 (m3-m5), stitch, K3, remux; for exact plans K5 (m1 / m2)
-    or K6 (m3 / m4), with no candidates, in the parse's place, and the
+    or K6 (m3-m5), with no candidates, in the parse's place, and the
     run tables rebuilt from its block types.  Returns their raw streams
     in `idxs` order.
     width: the data width (the longest stream by default; at m3-m5 and
@@ -417,7 +399,7 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
       "k2" / "k4"   k2_out / k4_out (its outputs)
       "k5" / "k6"   under the exact parse, in place of the two above:
                     k5_args and k5_out (K5's arguments and outputs, m1 /
-                    m2), or k6_args and k6_out (K6's, m3 / m4)
+                    m2), or k6_args and k6_out (K6's, m3-m5)
       "stitch"      stitch_args (the stitch's), k3_args (K3's arguments)
       "k3"          k3_out (K3's outputs)
       "remux"       outs (the raw streams)
@@ -426,10 +408,6 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
     p0 = props_list[idxs[0]]
     ap = p0.lz_mode == 3
     exact = plans[idxs[0]].parse == "exact"
-    if exact:
-        reason = exact_refusal(p0)
-        if reason:
-            raise EncodeError(f"stream(s) {list(idxs)}: {reason}", idxs)
     if (ap or exact) and width is None:
         width = ap_width([plans[i] for i in idxs])
     if exact:
@@ -440,7 +418,12 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
         args = (data, blocks, sizes, dicts, p0.hash_bits, p0.hash_width,
                 p0.good_len)
         if ap:
-            args += (tape_capacity(n, blocks.shape[1]),)
+            # m5's binary tree: its bits and cycles the preset's, its
+            # size each stream's (bt_size follows the dictionary)
+            bt = exact_ap_scan.BT.of(p0)
+            args += (tape_capacity(n, blocks.shape[1]), bt, torch.tensor(
+                [props_list[i].bt_size for i in idxs], dtype=torch.int32,
+                device=device) if bt.size else None)
             out = parse_k6(*args)
             note("k6", k6_args=args, k6_out=out)
         else:
@@ -474,6 +457,14 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
         note(kernel, **{kernel + "_out": out})
     tape, tok_cnt, done, err = out[:4]
     tok_cnt, done, err = (t.cpu().numpy() for t in (tok_cnt, done, err))
+    faulted = [idxs[j] for j in range(len(idxs)) if err[j] == ERR_BT]
+    if exact and faulted:
+        raise EncodeError(
+            f"stream(s) {faulted}: longer than bt_size, and golden's binary "
+            f"tree indexes past its 2 * bt_size links there (SlidePos "
+            f"advances bt_pos past bt_size without a wrap; golden raises "
+            f"IndexError), so there are no reference bytes to write",
+            faulted)
     bad = [idxs[j] for j in range(len(idxs)) if err[j] or not done[j]]
     if bad:
         raise EncodeError(f"stream(s) {bad}: the parse did not finish "
@@ -513,21 +504,22 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
 
     parse="fast" (the default) returns list[bytes], the raw streams
     without the property header, byte-identical to csc_tpu's encode_batch
-    on its fast path; an m1-m4 stream over MAX_ENCODE (1 MB) takes the
+    on its fast path; a stream over MAX_ENCODE (1 MB) takes the
     exact parse all the same, as csc_tpu codes it with its golden encoder,
     so its bytes are csc_tpu's and golden's; so does an m1 / m2 stream
     longer than its dictionary (up to 1 GB), whose window wraps as
     golden's ring: over 1 MB its bytes are csc_tpu's and golden's, at 1
     MB or less golden's, where csc_tpu's fast path writes a stream golden
-    rejects (ROADMAP queue 3).  parse="exact" (m1-m4) returns the
+    rejects (ROADMAP queue 3).  parse="exact" (m1-m5) returns the
     reference encoder's own bytes for every stream, as csc_tpu's under
     CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the duplicate-block
     probe and several raw chunks included.  Streams are grouped by preset
     and parse (one device call per preset and size group).  An empty
     stream is the SIG_EOF chunk alone.  Raises EncodeError for a stream
-    it cannot take (over 1 GB; m5 over MAX_ENCODE or under
-    parse="exact"; m3-m5 longer than its dictionary) or that a kernel
-    flags (a K3 output overflow).  on_stage: as encode_group's,
+    it cannot take (over 1 GB; m3-m5 longer than its dictionary), where
+    golden fails (an m5 stream past bt_size that golden's binary tree
+    indexes past its links) or that a kernel flags (a K3 output
+    overflow).  on_stage: as encode_group's,
     called once more as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)

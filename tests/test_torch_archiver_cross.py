@@ -16,6 +16,7 @@ import pytest
 from csc_tpu.archiver import csarc as j_csarc
 from csc_tpu_torch.archiver import csarc, index
 
+import torch_ring_cases as ring
 from torch_archiver_trees import CROSS_FILES, listing, make_tree, run_in, \
     tree_bytes
 
@@ -24,8 +25,13 @@ MTIME = 1500000000
 
 
 @pytest.fixture(scope="module")
-def arcs(tmp_path_factory):
-    """The tree, the port's archive of it and csc_tpu's golden one."""
+def arcs(request, tmp_path_factory):
+    """The tree, the port's archive of it and csc_tpu's golden one; the
+    port's K3 and K1 through their g++ builds for the module
+    (torch_ring_cases.gxx_k1_k3)."""
+    mp = pytest.MonkeyPatch()
+    request.addfinalizer(mp.undo)
+    ring.gxx_k1_k3(mp, tmp_path_factory.mktemp("gxx"))
     root = tmp_path_factory.mktemp("cross")
     src = root / "src"
     make_tree(str(src), CROSS_FILES)

@@ -34,3 +34,11 @@ def declared(fn, source):
 def test_launch_argtypes_match_the_source(name):
     fn, argtypes = _build._ARGTYPES[name]
     assert declared(fn, _build.KERNELS[name][0]) == argtypes
+
+
+def test_tree_launch_argtypes_match_the_source():
+    """K6's binary-tree launch (m5), whose argument list its wrapper
+    keeps (exact_ap_kernel.BT_ARGTYPES)."""
+    from csc_tpu_torch.ops import exact_ap_kernel
+    assert declared("csc_k6_bt_launch", "encode_k6.cu") == \
+        exact_ap_kernel.BT_ARGTYPES

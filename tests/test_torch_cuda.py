@@ -18,11 +18,14 @@ through K5,
 K3 and K1 equal to the CPU's and golden's bytes; K5 on a stream longer
 than its dictionary (a ring window) against the plain version, and
 encode_batch of such streams equal to golden's bytes; K6
-(encode_k6.cu, the exact optimal parse of m3 / m4) at m3 and m4 on its
+(encode_k6.cu, the exact optimal parse of m3-m5) at m3 and m4 on its
 edge streams and K5's, with tapes too short, launched twice on the same
 96 streams, a CUDA tensor reaching K6 and never the plain version, and
 exact m3 / m4 streams through K6, K3 and K1 equal to the CPU's and
-golden's bytes; K1's block log
+golden's bytes; K6's binary-tree kernel (m5) on its edge streams and
+golden's IndexError stream, with tapes too short, launched twice on the
+same 96 streams, and exact m5 streams through K6, K3 and K1 equal to the
+CPU's and golden's bytes; K1's block log
 sized from the stream past MAX_BLOCKS; the A/B tool
 (csc_tpu_torch/kernel_ab.py) run against this checkout; the archiver's
 a / x / t round trip of a 2.5 MB tree split into several tasks, its
@@ -345,7 +348,7 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
         "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB",
         "K6 m3 96 x 16 KB", "K6 m4 96 x 16 KB", "K6 m3 1024 x 16 KB",
-        "K6 task m3 4 x 1 MB"])
+        "K6 task m3 4 x 1 MB", "K6 m5 96 x 16 KB", "K6 task m5 4 x 1 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -792,6 +795,79 @@ def test_exact_ap_streams_through_k6_k3_k1(dev):
             assert blob == encode_stream(p, data)
     big = text[300 * 1024:396 * 1024]
     p = props_init(len(big), 3)
+    blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
+    assert blob == encode_stream(p, big)
+    assert pipeline.decode_batch([p], [blob], device=dev) == [big]
+
+
+# --------------------------------- K6 with m5's binary tree (k6<true>)
+def test_k6_tree_matches_plain(dev):
+    """The tree's edge streams (torch_edge_cases `exact_bt_cases`: long
+    walks, good_len exits, lengths past the length cache, more records
+    than find_match keeps, the head candidate and bt_pos wrapping under a
+    bt_size of 4 KB beside streams of 74 KB, BAD / ENTROPY / DLT runs and
+    a probe hit) and golden's IndexError stream (`bt_fault_case`, ERR_BT):
+    every field."""
+    cases = edges.exact_bt_cases() + [edges.bt_fault_case()]
+    got = _k6_against_plain(k6_args(cases), dev)
+    assert got[3].tolist() == [0] * (len(cases) - 1) + [constants.ERR_BT]
+
+
+@pytest.mark.parametrize("tcap", [1, 700])
+def test_k6_tree_tape_overflow(dev, tcap):
+    """A tape too short stops K6's tree parse at the plain version's
+    token."""
+    cases = [c for c in edges.exact_bt_cases()
+             if c[0] in ("repeat", "cap", "dup_skip")]
+    got = _k6_against_plain(k6_args(cases, tcap=tcap), dev)
+    assert (got[3] == constants.ERR_OVERFLOW).any()
+
+
+def test_k6_tree_relaunch_gives_the_same_outputs(dev):
+    """K6's tree launched twice on the same 96 x 16 KB m5 text gives the
+    same tape, counters and block types, and its first streams equal the
+    plain version's."""
+    text = corpus.torch_python_text(4 * 1024 * 1024)
+    kb = 16 * 1024
+    cases = [("t", props_init(kb, 5), text[i * kb:(i + 1) * kb])
+             for i in range(96)]
+    args = k6_args(cases)
+    card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    first = exact_ap_kernel.parse_k6(*card)
+    second = exact_ap_kernel.parse_k6(*card)
+    assert bool(first[2].all()) and not bool(first[3].any())
+    for name, a, b in zip(K6_FIELDS, first, second, strict=True):
+        assert torch.equal(a, b), name
+    want = exact_ap_scan.exact_ap_plain(*(a[:2] if torch.is_tensor(a)
+                                          else a for a in args))
+    for name, g, w in zip(K6_FIELDS, first, want, strict=True):
+        np.testing.assert_array_equal(g[:2].cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+def test_exact_m5_streams_through_k6_k3_k1(dev):
+    """Exact m5 streams encoded on the card (K6's tree and K3 launched
+    once each, no K4) are the CPU's and golden's byte for byte and decode
+    through K1; a 96 KB stream is golden's and round-trips on the card
+    alone."""
+    text = corpus.torch_python_text(1024 * 1024)
+    exe = corpus.torch_library_exe()
+    datas = [text[:3000], exe[len(exe) // 2:len(exe) // 2 + 2000],
+             b"A" * 700 + text[9000:9800]]
+    props = [props_init(len(d), 5) for d in datas]
+    launches = (exact_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+                parse_ap_kernel.LAUNCHES)
+    card = pipeline.encode_batch(props, datas, device=dev, parse="exact")
+    assert (exact_ap_kernel.LAUNCHES, bits_kernel.LAUNCHES,
+            parse_ap_kernel.LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1, launches[2])
+    assert card == pipeline.encode_batch(
+        props, datas, device=torch.device("cpu"), parse="exact")
+    assert pipeline.decode_batch(props, card, device=dev) == datas
+    for p, blob, data in zip(props, card, datas):
+        assert blob == encode_stream(p, data)
+    big = text[300 * 1024:396 * 1024]
+    p = props_init(len(big), 5)
     blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
     assert blob == encode_stream(p, big)
     assert pipeline.decode_batch([p], [blob], device=dev) == [big]

@@ -1,8 +1,11 @@
 """The port's encode_batch (csc_tpu_torch.ops.pipeline) at m1 on the CPU,
-where K2's and K3's wrappers run their plain versions, against
+where K2's wrapper runs its plain version (K3 and K1 run through their
+g++ builds, torch_ring_cases.gxx_k1_k3), against
 csc_tpu.ops.pipeline.encode_batch on its fast path (CSC_ENCODE_PARSE=fast
-CSC_ENCODE_BITS=scan, as the JAX package's own CPU tests run it): the
-streams must be byte-identical on the text, EXE, BAD, ENTROPY, DLT and
+CSC_ENCODE_BITS=scan, as the JAX package's own CPU tests run it; its
+streams are kept in tests/fixtures/, torch_fixtures.py, and a
+slow-marked test makes them live again): the streams must be
+byte-identical on the text, EXE, BAD, ENTROPY, DLT and
 multichunk cases, decode with the port's decode_batch and with
 csc_tpu.golden, and the m1 text stream equals the golden encoder's.
 
@@ -25,6 +28,10 @@ from csc_tpu_torch.ops import (bits_kernel, encode_host, parse_ap_kernel,
 from csc_tpu_torch.ops import pipeline
 from csc_tpu_torch.props import props_init
 
+import torch_edge_cases as edges
+import torch_fixtures as fixture
+import torch_ring_cases as ring
+
 CPU = torch.device("cpu")
 
 
@@ -34,11 +41,43 @@ def encode_cases(level, n=2048):
     return corpus.encode_cases(level, n=n, seed=71)
 
 
-def encode_both(level, monkeypatch, n=2048):
-    """(cases, the port's streams, csc_tpu's streams); the last case,
-    dict < input, through the port's group encode."""
+def _fast_n(level):
+    return 2048 if level <= 2 else 1024
+
+
+def csc_tpus_fast_streams(cases):
+    """csc_tpu's encode_batch of the cases on its fast path (under
+    CSC_ENCODE_PARSE=fast CSC_ENCODE_BITS=scan), none handed to golden."""
     from csc_tpu.ops import pipeline as j_pipeline
-    cases = encode_cases(level, n)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CSC_ENCODE_PARSE", "fast")
+        mp.setenv("CSC_ENCODE_BITS", "scan")
+        ref = j_pipeline.encode_batch([c[1] for c in cases],
+                                      [c[2] for c in cases])
+        assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    return ref
+
+
+def reference_fast(level):
+    """csc_tpu's streams of encode_cases(level) (torch_fixtures)."""
+    cases = encode_cases(level, _fast_n(level))
+    return cases, {"streams": fixture.streams_value(
+        csc_tpus_fast_streams(cases))}, ()
+
+
+def gxx(request, tmp_path_factory):
+    """K1 and K3 through their g++ builds for the requesting fixture's
+    scope (torch_ring_cases.gxx_k1_k3)."""
+    mp = pytest.MonkeyPatch()
+    request.addfinalizer(mp.undo)
+    ring.gxx_k1_k3(mp, tmp_path_factory.mktemp("gxx"))
+
+
+def encode_both(level):
+    """(cases, the port's streams, csc_tpu's streams, as tests/fixtures/
+    keeps them); the last case, dict < input, through the port's group
+    encode."""
+    cases = encode_cases(level, _fast_n(level))
     props = [c[1] for c in cases]
     datas = [c[2] for c in cases]
     launches = (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
@@ -48,10 +87,8 @@ def encode_both(level, monkeypatch, n=2048):
     ours += pipeline.encode_group(props[-1:], plans, [0], CPU)
     assert (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
             bits_kernel.LAUNCHES) == launches
-    monkeypatch.setenv("CSC_ENCODE_PARSE", "fast")
-    monkeypatch.setenv("CSC_ENCODE_BITS", "scan")
-    ref = j_pipeline.encode_batch(props, datas)
-    assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    ref = fixture.streams_of(fixture.load(f"encode_fast_m{level}", cases)[
+        "streams"], len(cases))
     return cases, ours, ref
 
 
@@ -80,10 +117,9 @@ def check_streams(cases, ours, ref):
 
 
 @pytest.fixture(scope="module")
-def m1(request):
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
-    return encode_both(1, mp)
+def m1(request, tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    return encode_both(1)
 
 
 def test_m1_byte_identical_to_csc_tpu_and_decodes(m1):
@@ -112,12 +148,13 @@ def test_refuses_what_it_cannot_encode():
     with pytest.raises(pipeline.EncodeError, match="stream 1.*dictionary"):
         pipeline.encode_batch([props_init(500, 1), props_init(500, 3)],
                               [data, longer], device=CPU)
-    # past the fast parse's cap an m1-m4 stream takes the exact parse;
-    # m5 (its binary-tree finder) has none
-    big = b"z" * (encode_host.MAX_ENCODE + 1)
+    # every stream past the fast parse's cap takes the exact parse, m5
+    # too; where golden's binary tree raises IndexError (a bt_size below
+    # the stream) there are no reference bytes to write
+    name, p5, fault = edges.bt_fault_case()
     with pytest.raises(pipeline.EncodeError,
-                       match=r"stream 0.*cap.*binary-tree finder \(m5"):
-        pipeline.encode_batch([props_init(len(big), 5)], [big], device=CPU)
+                       match=r"stream\(s\) \[0\]: longer than bt_size"):
+        pipeline.encode_batch([p5], [fault], device=CPU, parse="exact")
     with pytest.raises(ValueError, match="meta"):
         pipeline.encode_batch([props_init(500, 1)], [data],
                               device=torch.device("meta"))
@@ -157,11 +194,13 @@ def test_on_stage_sees_every_stage_of_the_one_path():
         assert torch.equal(got, want)
 
 
-def test_cli_round_trip_cpu_and_m3_refusal(tmp_path):
+def test_cli_round_trip_cpu_and_m3_refusal(tmp_path, request,
+                                           tmp_path_factory):
     """The CLI round trip on the CPU at -m 1 and at -m 3, which the CLI
     refused until the optimal parse was ported: each stream decodes with
     the port's CLI and with csc_tpu.golden, and -m 3 codes smaller."""
     from csc_tpu.props import read_properties
+    gxx(request, tmp_path_factory)
     data = corpus.words(3000, seed=5)
     src, dec = tmp_path / "in.bin", tmp_path / "out.bin"
     src.write_bytes(data)
@@ -180,18 +219,29 @@ def test_cli_round_trip_cpu_and_m3_refusal(tmp_path):
     assert sizes["3"] < sizes["1"]
 
 
-def width_case(level, monkeypatch):
-    """(cases, the port's streams, csc_tpu's streams) of a group whose
-    longest stream, text ending in a repeated phrase and one fresh byte,
-    is 1536 bytes: csc_tpu's group width, and the port's (`ap_width`).
-    One column wider, the port's parse of it differs (its last cell takes
-    a match there), so the width is what makes them equal."""
-    from csc_tpu.ops import pipeline as j_pipeline
+def _width_cases(level):
     text = corpus.torch_python_text(64 * 1024)
     tail = text[20100:20112] + b"\x02"
     data = text[30000:30000 + 1536 - len(tail)] + tail
-    cases = [("width", props_init(1536, level), data),
-             ("shorter", props_init(1000, level), text[40000:41000])]
+    return [("width", props_init(1536, level), data),
+            ("shorter", props_init(1000, level), text[40000:41000])]
+
+
+def reference_width(level):
+    """csc_tpu's streams of width_case's group (torch_fixtures)."""
+    cases = _width_cases(level)
+    return cases, {"streams": fixture.streams_value(
+        csc_tpus_fast_streams(cases))}, ()
+
+
+def width_case(level):
+    """(cases, the port's streams, csc_tpu's streams, as tests/fixtures/
+    keeps them) of a group whose longest stream, text ending in a
+    repeated phrase and one fresh byte, is 1536 bytes: csc_tpu's group
+    width, and the port's (`ap_width`).  One column wider, the port's
+    parse of it differs (its last cell takes a match there), so the width
+    is what makes them equal."""
+    cases = _width_cases(level)
     props = [c[1] for c in cases]
     datas = [c[2] for c in cases]
     plans = [encode_host.plan_stream(p, d) for _, p, d in cases]
@@ -199,8 +249,15 @@ def width_case(level, monkeypatch):
     ours = pipeline.encode_batch(props, datas, device=CPU)
     wider = pipeline.encode_group(props, plans, [0], CPU, width=1537)
     assert wider[0] != ours[0]
-    monkeypatch.setenv("CSC_ENCODE_PARSE", "fast")
-    monkeypatch.setenv("CSC_ENCODE_BITS", "scan")
-    ref = j_pipeline.encode_batch(props, datas)
-    assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    ref = fixture.streams_of(fixture.load(f"encode_width_m{level}", cases)[
+        "streams"], len(cases))
     return cases, ours, ref
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", [f"encode_fast_m{lv}" for lv in range(1, 6)]
+                         + [f"encode_width_m{lv}" for lv in (3, 4, 5)])
+def test_stored_streams_match_csc_tpu_live(name):
+    """The stored csc_tpu streams (tests/fixtures/) are what csc_tpu's
+    fast path makes of the cases today."""
+    fixture.check_live(name)

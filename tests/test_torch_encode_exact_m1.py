@@ -8,10 +8,13 @@ corpus.encode_cases.  csc_tpu runs one stream at a time (its exact parse
 compiles and runs slowly on a CPU at B > 1); the port encodes them as one
 batch.  Every stream decodes with the port's decode_batch and with the
 golden decoder; the fast parse's kernels (K2, K4) are not launched.
+K3 and K1 run through their g++ builds (torch_ring_cases.gxx_k1_k3);
+csc_tpu's streams are kept in tests/fixtures/ (torch_fixtures.py, made
+live again by the slow-marked test).
 What csc_tpu hands to its golden encoder on this path: a BAD, an ENTROPY
 and a DLT run give golden's bytes (and csc_tpu's, from its fallback); a
 dictionary smaller than the stream takes the exact parse, its ring window
-wrapping; m5 (its binary-tree finder) raises EncodeError naming the
+wrapping; m3-m5 past the dictionary raises EncodeError naming the
 stream.  m2 is in a file of its own (test_torch_encode_exact_m2.py), so
 the levels' JAX references run on two test workers."""
 import os
@@ -26,28 +29,49 @@ from csc_tpu_torch.ops import (exact_kernel, parse_ap_kernel, parse_kernel,
                                pipeline)
 from csc_tpu_torch.props import props_init, write_properties
 
+import torch_fixtures as fixture
+import torch_ring_cases as ring
+
 CPU = torch.device("cpu")
 KEEP = ("text", "exe", "multichunk")
 
 
-def exact_both(level, monkeypatch):
-    """(cases, the port's streams, csc_tpu's streams, golden's streams)
-    of the cases the exact path takes, and the cases it refuses."""
-    from csc_tpu.ops import pipeline as j_pipeline
+def _keep(level):
     cases = corpus.encode_cases(level, n=1024, seed=71)
-    keep = [c for c in cases if c[0] in KEEP]
+    return cases, [c for c in cases if c[0] in KEEP]
+
+
+def reference(level):
+    """csc_tpu's streams of the KEEP cases under CSC_ENCODE_PARSE=exact,
+    one call a stream, none handed to golden (torch_fixtures)."""
+    from csc_tpu.ops import pipeline as j_pipeline
+    _, keep = _keep(level)
+    ref = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CSC_ENCODE_PARSE", "exact")
+        mp.setenv("CSC_ENCODE_BITS", "scan")
+        for _, p, data in keep:
+            ref += j_pipeline.encode_batch([p], [data])
+            assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    return keep, {"streams": fixture.streams_value(ref)}, ()
+
+
+def exact_both(level, monkeypatch):
+    """(cases, the port's streams, csc_tpu's streams as tests/fixtures/
+    keeps them, golden's streams) of the cases the exact path takes, and
+    the cases it refuses."""
+    cases, keep = _keep(level)
     launches = (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
                 exact_kernel.LAUNCHES)
     ours = pipeline.encode_batch([c[1] for c in keep], [c[2] for c in keep],
                                  device=CPU, parse="exact")
     assert (parse_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES,
             exact_kernel.LAUNCHES) == launches
+    # csc_tpu's exact path, as check_refused runs it
     monkeypatch.setenv("CSC_ENCODE_PARSE", "exact")
     monkeypatch.setenv("CSC_ENCODE_BITS", "scan")
-    ref = []
-    for _, p, data in keep:
-        ref += j_pipeline.encode_batch([p], [data])
-        assert j_pipeline.LAST_ENCODE_FALLBACKS == 0
+    ref = fixture.streams_of(fixture.load(f"encode_exact_m{level}", keep)[
+        "streams"], len(keep))
     gold = [golden_encode(p, data) for _, p, data in keep]
     return keep, ours, ref, gold, [c for c in cases if c[0] not in KEEP]
 
@@ -70,9 +94,10 @@ def check_refused(level, refused):
     before it followed golden's ring window, is taken by it under either
     parse (its bytes are golden's in test_torch_exact_ring_m1.py / _m2.py;
     csc_tpu's device parse, which has no ring, writes a stream golden
-    rejects, test_torch_encode.py); m5 still raises EncodeError naming
-    the stream (its index in a batch behind a stream the path
-    takes) and the reason."""
+    rejects, test_torch_encode.py); m3-m5 past the dictionary (whose
+    ring the exact optimal parse does not follow) still raises
+    EncodeError naming the stream (its index in a batch behind a stream
+    the path takes) and the reason."""
     from csc_tpu.ops import pipeline as j_pipeline
     text = corpus.encode_cases(level, n=1024, seed=71)[0]
     assert sorted(c[0] for c in refused) == ["dict_lt_input", "dlt",
@@ -94,16 +119,21 @@ def check_refused(level, refused):
         assert decompress_stream(p, o, 0) == data, name
     assert pipeline.decode_batch([c[1] for c in taken], ours,
                                  device=CPU) == [c[2] for c in taken]
-    ap = props_init(len(text[2]), 5)
+    # m3-m5 past the dictionary (the exact optimal parse does not follow
+    # golden's ring window)
+    longer = corpus.repetitive(48 * 1024, 2)
     with pytest.raises(pipeline.EncodeError,
-                       match=r"stream 1: .*binary-tree finder \(m5"):
-        pipeline.encode_batch([text[1], ap], [text[2], text[2]], device=CPU,
-                              parse="exact")
+                       match=r"stream 1: 49152 bytes is more than its "
+                             r"32768-byte dictionary .*lz_mode 3"):
+        pipeline.encode_batch([text[1], props_init(1024, 5)],
+                              [text[2], longer], device=CPU, parse="exact")
 
 
-def check_cli(level, tmp_path):
+def check_cli(level, tmp_path, monkeypatch):
     """`c --parse exact --backend cpu` writes the header and golden's
-    stream; `d` reads it back."""
+    stream; `d` reads it back (K3 and K1 through their g++ builds)."""
+    (tmp_path / "gxx").mkdir()
+    ring.gxx_k1_k3(monkeypatch, tmp_path / "gxx")
     data = corpus.torch_python_text(64 * 1024)[3000:4500]
     src, enc, dst = (str(tmp_path / n) for n in ("in.bin", "out.csc",
                                                  "back.bin"))
@@ -122,9 +152,10 @@ def check_cli(level, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def m1(request):
+def m1(request, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     request.addfinalizer(mp.undo)
+    ring.gxx_k1_k3(mp, tmp_path_factory.mktemp("gxx"))
     return exact_both(1, mp)
 
 
@@ -136,5 +167,13 @@ def test_m1_exact_refuses_what_csc_tpu_sends_to_golden(m1):
     check_refused(1, m1[4])
 
 
-def test_m1_cli_parse_exact(tmp_path):
-    check_cli(1, tmp_path)
+def test_m1_cli_parse_exact(tmp_path, monkeypatch):
+    check_cli(1, tmp_path, monkeypatch)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("level", [1, 2])
+def test_stored_streams_match_csc_tpu_live(level):
+    """The stored csc_tpu streams are what csc_tpu's exact path makes of
+    the cases today."""
+    fixture.check_live(f"encode_exact_m{level}")

@@ -6,14 +6,13 @@ with csc_tpu.golden).  A file of its own, so the two levels' JAX
 references run on two test workers."""
 import pytest
 
-from test_torch_encode import check_streams, encode_both
+from test_torch_encode import check_streams, encode_both, gxx
 
 
 @pytest.fixture(scope="module")
-def m2(request):
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
-    return encode_both(2, mp)
+def m2(request, tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    return encode_both(2)
 
 
 def test_m2_byte_identical_to_csc_tpu_and_decodes(m2):

@@ -9,19 +9,20 @@ the last cell is undone as csc_tpu undoes it.  A file of its own, so the
 levels' JAX references run on separate test workers."""
 import pytest
 
-from test_torch_encode import check_streams, encode_both, width_case
+from test_torch_encode import check_streams, encode_both, gxx, width_case
 
 
 @pytest.fixture(scope="module")
-def m3(request):
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
-    return encode_both(3, mp, n=1024)
+def m3(request, tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    return encode_both(3)
 
 
 def test_m3_byte_identical_to_csc_tpu_and_decodes(m3):
     check_streams(*m3)
 
 
-def test_m3_stream_as_long_as_its_groups_width(monkeypatch):
-    check_streams(*width_case(3, monkeypatch))
+def test_m3_stream_as_long_as_its_groups_width(request,
+                                               tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    check_streams(*width_case(3))

@@ -9,19 +9,20 @@ the last cell is undone as csc_tpu undoes it.  A file of its own, so the
 levels' JAX references run on separate test workers."""
 import pytest
 
-from test_torch_encode import check_streams, encode_both, width_case
+from test_torch_encode import check_streams, encode_both, gxx, width_case
 
 
 @pytest.fixture(scope="module")
-def m5(request):
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
-    return encode_both(5, mp, n=1024)
+def m5(request, tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    return encode_both(5)
 
 
 def test_m5_byte_identical_to_csc_tpu_and_decodes(m5):
     check_streams(*m5)
 
 
-def test_m5_stream_as_long_as_its_groups_width(monkeypatch):
-    check_streams(*width_case(5, monkeypatch))
+def test_m5_stream_as_long_as_its_groups_width(request,
+                                               tmp_path_factory):
+    gxx(request, tmp_path_factory)
+    check_streams(*width_case(5))

@@ -34,18 +34,18 @@ CPU = torch.device("cpu")
 MODEL_WORDS = 530 + 65536 + 32 + 3
 
 
-def build_k6_host(tmp):
+def build_k6_host(tmp, opt="-O2"):
     """The g++ build of encode_k6_host.cpp (csc_k6_host_staged) in
     `tmp`."""
     so = str(tmp / "libk6host.so")
-    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-Werror",
+    subprocess.run(["g++", opt, "-std=c++17", "-Wall", "-Werror",
                     "-shared", "-fPIC", os.path.join(CSRC,
                                                      "encode_k6_host.cpp"),
                     "-o", so], check=True, capture_output=True)
     fn = ctypes.CDLL(so).csc_k6_host_staged
     fn.restype = ctypes.c_int
     fn.argtypes = [P, I64, P, I32, P, P, I32, I32, I32, P, P, P, P, P, I64,
-                   P, P, I32, I64, P]
+                   P, P, I32, I64, P, I32, I32, P, P, P, I64]
     return fn
 
 
@@ -58,16 +58,21 @@ def k6(tmp_path_factory):
 
 def k6_args(cases, width=None, tcap=None):
     """K6's arguments for a group of (name, props, data) cases of one
-    preset, on the CPU, as the encode path gives them."""
+    preset, on the CPU, as the encode path gives them (at m5 the binary
+    tree's and each stream's bt_size)."""
     props = [c[1] for c in cases]
     plans = [encode_host.plan_stream(c[1], c[2], exact=True) for c in cases]
     data, blocks, sizes, dicts = pipeline.block_inputs(
         props, plans, list(range(len(cases))), CPU, width)
     p0 = props[0]
+    bt = exact_ap_scan.BT.of(p0)
     return (data, blocks, sizes, dicts, p0.hash_bits, p0.hash_width,
             p0.good_len,
             tcap or parse_scan.tape_capacity(data.shape[1],
-                                             blocks.shape[1]))
+                                             blocks.shape[1]),
+            bt if bt.size else None,
+            torch.tensor([p.bt_size for p in props], dtype=torch.int32)
+            if bt.size else None)
 
 
 def _ptr(a):
@@ -78,7 +83,9 @@ def k6_host(fn, args, stage_max=1 << 16, model=False):
     """The g++ build's (tape, tok_cnt, done, err, btypes) as numpy, and
     with model=True the model rows [B, MODEL_WORDS]; streams of at most
     stage_max bytes staged as words."""
-    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap = args
+    data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap = \
+        args[:8]
+    bt, bt_sizes = (tuple(args[8:10]) + (None, None))[:2]
     d = np.ascontiguousarray(data.numpy())
     bl = np.ascontiguousarray(blocks.numpy())
     b, n = d.shape
@@ -89,12 +96,21 @@ def k6_host(fn, args, stage_max=1 << 16, model=False):
     out = np.zeros((3, b), np.int32)
     btypes = np.zeros(bl.shape[:2], np.int32)
     rows = np.zeros((b, MODEL_WORDS), np.int32)
+    tree = (0, 0, None, None, None, 0)
+    if bt is not None:
+        if bt_sizes is None:
+            bt_sizes = torch.full((b,), bt.size, dtype=torch.int32)
+        bts = np.ascontiguousarray(bt_sizes.numpy())
+        stride = 2 * min(int(bts.max()), n + 1)
+        head = np.zeros((b, 1 << bt.bits), np.int32)
+        nodes = np.zeros((b, stride), np.int32)
+        tree = (bt.bits, bt.cyc, _ptr(bts), _ptr(head), _ptr(nodes), stride)
     rc = fn(_ptr(d), n, _ptr(bl), bl.shape[1],
             _ptr(np.ascontiguousarray(sizes.numpy())),
             _ptr(np.ascontiguousarray(dicts.numpy())), hash_bits,
             hash_width, good_len, _ptr(p2b), *(_ptr(t) for t in tables),
             _ptr(tape), tcap, _ptr(out), _ptr(btypes), b, stage_max,
-            _ptr(rows) if model else None)
+            _ptr(rows) if model else None, *tree)
     assert rc == 0
     res = (tape, out[0], out[1], out[2], btypes)
     return res + (rows,) if model else res

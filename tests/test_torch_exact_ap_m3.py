@@ -46,12 +46,12 @@ def golden_run(props, data):
     return enc.io.getvalue(), enc.model
 
 
-def ap_run(level, tmp):
-    """The cases, the port's streams, the plain version's trace (by case)
-    and K6's block types, golden's streams and models, csc_tpu's streams
-    and the port's decode."""
+def ap_run(level, tmp, cases=None):
+    """The cases (exact_ap_cases(level) by default), the port's streams,
+    the plain version's trace (by case) and K6's block types, golden's
+    streams and models, csc_tpu's streams and the port's decode."""
     from csc_tpu.ops import pipeline as j_pipeline
-    cases = edges.exact_ap_cases(level)
+    cases = cases or edges.exact_ap_cases(level)
     props, datas = [c[1] for c in cases], [c[2] for c in cases]
     k1, k3 = ring.host_builds(tmp, ("k1", "k3"))
     calls = []

@@ -2,9 +2,9 @@
 under parse="fast" an m3 stream over encode_host.MAX_ENCODE takes it, as
 csc_tpu hands such a stream to its golden encoder, so its bytes are
 golden's and equal parse="exact"'s, while a stream under the cap in the
-same batch keeps the fast parse (K4); m5 under the exact parse or over
-the cap, and m3 past its dictionary, still raise EncodeError naming the
-stream and the reason; `c -m3 --parse exact` writes csc_tpu's file and
+same batch keeps the fast parse (K4); golden's binary-tree IndexError
+stream over the cap, and m3-m5 past the dictionary, still raise
+EncodeError naming the stream and the reason; `c -m3 --parse exact` writes csc_tpu's file and
 `csarc a -m4 --parse=exact --backend=cpu` csc_tpu's archive.  The cap is
 lowered to 2 KB with monkeypatch and the inputs are short and
 repetitive, so that the plain versions run in seconds; the real sizes
@@ -19,6 +19,7 @@ from csc_tpu_torch import cli, corpus
 from csc_tpu_torch.ops import encode_host, pipeline
 from csc_tpu_torch.props import props_init, write_properties
 
+import torch_edge_cases as edges
 from torch_archiver_trees import TEXT_FILES, archive_both
 
 CPU = torch.device("cpu")
@@ -52,20 +53,22 @@ def test_fast_parse_past_the_cap_takes_k6(small_cap):
 
 
 def test_m5_and_the_ring_are_refused(small_cap):
-    small, big = small_cap
-    m5 = props_init(len(big), 5)
+    """m5 past the cap or under the exact parse takes K6's tree
+    (test_torch_exact_bt_route.py); still refused: golden's IndexError
+    stream past the cap, and m3-m5 past the dictionary."""
+    small, _ = small_cap
+    _, m5, fault = edges.bt_fault_case()
     with pytest.raises(pipeline.EncodeError,
-                       match="stream 1: .*cap.*binary-tree finder "
-                             r"\(m5") as e:
+                       match=r"stream\(s\) \[1\]: longer than bt_size.*"
+                             "IndexError") as e:
         pipeline.encode_batch([props_init(len(small), 3), m5],
-                              [small, big], device=CPU)
+                              [small, fault], device=CPU)
     assert e.value.streams == [1]
-    with pytest.raises(pipeline.EncodeError,
-                       match=r"stream 0: the exact parse has no "
-                             r"binary-tree finder \(m5"):
-        pipeline.plan_streams([props_init(len(small), 5)], [small],
-                              "exact")
     longer = corpus.repetitive(40 * 1024, 2)
+    with pytest.raises(pipeline.EncodeError,
+                       match="stream 0: 40960 bytes is more than its "
+                             "32768-byte dictionary and .*lz_mode 3"):
+        pipeline.plan_streams([props_init(1024, 5)], [longer], "exact")
     p4 = props_init(1024, 4)
     for parse in pipeline.PARSES:
         with pytest.raises(pipeline.EncodeError,

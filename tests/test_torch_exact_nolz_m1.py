@@ -1,6 +1,8 @@
 """The exact parse on every run type golden's encoder codes, at m1 on
-the CPU: `encode_batch(..., parse="exact", device="cpu")` (K5's and K3's
-plain versions) on tests/torch_edge_cases.py `exact_nolz_cases` (a
+the CPU: `encode_batch(..., parse="exact", device="cpu")` (K5's plain
+version; K3 and K1 through their g++ builds, which
+test_torch_k3_edges.py and test_torch_kernel_host.py hold to their plain
+versions, as in test_torch_exact_ap_m3.py) on tests/torch_edge_cases.py `exact_nolz_cases` (a
 DT_BAD, a DT_ENTROPY and a DT_DLT run, a random block the duplicate-block
 probe re-types DT_NORMAL with a DT_SKIP block after it that follows it,
 runs cut at small raw chunks) must give the bytes of the golden encoder
@@ -25,6 +27,7 @@ from csc_tpu_torch.constants import (DT_BAD, DT_DLT, DT_ENTROPY, DT_NORMAL,
 from csc_tpu_torch.ops import encode_host, exact_scan, pipeline
 
 import torch_edge_cases as edges
+import torch_ring_cases as ring
 from test_torch_exact_host import (assert_same, exact_args, k5,  # noqa: F401
                                    k5_host)
 
@@ -43,15 +46,15 @@ def one_thread():
         torch.set_num_threads(n)
 
 
-def nolz_run(level, monkeypatch):
+def nolz_run(level, monkeypatch, tmp):
     """The cases, the port's streams, K5's arguments and plain outputs as
     the encode path gave them, csc_tpu's streams, golden's streams and
-    the port's decode."""
+    the port's decode (K3 and K1 built with g++ in tmp)."""
     with one_thread():
-        return _nolz_run(level, monkeypatch)
+        return _nolz_run(level, monkeypatch, tmp)
 
 
-def _nolz_run(level, monkeypatch):
+def _nolz_run(level, monkeypatch, tmp):
     from csc_tpu.ops import pipeline as j_pipeline
     cases = edges.exact_nolz_cases(level)
     props, datas = [c[1] for c in cases], [c[2] for c in cases]
@@ -60,6 +63,8 @@ def _nolz_run(level, monkeypatch):
     def on_stage(name, **values):
         if name == "k5":
             seen.append((values["k5_args"], values["k5_out"]))
+    k1, k3 = ring.host_builds(tmp, ("k1", "k3"))
+    ring.use_host_builds(monkeypatch, (k1, k3, None), ("k1", "k3"))
     ours = pipeline.encode_batch(props, datas, device=CPU, parse="exact",
                                  on_stage=on_stage)
     assert len(seen) == 1
@@ -159,10 +164,10 @@ def _check_budget(k5, level):
 
 
 @pytest.fixture(scope="module")
-def m1(request):
+def m1(request, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     request.addfinalizer(mp.undo)
-    return nolz_run(1, mp)
+    return nolz_run(1, mp, tmp_path_factory.mktemp("nolz_m1"))
 
 
 def test_m1_nolz_exact_is_golden_and_csc_tpus_and_decodes(m1):

@@ -10,10 +10,10 @@ from test_torch_exact_nolz_m1 import (check_budget, check_host,
 
 
 @pytest.fixture(scope="module")
-def m2(request):
+def m2(request, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     request.addfinalizer(mp.undo)
-    return nolz_run(2, mp)
+    return nolz_run(2, mp, tmp_path_factory.mktemp("nolz_m2"))
 
 
 def test_m2_nolz_exact_is_golden_and_csc_tpus_and_decodes(m2):

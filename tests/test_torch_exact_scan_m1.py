@@ -15,20 +15,23 @@ more (csc_host.cpp `csc_dict_forward`); one byte 1 500 times.  Batching
 is held through the port alone: three of the streams parsed as one batch
 end in the state of their single runs.  Integers throughout, so equality
 is exact.  m2 is in a file of its own (test_torch_exact_scan_m2.py), so
-that test workers spread the levels."""
-import jax
-import jax.numpy as jnp
+that test workers spread the levels.  csc_tpu is frozen, and its scans
+take a minute on the CPU, so its states are kept in tests/fixtures/
+(torch_fixtures.py; the large tables as digests): the fast tests read
+them and run the port live from its own initial state; the slow-marked
+test makes them live again and holds the stored ones to them."""
 import numpy as np
 import pytest
 
-from csc_tpu.ops import encode_scan as j_scan
 from csc_tpu_torch import constants, corpus
 from csc_tpu_torch.ops import encode_host, exact_scan
 from csc_tpu_torch.props import props_init
 
+import torch_fixtures as fixture
 from test_torch_exact_host import exact_args
 
 MID = 1500        # the midway state's step
+STAGES = ("init", "mid", "fin")
 WIDTH = 1536
 BATCH = ("text", "exe", "byte")
 
@@ -56,36 +59,68 @@ def _np(st):
     return {k: np.asarray(v) for k, v in st.items()}
 
 
-def scan_runs(level):
-    """Per stream: csc_tpu's states at the start, after MID steps and at
-    the end, with its step counts; the port's from csc_tpu's start and
-    its own initial state; and the port's batch run of BATCH."""
-    fn = None
-    runs = {}
-    for case in scan_cases(level):
+def reference(level):
+    """csc_tpu's states of each stream of scan_cases(level) alone
+    (torch_fixtures): the start, after MID steps and the end
+    ("<stream>/<stage>/<field>"), the two runs' step counts
+    ("<stream>/steps") and its config ("<stream>/cfg/<key>")."""
+    import jax
+    import jax.numpy as jnp
+    from csc_tpu.ops import encode_scan as j_scan
+    cases = scan_cases(level)
+    fn, values = None, {}
+    for case in cases:
         args = exact_args([case], width=WIDTH)
         data, blocks, sizes, dicts, hb, hw, gl, lazy, tcap, _ = args
         # one block, one run: csc_tpu's run_ends are the block ends
         assert blocks.shape[1] == 1
-        run_ends = blocks[..., 0]
-        st_j, cfg = j_scan.make_encode_state(
+        st, cfg = j_scan.make_encode_state(
             1, data.numpy(), sizes.tolist(), dicts.tolist(), hb, hw, gl,
-            lazy, tcap, run_ends=run_ends.numpy())
+            lazy, tcap, run_ends=blocks[..., 0].numpy())
         if fn is None:
             fn = jax.jit(lambda s, ms: j_scan.run_parse(s, cfg, ms))
-        init = _np(st_j)
-        mid_j, n_mid = fn(st_j, jnp.int32(MID))
-        fin_j, n_fin = fn(mid_j, jnp.int32(10 ** 7))
-        st = exact_scan.state_from_numpy(init, "cpu")
+        mid, n_mid = fn(st, jnp.int32(MID))
+        fin, n_fin = fn(mid, jnp.int32(10 ** 7))
+        for stage, state in zip(STAGES, (st, mid, fin)):
+            values.update({f"{case[0]}/{stage}/{k}": v
+                           for k, v in _np(state).items()})
+        values[f"{case[0]}/steps"] = np.array([int(n_mid), int(n_fin)],
+                                              np.int64)
+        values.update({f"{case[0]}/cfg/{k}": np.array(v)
+                       for k, v in cfg.items()})
+    # the final token tapes whole: check_tape and check_reach read them
+    full = [k for k in values if "/fin/tok_" in k]
+    return cases, values, full
+
+
+def scan_runs(level):
+    """Per stream: csc_tpu's states at the start, after MID steps and at
+    the end, with its step counts, as tests/fixtures/ keeps them; the
+    port's own initial state and its runs from it; and the port's batch
+    run of BATCH."""
+    cases = scan_cases(level)
+    stored = fixture.load(f"exact_scan_m{level}", cases)
+    runs = {}
+    for case in cases:
+        name = case[0]
+
+        def part(prefix):
+            return {k[len(prefix):]: v for k, v in stored.items()
+                    if k.startswith(prefix)}
+        want = {stage: part(f"{name}/{stage}/") for stage in STAGES}
+        cfg = {k: v.item() for k, v in part(f"{name}/cfg/").items()}
+        n_mid, n_fin = (int(v) for v in stored[f"{name}/steps"])
+        args = exact_args([case], width=WIDTH)
+        own, own_cfg = exact_scan.make_exact_state(*args[:9])
+        assert own_cfg == cfg
+        own_np = exact_scan.state_to_numpy(own)
+        st = exact_scan.state_from_numpy(own_np, "cpu")
         st, m_mid = exact_scan.run_parse(st, cfg, MID)
         mid_t = exact_scan.state_to_numpy(st)
         st, m_fin = exact_scan.run_parse(st, cfg, 10 ** 7)
-        own, own_cfg = exact_scan.make_exact_state(*args[:9])
-        assert own_cfg == cfg
-        runs[case[0]] = dict(
-            case=case, init=init, own=exact_scan.state_to_numpy(own),
-            mid=(_np(mid_j), mid_t, int(n_mid), m_mid),
-            fin=(_np(fin_j), st, int(n_fin), m_fin))
+        runs[name] = dict(case=case, init=want["init"], own=own_np,
+                          mid=(want["mid"], mid_t, n_mid, m_mid),
+                          fin=(want["fin"], st, n_fin, m_fin))
     batch = [runs[name]["case"] for name in BATCH]
     st, cfg = exact_scan.make_exact_state(*exact_args(batch,
                                                       width=WIDTH)[:9])
@@ -94,18 +129,14 @@ def scan_runs(level):
 
 
 def _assert_states(want, got, where):
-    assert set(want) == set(got)
-    for k in want:
-        assert got[k].dtype == want[k].dtype, (where, k)
-        np.testing.assert_array_equal(got[k], want[k],
-                                      err_msg=f"{where} {k}")
+    fixture.assert_values(want, got, where)
 
 
 def check_initial(res):
     for name, r in res["runs"].items():
         _assert_states(r["init"], r["own"], f"{name} init")
         back = exact_scan.state_to_numpy(
-            exact_scan.state_from_numpy(r["init"], "cpu"))
+            exact_scan.state_from_numpy(r["own"], "cpu"))
         _assert_states(r["init"], back, f"{name} round trip")
 
 
@@ -197,3 +228,11 @@ def test_m1_batch_ends_in_each_streams_single_state(m1):
 
 def test_m1_cases_reach_each_mechanism(m1):
     check_reach(m1)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("level", [1, 2])
+def test_fixture_matches_live_reference(level):
+    """The stored csc_tpu states are what csc_tpu's exact parse makes of
+    the streams today."""
+    fixture.check_live(f"exact_scan_m{level}")

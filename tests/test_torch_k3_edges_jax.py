@@ -5,38 +5,62 @@ block-crossing maps, the chunk log and done must be equal on every batch
 the JAX scan takes.  Integers throughout, so equality is exact.  Two
 batches are the port's alone: a tape without K_END, and maps and a chunk
 log shorter than csc_tpu's fixed 64 entries (encode_bits.make_bits_state),
-held to the plain version by tests/test_torch_k3_edges.py."""
-import jax
-import jax.numpy as jnp
+held to the plain version by tests/test_torch_k3_edges.py.  csc_tpu is
+frozen, so its scan's final states are kept in tests/fixtures/
+(torch_fixtures.py); the slow-marked test makes them live again."""
 import numpy as np
 import pytest
 import torch
 
-from csc_tpu.ops import encode_bits
 from csc_tpu_torch import constants
 from csc_tpu_torch.ops import bits_scan
 
 import torch_edge_cases as edges
+import torch_fixtures as fixture
 
 CASES = edges.k3_cases()
+JAX_CASES = [c for c in CASES if c[3] == "jax"]
+KEYS = ("rc_out", "bc_out", "rc_blkmap", "bc_blkmap", "chunk_log", "rc_cnt",
+        "bc_cnt", "chunk_cnt", "done")
 
 
-def _run_jax(tp, max_rc, max_bc, bsize):
-    old = encode_bits.BSIZE_REF[0]
-    encode_bits.BSIZE_REF[0] = bsize
-    try:
-        st = encode_bits.make_bits_state(tp[0].shape[0], *tp, max_rc, max_bc)
-        fin, _ = jax.jit(encode_bits.run_bits)(st, jnp.int32(10 ** 8))
-        return {k: np.asarray(v) for k, v in fin.items()}
-    finally:
-        encode_bits.BSIZE_REF[0] = old
+def _inputs():
+    """The JAX cases as torch_fixtures' (name, None, input bytes)."""
+    return [(name, None, b"".join(np.ascontiguousarray(t).tobytes()
+                                  for t in tp) + repr(args).encode())
+            for name, tp, args, _ in JAX_CASES]
 
 
-@pytest.mark.parametrize("case", [c[0] for c in CASES if c[3] == "jax"])
-def test_plain_matches_jax_on_k3_edge_tapes(case):
+def reference():
+    """csc_tpu's run_bits on each JAX case, its final state's fields
+    ("<case>/<field>"; torch_fixtures)."""
+    import jax
+    import jax.numpy as jnp
+    from csc_tpu.ops import encode_bits
+    values = {}
+    for name, tp, (max_rc, max_bc, _, _, bsize), _ in JAX_CASES:
+        old = encode_bits.BSIZE_REF[0]
+        encode_bits.BSIZE_REF[0] = bsize
+        try:
+            st = encode_bits.make_bits_state(tp[0].shape[0], *tp, max_rc,
+                                             max_bc)
+            fin, _ = jax.jit(encode_bits.run_bits)(st, jnp.int32(10 ** 8))
+        finally:
+            encode_bits.BSIZE_REF[0] = old
+        values.update({f"{name}/{k}": np.asarray(fin[k]) for k in KEYS})
+    return _inputs(), values, list(values)
+
+
+@pytest.fixture(scope="module")
+def stored():
+    return fixture.load("k3_edges_jax", _inputs())
+
+
+@pytest.mark.parametrize("case", [c[0] for c in JAX_CASES])
+def test_plain_matches_jax_on_k3_edge_tapes(case, stored):
     _, tp, (max_rc, max_bc, nmap, nchunk, bsize), _ = next(
         c for c in CASES if c[0] == case)
-    want = _run_jax(tp, max_rc, max_bc, bsize)
+    want = {k: stored[f"{case}/{k}"] for k in KEYS}
     assert want["rc_blkmap"].shape[1] == nmap
     assert want["chunk_log"].shape[1] == nchunk
     got = bits_scan.bits_plain(*(torch.from_numpy(x) for x in tp), max_rc,
@@ -68,3 +92,10 @@ def test_tape_without_end_is_port_only():
     assert stats[3].tolist() == [0, 1]
     # the first stream codes its body twice: more than the second
     assert (stats[:2, 0] > stats[:2, 1]).all()
+
+
+@pytest.mark.slow
+def test_fixture_matches_live_reference():
+    """The stored final states are what csc_tpu's run_bits makes of the
+    tapes today."""
+    fixture.check_live("k3_edges_jax")

@@ -11,39 +11,46 @@ text, a BAD run and a stream as long as the group's width, runs of one
 byte, random bytes, a stretch ended at the AP_LIMIT cap, one byte.
 Integers throughout, so equality is exact.  m4 and m5 are in files of
 their own (test_torch_parse_ap_m4.py, _m5.py), so that test workers
-spread them."""
-import jax.numpy as jnp
+spread them.  csc_tpu is frozen, and its parse takes most of a minute
+on the CPU, so its states and its stitch are kept in tests/fixtures/
+(torch_fixtures.py; the large tables as digests): the fast tests read
+them and run the port live from its own initial state; the slow-marked
+test makes them live again and holds the stored ones to them."""
 import numpy as np
 import pytest
 import torch
 
-from csc_tpu.ops import parse_ap as jap
-from csc_tpu.ops import parse_pre as j_pre
-from csc_tpu.ops import stitch_dev
 from csc_tpu_torch import constants
 from csc_tpu_torch.ops import (encode_host, parse_ap_scan, parse_pre,
                                parse_scan, pipeline, prices, stitch)
 
 import torch_edge_cases as edges
+import torch_fixtures as fixture
 
 MID = 1500        # the midway state's step
+STAGES = ("init", "mid", "fin")
 
 
-def _np(st):
-    return {k: np.asarray(v) for k, v in st.items()}
-
-
-def ap_runs(level):
-    """csc_tpu's and the plain version's states of ap_cases(level): the
-    start, after MID steps, and the end; the plain version's stretch ends
-    (post action, end - s0) and the steps that continued a stretch
-    start's extensions."""
+def _inputs(level):
     cases = edges.ap_cases(level)
     props = [c[1] for c in cases]
     plans = [encode_host.plan_stream(c[1], c[2]) for c in cases]
     data, run_ends, run_skip, sizes, dicts = pipeline.group_inputs(
         props, plans, list(range(len(cases))), torch.device("cpu"))
-    p0 = props[0]
+    return cases, plans, data, run_ends, run_skip, sizes, dicts
+
+
+def reference(level):
+    """csc_tpu's states of ap_cases(level) (torch_fixtures): the start,
+    after MID steps and the end ("<stage>/<field>"), the two runs' step
+    counts ("steps") and stitch_device's k, a, b, c of the end
+    ("stitch/<k>")."""
+    import jax.numpy as jnp
+    from csc_tpu.ops import parse_ap as jap
+    from csc_tpu.ops import parse_pre as j_pre
+    from csc_tpu.ops import stitch_dev
+    cases, plans, data, run_ends, _, sizes, dicts = _inputs(level)
+    p0 = cases[0][1]
     w = p0.hash_width or 8
     cand, data_dev = j_pre.precompute_candidates(
         data.numpy(), sizes.tolist(), run_ends.numpy(), p0.hash_bits, w)
@@ -51,16 +58,48 @@ def ap_runs(level):
     run_types = np.array([[r[0] for r in plans[j][1]] + [0] * (
         run_ends.shape[1] - len(plans[j][1])) for j in range(len(cases))],
         np.int32)
-    st_j, _ = jap.make_ap_state(len(cases), data.numpy(), sizes.tolist(),
-                                dicts.tolist(), cand, run_ends.numpy(), t, w,
-                                p0.good_len, run_types=run_types)
-    init = _np(st_j)
+    st, _ = jap.make_ap_state(len(cases), data.numpy(), sizes.tolist(),
+                              dicts.tolist(), cand, run_ends.numpy(), t, w,
+                              p0.good_len, run_types=run_types)
+    values = {f"init/{k}": np.asarray(v) for k, v in st.items()}
     fn = jap.ap_parse_fn(w, p0.good_len)
-    mid_j, n_mid = fn(st_j, jnp.int32(MID))
-    fin_j, n_fin = fn(mid_j, jnp.int32(10 ** 7))
+    mid, n_mid = fn(st, jnp.int32(MID))
+    fin, n_fin = fn(mid, jnp.int32(10 ** 7))
+    values.update({f"mid/{k}": np.asarray(v) for k, v in mid.items()})
+    values.update({f"fin/{k}": np.asarray(v) for k, v in fin.items()})
+    values["steps"] = np.array([int(n_mid), int(n_fin)], np.int64)
+    ref = stitch_dev.stitch_device(fin, data_dev, [pl[1] for pl in plans])
+    values.update({f"stitch/{k}": np.asarray(r)
+                   for k, r in zip("kabc", ref[:4])})
+    # the stitch and the final token tapes whole: check_stitch,
+    # check_tape and check_reach read them
+    full = [k for k in values if k.startswith(("stitch/", "fin/tok_"))]
+    return cases, values, full
+
+
+def ap_runs(level):
+    """csc_tpu's states of ap_cases(level) as tests/fixtures/ keeps them
+    (the start, after MID steps, the end) and the plain version's from
+    its own initial state, built from its packed candidates and price
+    snapshot: the same stages, the stretch ends (post action, end - s0)
+    and the steps that continued a stretch start's extensions."""
+    cases, plans, data, run_ends, run_skip, sizes, dicts = _inputs(level)
+    stored = fixture.load(f"parse_ap_m{level}", cases)
+    want = {s: {k.split("/", 1)[1]: v for k, v in stored.items()
+                if k.startswith(s + "/")} for s in STAGES + ("stitch",)}
+    n_mid, n_fin = (int(v) for v in stored["steps"])
+    p0 = cases[0][1]
+    w = p0.hash_width or 8
+    candp = parse_pre.pack_candidates(parse_pre.precompute_candidates(
+        data, run_ends, p0.hash_bits, w))
+    pr = torch.from_numpy(prices.pack_prices(prices.snapshot_prices()))
+    t = parse_scan.tape_capacity(data.shape[1], run_ends.shape[1])
+    own = parse_ap_scan.make_ap_state(data, candp, run_ends, run_skip, sizes,
+                                      dicts, pr, t)
+    own_np = parse_ap_scan.state_to_numpy(own)
     # the plain version step by step, noting each stretch end and each
     # step that goes on extending at a stretch start
-    st = parse_ap_scan.state_from_numpy(init, "cpu")
+    st = parse_ap_scan.state_from_numpy(own_np, "cpu")
     steps, ends, at_s0 = 0, [], 0
     while not bool((st["done"] == 1).all()):
         prev = st
@@ -76,36 +115,28 @@ def ap_runs(level):
             mid_np = parse_ap_scan.state_to_numpy(st)
     # and run_ap_parse, from the start to MID and on to the end
     mid_t, m_mid = parse_ap_scan.run_ap_parse(
-        parse_ap_scan.state_from_numpy(init, "cpu"), p0.good_len, MID)
+        parse_ap_scan.state_from_numpy(own_np, "cpu"), p0.good_len, MID)
     np.testing.assert_array_equal(mid_t["tok_cnt"].numpy(),
                                   mid_np["tok_cnt"])
     fin_t, m_fin = parse_ap_scan.run_ap_parse(mid_t, p0.good_len, 10 ** 7)
     assert m_mid + m_fin == steps
     for k in ("tok_kind", "tok_a", "tok_b", "tok_c", "tok_cnt", "price"):
         assert torch.equal(fin_t[k], st[k]), k
-    candp = parse_pre.pack_candidates(torch.as_tensor(np.array(cand)))
-    pr = torch.from_numpy(prices.pack_prices(prices.snapshot_prices()))
-    own = parse_ap_scan.make_ap_state(data, candp, run_ends, run_skip, sizes,
-                                      dicts, pr, t)
-    return dict(level=level, cases=cases, plans=plans, p0=p0, init=init,
-                own=parse_ap_scan.state_to_numpy(own), data_dev=data_dev,
-                mid=(_np(mid_j), mid_np, int(n_mid), m_mid),
-                fin=(fin_j, fin_t, int(n_fin), m_fin), ends=ends,
+    return dict(level=level, cases=cases, plans=plans, p0=p0,
+                init=want["init"], own=own_np, stitch=want["stitch"],
+                mid=(want["mid"], mid_np, n_mid, m_mid),
+                fin=(want["fin"], fin_t, n_fin, m_fin), ends=ends,
                 at_s0=at_s0)
 
 
 def _assert_states(want, got, where):
-    assert set(want) == set(got)
-    for k in want:
-        assert got[k].dtype == want[k].dtype, (where, k)
-        np.testing.assert_array_equal(got[k], want[k],
-                                      err_msg=f"{where} {k}")
+    fixture.assert_values(want, got, where)
 
 
 def check_initial(runs):
     _assert_states(runs["init"], runs["own"], "init")
     back = parse_ap_scan.state_to_numpy(
-        parse_ap_scan.state_from_numpy(runs["init"], "cpu"))
+        parse_ap_scan.state_from_numpy(runs["own"], "cpu"))
     _assert_states(runs["init"], back, "round trip")
 
 
@@ -115,12 +146,12 @@ def check_states(runs):
     _assert_states(want, got, f"after {MID} steps")
     want, got, n_j, n_t = runs["fin"]
     assert n_j == n_t
-    _assert_states(_np(want), parse_ap_scan.state_to_numpy(got), "final")
+    _assert_states(want, parse_ap_scan.state_to_numpy(got), "final")
     assert np.asarray(want["done"]).all()
 
 
 def check_tape(runs):
-    want, got = _np(runs["fin"][0]), runs["fin"][1]
+    want, got = runs["fin"][0], runs["fin"][1]
     tape, tok_cnt, done, err = parse_ap_scan.tape_of(got)
     np.testing.assert_array_equal(tok_cnt.numpy(), want["tok_cnt"])
     assert done.all() and not err.any()
@@ -139,7 +170,7 @@ def check_tape(runs):
 
 def check_reach(runs):
     """What the cases were chosen to reach."""
-    want = _np(runs["fin"][0])
+    want = runs["fin"][0]
     kind, b = want["tok_kind"], want["tok_b"]
     lz = (kind == constants.K_MATCH) | (kind == constants.K_REP)
     assert (lz & (b + 2 >= runs["p0"].good_len)).any()
@@ -153,20 +184,20 @@ def check_reach(runs):
                if any(r[0] >= constants.DT_NO_LZ for r in pl[1])]
     assert [runs["cases"][j][0] for j in skipped] == ["mixed_runs"]
     sizes = [len(c[2]) for c in runs["cases"]]
-    assert max(sizes) == runs["init"]["data"].shape[1] == sizes[1]
+    assert max(sizes) == runs["own"]["data"].shape[1] == sizes[1]
     assert want["tok_cnt"][sizes.index(1)] == 3      # literal, SENT_A, END
 
 
 def check_stitch(runs):
     """The port's stitch of the plain version's tape equals csc_tpu's
     stitch_device of its final state over the used length."""
-    fin_j, got = runs["fin"][0], runs["fin"][1]
+    got = runs["fin"][1]
     tape, tok_cnt, _, _ = parse_ap_scan.tape_of(got)
     tape = tape[:, :int(tok_cnt.max())].contiguous()
     run_tables = [pl[1] for pl in runs["plans"]]
     data = got["data"]
     ours = stitch.stitch_tapes(tape, data, run_tables)
-    ref = stitch_dev.stitch_device(fin_j, runs["data_dev"], run_tables)
+    ref = [runs["stitch"][k] for k in "kabc"]
     fill = (constants.K_END, 0, 0, 0)
     for name, o, r, f in zip("kabc", ours[:4], ref[:4], fill):
         o, r = o.numpy(), np.asarray(r)
@@ -181,6 +212,7 @@ def m3():
 
 
 def test_snapshot_prices_equal_csc_tpus():
+    from csc_tpu.ops import parse_ap as jap
     want = jap.snapshot_prices(1)
     got = prices.snapshot_prices()
     assert set(got) == set(want)
@@ -210,3 +242,11 @@ def test_m3_cases_reach_each_mechanism(m3):
 
 def test_m3_stitch_matches_stitch_device(m3):
     check_stitch(m3)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("level", [3, 4, 5])
+def test_fixture_matches_live_reference(level):
+    """The stored csc_tpu states and stitch are what csc_tpu's optimal
+    parse makes of the cases today."""
+    fixture.check_live(f"parse_ap_m{level}")

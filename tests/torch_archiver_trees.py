@@ -74,7 +74,8 @@ def listing(stdout):
 
 def archive_both(tmp_path, monkeypatch, files, port_argv, env,
                  fallbacks=0):
-    """The port's `a --backend=cpu` and csc_tpu's `a --backend=tpu` (under
+    """The port's `a --backend=cpu` (K3 and K1 through their g++ builds,
+    torch_ring_cases.gxx_k1_k3) and csc_tpu's `a --backend=tpu` (under
     the environment `env`) of one tree with the same options; returns
     (the port's archive path, its bytes, csc_tpu's bytes).  csc_tpu's
     run must hand `fallbacks` tasks to its golden encoder (none by
@@ -82,7 +83,10 @@ def archive_both(tmp_path, monkeypatch, files, port_argv, env,
     from csc_tpu.archiver import csarc as j_csarc
     from csc_tpu.ops import pipeline as j_pipeline
     from csc_tpu_torch.archiver import csarc
+    import torch_ring_cases as ring
 
+    (tmp_path / "gxx").mkdir()
+    ring.gxx_k1_k3(monkeypatch, tmp_path / "gxx")
     src = tmp_path / "src"
     make_tree(str(src), files)
     ours, ref = str(tmp_path / "ours.csa"), str(tmp_path / "ref.csa")

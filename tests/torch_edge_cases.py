@@ -667,3 +667,83 @@ def exact_ap_cases(level):
                  0, 5, 12000) + 97).astype(np.uint8).tobytes()),
              ("entropy_lz", p(), ten + text[20000:24000])]
     return cases + exact_nolz_cases(level)
+
+
+def _letters(n, seed, base=97):
+    return (np.random.default_rng(seed).integers(0, 26, n)
+            + base).astype(np.uint8).tobytes()
+
+
+BT_SMALL = 4096    # a bt_size below the stream (past a 16 MB dictionary)
+
+
+def _bt_props(bt_size=None, filters=False):
+    q = props.props_init(64 * 1024, 5)
+    if not filters:
+        q.DLTFilter = q.EXEFilter = q.TXTFilter = 0
+    if bt_size:
+        q.bt_size = bt_size
+    return q
+
+
+def exact_bt_cases():
+    """(name, props, data) streams for the exact optimal parse of m5 with
+    golden's binary-tree finder (K6's tree: csrc/encode_k5.cuh `BT`,
+    encode_k6.cuh; the plain version ops/exact_ap_scan.py), the m5
+    preset of a 64 KB dictionary, each driving a mechanism the plain
+    version counts (`stats`):
+
+      text      8 KB of torch source: tree walks of many steps, their
+                records, lengths 34-47 priced past the length cache
+                (`long_lengths`), the distance gate
+      repeat    a 3 000-byte block twice: good_len exits of the walk in a
+                find and in the slide's insertions, a slide long enough
+                for its stride-4 part
+      cap       copies of ever longer prefixes of a phrase, newest
+                shortest, then the phrase: a walk that records more than
+                find_match's 30 slots hold (`cand_cap`)
+      wrap      12 000 letters under a bt_size of 4 096: a phrase whose
+                three-byte hash was taken since, found by the head
+                candidate beyond the tree's range; bt_pos wrapping after
+                a find (golden completes this stream)
+      wrap_bad  text, 8 KB of random bytes (DT_BAD) and text and the
+                random bytes again, under a bt_size of 4 096, filters
+                on: the sparse insertion zeroes links of slots the text
+                before it used, and the finds in the second copy walk
+                them
+      bad, entropy, dlt, dup_skip, chunks
+                exact_nolz_cases': the sparse insertion (links zeroed,
+                the head set) and a duplicate-block probe hit at the
+                tree's head
+    """
+    text = corpus.torch_python_text(256 * 1024)
+    phrase = _letters(100, 5, 65)
+    r = _letters(12000, 7)
+    wrap = (r[:1000] + phrase + r[1100:5000] + phrase[:3] + r[5003:9000]
+            + phrase + r[9100:])
+    t = _letters(60, 11, 65)
+    fill = _letters(800, 12)
+    cap = b"".join(t[:k] + b"#" + fill[k * 20:k * 20 + 20]
+                   for k in range(40, 5, -1)) + t + fill[:50]
+    block = text[60000:63000]
+    rnd = np.random.default_rng(41).integers(0, 256, 8192,
+                                              dtype=np.uint8).tobytes()
+    return [("text", _bt_props(), text[100000:108000]),
+            ("repeat", _bt_props(), block + block + text[63000:64000]),
+            ("cap", _bt_props(), cap),
+            ("wrap", _bt_props(BT_SMALL), wrap),
+            ("wrap_bad", _bt_props(BT_SMALL, filters=True),
+             text[150000:155000] + rnd + text[160000:160600] + rnd
+             + text[170000:170300])] + exact_nolz_cases(5)
+
+
+def bt_fault_case():
+    """(name, props, data): the stream on which golden's binary tree
+    raises IndexError (mf.py:359), a bt_size of 4 096: a 100-byte repeat
+    ends at offset bt_size, so its slide's last insertion leaves bt_pos
+    at bt_size, unwrapped, and the next find indexes link 2 * bt_size."""
+    phrase = _letters(100, 5, 65)
+    r = _letters(6000, 7)
+    return ("fault", _bt_props(BT_SMALL),
+            r[:2000] + phrase + r[2100:BT_SMALL - 100] + phrase
+            + r[BT_SMALL:])

@@ -172,13 +172,24 @@ def use_host_builds(monkeypatch, builds, kernels=("k1", "k3", "k5")):
                             lambda *a: k5_host(k5, *a))
 
 
-def memo_kernels(monkeypatch):
-    """Make the pipeline's K5 and K3 give a call on inputs they have seen
-    that call's outputs (their outputs depend on their inputs alone), so a
-    test can drive one stream through several entry points for the cost
-    of one parse; returns the list of the calls that ran."""
+def gxx_k1_k3(monkeypatch, tmp):
+    """The pipeline's K1 and K3 on CPU tensors through their g++ builds
+    (made in tmp), for a test whose subject is another stage:
+    test_torch_kernel_host.py, test_torch_k3_edges.py and
+    test_torch_encode_kernel_host.py hold the builds to the plain
+    versions, which take minutes on these streams."""
+    k1, k3 = host_builds(tmp, ("k1", "k3"))
+    use_host_builds(monkeypatch, (k1, k3, None), ("k1", "k3"))
+
+
+def memo_kernels(monkeypatch, names=("parse_k5", "code_k3")):
+    """Make the pipeline's kernels `names` (K5 and K3 by default) give a
+    call on inputs they have seen that call's outputs (their outputs
+    depend on their inputs alone), so a test can drive one stream through
+    several entry points for the cost of one parse; returns the list of
+    the calls that ran."""
     ran = []
-    for name in ("parse_k5", "code_k3"):
+    for name in names:
         real, cache = getattr(pipeline, name), {}
 
         def call(*args, _real=real, _cache=cache, _name=name):
