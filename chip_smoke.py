@@ -11,15 +11,16 @@ Phases, each printing its own line; the first failure raises:
                      registers (K5's of each of its two kernels), stack
                      frame, LDL / STL counts (SASS), K1's blocks per SM
                      and K4's, K5's and K6's shared memory a block and
-                     blocks per SM (K6's of each of its two kernels, the
-                     hash chains' and m5's binary tree's); it fails
-                     unless each of K1-K6 (both of K6's kernels) has a
-                     0-byte stack frame and no LDL / STL, K1
+                     blocks per SM (K6's of each of its four kernels:
+                     the hash chains' and m5's binary tree's, each for
+                     streams their dictionary covers and for the ring);
+                     it fails unless each of K1-K6 (all of K6's kernels)
+                     has a 0-byte stack frame and no LDL / STL, K1
                      holds two blocks an SM, K4 four or more of 16 KB,
                      K5 eight or more and each K6 kernel four or more;
-                     K5's phase-clock
-                     build (-DK5_PHASES, csc_tpu_torch/k5_phases.py)
-                     alongside
+                     K5's and K6's phase-clock builds (-DK5_PHASES,
+                     -DK6_PHASES; csc_tpu_torch/k5_phases.py,
+                     k6_phases.py) alongside
   3. corpus          text = this machine's torch/**/*.py, exe = torch/lib/
                      libc10.so, plus seeded random / DLT data
   4. headline        the decode main path: decode_batch of 128 x 16 KB m1
@@ -51,7 +52,10 @@ Phases, each printing its own line; the first failure raises:
                      k3, remux), K6 / K3 times, a round trip through K1,
                      the fast parse's (K4) ratio on the same streams;
                      K6's g++ build (csrc/encode_k6_host.cpp) against K6
-                     on the first whole 1 MB task stream (k6_host)
+                     on the first whole 1 MB task stream (k6_host); at
+                     m3, m5 and the m5 task K6's phase-clock build on the
+                     same inputs, its outputs equal to K6's and its split
+                     of block 0's cycles (k6_phases)
   8. extract         one archiver extract group: 256 x 1 MB m1 text
   9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
                      --parse exact` then `d` on it, and `d` of the first
@@ -78,6 +82,17 @@ Phases, each printing its own line; the first failure raises:
                      K1; K6 on the stream's inputs timed and held to its
                      g++ build on every field, block types included
   9a4. cli_big_m5    the same at m5 (`c -m5`: K6's binary-tree kernel)
+  9a5. cli_ring_ap   `c -m3 -d 1m` and `c -m5 -d 1m` of phase 9a's file
+                     (the ring wraps four times): K6's ring kernels; `d`
+                     of the m3 file restoring it through K1; at m5
+                     golden's tree raises IndexError past bt_size where a
+                     lap ends in a match, so `c` either writes a file
+                     that decodes or raises EncodeError naming the stream
+                     (ERR_BT); K6 on each stream's inputs held to its g++
+                     build on every field, and on a prefix of those
+                     inputs (about 1.1 MB; at m5 past golden's fault,
+                     which it reaches at the whole stream's token) timed,
+                     its plain version's job in phase 12
   9b. archiver       csarc on a tree built here (the first 1 000 .py
                      files of torch under torch/, libc10.so, 3 MB of
                      seeded random bytes and a 2 MB DLT ramp past the 1
@@ -101,9 +116,11 @@ Phases, each printing its own line; the first failure raises:
                      text and EXE streams at m3 and, exactly, at m3 and
                      m5, its text streams exactly at m1 and m2):
                      the candidates on the card equal those on the CPU;
-                     K2, K4, K5 or K6, the stitch and K3 equal their plain
+                     K2, K4, K5 or K6 and the stitch equal their plain
                      versions (on the card's inputs; K6's runs on the
-                     host)
+                     host), and K3 its plain version on the card in the
+                     m3 group, on the host CPU in phase 12's workers in
+                     the others (started as each group ends)
  11. parity          K1 against its plain version (on the card) on the
                      parity batch, a corrupted stream among them
  12. plain           each kernel against its plain version on the first
@@ -114,7 +131,14 @@ Phases, each printing its own line; the first failure raises:
                      field; torch_edge_cases), and K5 against its g++
                      build (csrc/encode_k5_host.cpp) on the first 8
                      whole streams of its m1 cell; K6 on the first 4
-                     streams of its m3 and m5 cells
+                     streams of its m3 and m5 cells, and its ring
+                     kernels on the ring's edge streams
+                     (torch_edge_cases.exact_ap_ring_cases(3),
+                     exact_bt_ring_cases(): golden's IndexError stream
+                     among them, ERR_BT), in one batch past 64 KB and
+                     those of at most 64 KB in a staged batch, and on
+                     phase 9a5's prefixes at m3 and m5; K3 on the
+                     parity groups of phase 10 but m3
  13. spikes          the spike probes' main path, `python -m
                      csc_tpu_torch.spikes` (every probe of tools/spike_*.py
                      timed in layouts a and b), then every probe in both
@@ -125,7 +149,7 @@ Phases, each printing its own line; the first failure raises:
                      position and per lockstep micro-op; K6: per
                      position)
 Every count of launches is read around a main-path run (phases 4-9b2,
-13).
+13; K6's ring kernels: 9a5).
 Phase 12's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each, at a lower priority than
 the main process), started once phases 4-9
@@ -153,9 +177,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 sys.path.insert(1, os.path.join(ROOT, "tests"))
 
-from csc_tpu_torch import _build, corpus, k5_phases, spikes  # noqa: E402
+from csc_tpu_torch import (_build, corpus, k5_phases, k6_phases,  # noqa: E402
+                           spikes)
 from csc_tpu_torch.archiver import csarc, index  # noqa: E402
 from csc_tpu_torch.constants import (DT_NO_LZ, DT_NORMAL, K_END,  # noqa: E402
+                                     K_LIT, K_MATCH, K_REP, K_REP0L1,
                                      K_SENT_A)
 from csc_tpu_torch.ops import (bits_kernel, bits_scan, decode_kernel,  # noqa: E402
                                decode_scan, encode_host, exact_ap_kernel,
@@ -168,7 +194,8 @@ from csc_tpu_torch.props import props_init, write_properties  # noqa: E402
 from csc_tpu_torch.spikes import __main__ as spike_main  # noqa: E402
 from csc_tpu_torch.spikes import _probe  # noqa: E402
 import torch_edge_cases  # noqa: E402
-from test_torch_exact_ap_host import build_k6_host, k6_host  # noqa: E402
+from test_torch_exact_ap_host import (build_k6_host, k6_args,  # noqa: E402
+                                      k6_host)
 from test_torch_exact_host import build_k5_host, k5_host  # noqa: E402
 from test_torch_parse_ap_host import build_k4_host, k4_host  # noqa: E402
 from torch_archiver_trees import listing, run_in, tree_bytes  # noqa: E402
@@ -188,13 +215,6 @@ K5_PLAIN_STEPS, K5_HOST_STREAMS = 40_000, 8
 PLAIN_WAIT_S = 600                    # the plain workers' deadline
 GROUP_SLICES, GROUP_REPEAT, GROUP_BYTES = 4, 64, MB   # one extract group
 CLI_BYTES, CLI_DICT = MB, 256 * KB
-# phase 9a's file past the 1 MB cap (about 4.5 MB, over two 2 MB raw
-# chunks): torch text, a libc10.so slice, random bytes, a DLT ramp and a
-# random block repeated after some text; every part a whole number of 8
-# KB blocks
-BIG_TEXT, BIG_EXE, BIG_RANDOM, BIG_RAMP = 2560 * KB, 640 * KB, 512 * KB, \
-    256 * KB
-BIG_GAP, BIG_TAIL = 64 * KB, 512 * KB
 # the archiver tree: torch's first .py files, and random bytes and a DLT
 # ramp over the 1 MB task cap, so that autosplit runs
 ARC_PY_FILES, ARC_RANDOM, ARC_RAMP = 1000, 3 * MB, 2 * MB
@@ -202,6 +222,9 @@ ARC_WAIT_S = 300                      # the two archiver processes' deadline
 # cli_ring's -d: its dictionary is 1 MB + 10 KB, four wraps of phase 9a's
 # file off the 8 KB grid
 RING_D = "1m"
+# cli_ring_ap's plain jobs: a prefix of its stream past the ring's first
+# wrap (and at m5 past golden's fault) by this many bytes
+RING_PAST = 96 * KB
 # arc_many's tree: files of 64 bytes with names of about 40 characters,
 # enough for an index past the trailer's 266 KB dictionary
 ARC_MANY_FILES, ARC_MANY_BYTES = 4096, 64
@@ -470,14 +493,16 @@ def drop_inputs(cell):
 
 
 # ---------------------------------------------------------- phase 10 parts
-def encode_parity(props, plans, idxs, dev):
+def encode_parity(props, plans, idxs, dev, tag, k3_jobs=None):
     """One preset group of the parity batch through encode_group, its
     stages held to their counterparts on the same inputs: the candidates
     (of K2 and K4) and the stitch on the CPU, the parse kernel (K2, K4
-    or, for exact plans, K5 or K6) and K3 against their plain versions
-    on the card's inputs.  Returns (streams, the parse kernel, fields
-    compared, max abs difference, plain seconds of the parse kernel and of
-    K3)."""
+    or, for exact plans, K5 or K6) against its plain version on the
+    card's inputs, and K3 against its plain version there too, or, given
+    a list k3_jobs, in a job appended to it (`tag`) that phase 12's
+    workers run on the host CPU.  Returns (streams, the parse kernel,
+    fields compared, max abs difference, plain seconds of the parse kernel
+    and of K3 on the card, 0 for a job)."""
     p0 = props[idxs[0]]
     stages = Stages()
     outs = pipeline.encode_group(props, plans, idxs, dev, on_stage=stages)
@@ -501,10 +526,16 @@ def encode_parity(props, plans, idxs, dev):
     for name, g, w in zip("kabc", v["k3_args"][:4], ref[:4]):
         d = max_diff(g, w)
         check(d == 0, f"encode parity: stitched tape {name} differs")
-    t0 = sync_time()
-    want = bits_scan.bits_plain(*v["k3_args"])
-    k3_plain_s = sync_time() - t0
-    err = max(err, compare("encode parity", "K3", v["k3_out"], want))
+    k3_plain_s = 0.0
+    if k3_jobs is None:
+        t0 = sync_time()
+        want = bits_scan.bits_plain(*v["k3_args"])
+        k3_plain_s = sync_time() - t0
+        err = max(err, compare("encode parity", "K3", v["k3_out"], want))
+    else:
+        k3_jobs.append(dict(tag=f"parity {tag}", kernel="K3",
+                            streams=len(idxs), args=to_cpu(v["k3_args"]),
+                            kernel_out=to_cpu(v["k3_out"]), kernel_ms=None))
     nfields = fast + len(FIELDS[kernel]) + 4 + len(FIELDS["K3"])
     return outs, kernel, nfields, err, parse_plain_s, k3_plain_s
 
@@ -542,11 +573,12 @@ def ring_plain_job(dev):
 
 
 # ---------------------------------------------------------- phase 12 parts
-def start_plain(jobs, sdir):
-    """One worker process a job, all started together, on the CPU."""
+def start_plain(jobs, sdir, first=0):
+    """One worker process a job, all started together, on the CPU (the
+    jobs' files numbered from `first`)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     procs = []
-    for i, job in enumerate(jobs):
+    for i, job in enumerate(jobs, first):
         path = os.path.join(sdir, f"plain_{i}.pt")
         torch.save({"kernel": job["kernel"], "args": job["args"]}, path)
         with open(path + ".log", "w") as log:
@@ -581,7 +613,8 @@ def finish_plain(jobs, procs):
               streams=job["streams"], fields_compared=len(FIELDS[job[
                   "kernel"]]), max_abs_err=d,
               plain_cpu_s=f"{res['seconds']:.3f}",
-              kernel_ms=f"{job['kernel_ms']:.3f}")
+              **({} if job["kernel_ms"] is None else
+                 {"kernel_ms": f"{job['kernel_ms']:.3f}"}))
     return err
 
 
@@ -601,19 +634,11 @@ def plain_worker(path):
 
 # ---------------------------------------------------------- phase 9a parts
 def big_file(text, exe):
-    """Phase 9a's file: torch text, a libc10.so slice, seeded random
+    """Phase 9a's file past the 1 MB cap (about 4.5 MB, over two 2 MB raw
+    chunks), corpus.big_file: torch text, a libc10.so slice, random
     bytes, a DLT ramp, a random 8 KB block, text, the same block again
     (the duplicate-block probe re-types it DT_NORMAL) and text."""
-    rng = np.random.default_rng(SEED + 9)
-    block = rng.integers(0, 256, 8 * KB, dtype=np.uint8).tobytes()
-    o = BIG_TEXT
-    parts = [text[:o], exe[len(exe) // 3:len(exe) // 3 + BIG_EXE],
-             rng.integers(0, 256, BIG_RANDOM, dtype=np.uint8).tobytes(),
-             corpus.dlt_ramp(BIG_RAMP), block, text[o:o + BIG_GAP], block,
-             text[o + BIG_GAP:o + BIG_GAP + BIG_TAIL]]
-    check(all(len(x) % (8 * KB) == 0 for x in parts),
-          "cli_big: a part is not a whole number of 8 KB blocks")
-    return b"".join(parts)
+    return corpus.big_file(text, exe, SEED + 9)
 
 
 def cli_big_phase(dev, data, sdir, k5_lib):
@@ -742,11 +767,14 @@ def cli_big_ap_phase(dev, data, sdir, k6_lib, level):
           f"{tag}: the staged encode differs from the CLI's")
     v = stages.values
     args, out = v["k6_args"], v["k6_out"]
-    k6_ms, again = event_ms(lambda: exact_ap_kernel.parse_k6(*args), 1)
-    compare(f"{tag} relaunch", "K6", again, out)
-    t3 = time.time()
-    host = k6_host(k6_lib, to_cpu(args))
-    gxx_s = time.time() - t3
+    with ThreadPoolExecutor(1) as pool:
+        # the g++ build on the host's CPU while the card relaunches K6
+        job = pool.submit(lambda a=to_cpu(args): (
+            time.time(), k6_host(k6_lib, a), time.time()))
+        k6_ms, again = event_ms(lambda: exact_ap_kernel.parse_k6(*args), 1)
+        compare(f"{tag} relaunch", "K6", again, out)
+        t3, host, t4 = job.result()
+    gxx_s = t4 - t3
     err = compare(f"{tag} against K6's g++ build", "K6", out,
                   [torch.from_numpy(h) for h in host])
     plan = v["plans"][0]
@@ -769,6 +797,196 @@ def cli_big_ap_phase(dev, data, sdir, k6_lib, level):
           launches_k6=launches[f"cli_c_big m{level}"], **extra)
     phase(f"{tag}_layers", **stages.ms())
     return launches, k6_ms, bnd, err
+
+
+def cli_ring_ap_phase(dev, data, sdir, k6_lib):
+    """Phase 9a5: `c -m3 -d 1m` and `c -m5 -d 1m` of `data` (phase 9a's
+    file, at sdir/big.bin: a 1 MB + 10 KB dictionary, the ring wrapping
+    four times), `d` of each file written; K6's ring kernel (at m5 its
+    tree's) on each stream's inputs held to its g++ build on every field,
+    the m3 one on the host's CPU while the m5 run goes on.  At m5
+    bt_size is the dictionary, and golden's binary tree raises IndexError
+    wherever a lap ends in a match, so `c -m5` either writes a file that
+    decodes or raises EncodeError naming the stream (err ERR_BT); either
+    way the g++ build agrees on every field.  Returns ({run: K6 ring
+    launches}, {run: K6 tree ring launches}, K6's ms on the m3 stream, its
+    bound, the max abs difference against g++)."""
+    from csc_tpu_torch import cli
+    from csc_tpu_torch.constants import ERR_BT
+    src = os.path.join(sdir, "big.bin")
+    ring, tree_ring, res, host, jobs = {}, {}, {}, {}, []
+    with ThreadPoolExecutor(1) as pool:
+        for level in (3, 5):
+            tag = f"cli_ring_ap m{level}"
+            enc, dst = (os.path.join(sdir, f"ring_m{level}.{x}")
+                        for x in ("csc", "out"))
+            exact_ap_kernel.LAUNCHES = parse_ap_kernel.LAUNCHES = 0
+            exact_ap_kernel.RING_LAUNCHES = 0
+            exact_ap_kernel.TREE_RING_LAUNCHES = 0
+            bits_kernel.LAUNCHES = 0
+            refused = ""
+            t0 = time.time()
+            try:
+                check(cli.main(["c", "-m", str(level), "-d", RING_D,
+                                "--backend", "cuda", src, enc]) == 0,
+                      f"{tag}: c failed")
+            except pipeline.EncodeError as e:
+                check(level == 5 and e.streams == [0]
+                      and "IndexError" in str(e),
+                      f"{tag}: c raised {e}")
+                refused = str(e)
+            t1 = time.time()
+            # the m3 / m4 ring kernel's launches, and the tree's
+            ring[f"cli_c_ring m{level}"] = (
+                exact_ap_kernel.RING_LAUNCHES
+                - exact_ap_kernel.TREE_RING_LAUNCHES)
+            tree_ring[f"cli_c_ring m{level}"] = \
+                exact_ap_kernel.TREE_RING_LAUNCHES
+            check(exact_ap_kernel.RING_LAUNCHES >= 1
+                  and parse_ap_kernel.LAUNCHES == 0
+                  and (refused or bits_kernel.LAUNCHES >= 1),
+                  f"{tag}: c did not launch K6's ring kernel (and K3)")
+            check(exact_ap_kernel.TREE_RING_LAUNCHES
+                  == (exact_ap_kernel.RING_LAUNCHES if level == 5 else 0),
+                  f"{tag}: c launched K6's tree ring kernel "
+                  f"{exact_ap_kernel.TREE_RING_LAUNCHES} times")
+            d_s = 0.0
+            if not refused:
+                decode_kernel.LAUNCHES = 0
+                check(cli.main(["d", "--backend", "cuda", enc, dst]) == 0,
+                      f"{tag}: d failed")
+                d_s = time.time() - t1
+                check(decode_kernel.LAUNCHES >= 1,
+                      f"{tag}: d did not launch K1")
+                with open(dst, "rb") as f:
+                    check(f.read() == data, f"{tag}: d restored other "
+                          f"bytes")
+            props = props_init(cli._parse_size(RING_D), level)
+            check(len(data) > 4 * props.dict_size,
+                  f"{tag}: the dictionary does not wrap four times")
+            stages = Stages()
+            try:
+                pipeline.encode_batch([props], [data], device=dev,
+                                      on_stage=stages)
+                check(not refused, f"{tag}: the staged encode finished "
+                      f"where c was refused")
+            except pipeline.EncodeError:
+                check(bool(refused), f"{tag}: the staged encode was "
+                      f"refused where c finished")
+            args, out = stages.values["k6_args"], stages.values["k6_out"]
+            check(int(out[3][0]) == (ERR_BT if refused else 0),
+                  f"{tag}: K6's err is {int(out[3][0])}")
+            host[level] = pool.submit(lambda a=to_cpu(args): (
+                time.time(), k6_host(k6_lib, a), time.time()))
+            k6_ms, again = event_ms(
+                lambda: exact_ap_kernel.parse_k6(*args), 1)
+            compare(f"{tag} relaunch", "K6", again, out)
+            ntok = int(out[1].sum())
+            res[level] = dict(
+                c_s=t1 - t0, d_s=d_s, refused=bool(refused), ms=k6_ms,
+                bound=bound(len(data) + 8 * ntok, len(data)), out=out,
+                tok=ntok, dict_size=props.dict_size,
+                compressed=0 if refused else os.path.getsize(enc))
+            jobs.append(ring_prefix_job(args, level, out, bool(refused)))
+        err = 0
+        for level in (3, 5):
+            t0, h, t1 = host[level].result()
+            r = res[level]
+            e = compare(f"cli_ring_ap m{level} against K6's g++ build",
+                        "K6", r["out"], [torch.from_numpy(x) for x in h])
+            err = max(err, e)
+            phase("cli_ring_ap", level=f"m{level}", bytes=len(data),
+                  dict_size=r["dict_size"], wraps=len(data) // r["dict_size"],
+                  c_s=f"{r['c_s']:.3f}", d_s=f"{r['d_s']:.3f}",
+                  outcome="refused: golden's IndexError (ERR_BT)"
+                  if r["refused"] else "written, K1 byte-exact",
+                  compressed=r["compressed"], k6_ms=f"{r['ms']:.3f}",
+                  k6_bound_ms=f"{r['bound'][0]:.6f}",
+                  ns_per_position=f"{r['ms'] * 1e6 / len(data):.1f}",
+                  tokens=r["tok"], err=int(r["out"][3][0]),
+                  gxx_s=f"{t1 - t0:.2f}", gxx_max_abs_err=e,
+                  launches_k6_ring=ring[f"cli_c_ring m{level}"],
+                  launches_k6_tree_ring=tree_ring[f"cli_c_ring m{level}"],
+                  plain_prefix_bytes=jobs[(level - 3) // 2]["bytes"])
+    check(sum(ring.values()) >= 1 and sum(tree_ring.values()) >= 1,
+          "cli_ring_ap: a K6 ring kernel was not launched")
+    return ring, tree_ring, res[3]["ms"], res[3]["bound"], err, jobs
+
+
+def tape_bytes(tape):
+    """The input bytes that a K6 tape's literals, matches and reps cover
+    (tape [T, 2] of (kind | wire_len << 3, dist_code))."""
+    kind, wire = tape[:, 0] & 7, tape[:, 0] >> 3
+    one = (kind == K_LIT) | (kind == K_REP0L1)
+    long = (kind == K_MATCH) | (kind == K_REP)
+    return int(one.sum()) + int((wire[long] + 2).sum())
+
+
+def ring_prefix_job(args, level, full, refused):
+    """K6 on the card on a prefix of the inputs that phase 9a5's encode
+    handed it (args, its one stream under a 1 MB ring; full, its outputs):
+    the LZ input and block table up to the first block end RING_PAST bytes
+    past the ring's first wrap (at m5, where golden's tree raised on the
+    whole stream, past the bytes its tape covers, so that the prefix ends
+    past the fault).  Its time and outputs, and the job that holds every
+    field to its plain version (on the host CPU) in phase 12.  At m5 the
+    prefix reaches golden's IndexError at the whole stream's token, its
+    tokens up to there the whole stream's; at m3 it parses the prefix
+    through."""
+    from csc_tpu_torch.constants import ERR_BT
+    tag = f"cli_ring_ap m{level} prefix"
+    data, blocks, sizes, dicts = args[:4]
+    dict_size, tok = int(dicts[0]), int(full[1][0])
+    least = dict_size + RING_PAST
+    if refused:
+        least = max(least, tape_bytes(full[0][0, :tok].cpu()) + RING_PAST)
+    ends = blocks[0, :, 0].contiguous()
+    k = min(int(torch.searchsorted(ends, least)), ends.shape[0] - 1)
+    n = int(ends[k])
+    check(n > dict_size, f"{tag}: the stream does not wrap")
+    check(exact_ap_kernel.smem_bytes(n) < n, f"{tag}: the prefix is staged")
+    pre = (data[:, :n].contiguous(), blocks[:, :k + 1].contiguous(),
+           torch.full_like(sizes, n), dicts) + tuple(args[4:7]) + (
+        parse_scan.tape_capacity(n, k + 1),) + tuple(args[8:])
+    ms, out = event_ms(lambda: exact_ap_kernel.parse_k6(*pre), 1)
+    if refused:
+        check(int(out[3][0]) == ERR_BT and int(out[1][0]) == tok
+              and torch.equal(out[0][0, :tok], full[0][0, :tok]),
+              f"{tag}: the prefix did not fault at the whole stream's "
+              f"token {tok} (err {int(out[3][0])}, {int(out[1][0])} "
+              f"tokens)")
+    else:
+        check(int(out[2][0]) == 1 and int(out[3][0]) == 0,
+              f"{tag}: K6 did not parse the prefix through")
+    ntok = int(out[1][0])
+    return dict(tag=tag, kernel="K6", streams=1, args=to_cpu(pre),
+                kernel_out=to_cpu(out), kernel_ms=ms, bytes=n, tok=ntok,
+                parsed=tape_bytes(out[0][0, :ntok].cpu()),
+                dict_size=dict_size)
+
+
+def ring_ap_plain_job(dev, level, staged=False):
+    """K6 on the card on the ring's edge streams (torch_edge_cases
+    `exact_ap_ring_cases(3)`, or at m5 `exact_bt_ring_cases()`, golden's
+    IndexError stream among them; staged: those of at most 64 KB alone, a
+    batch K6 stages in shared memory): its time and outputs, and the job
+    that holds every field to its plain version (on the host CPU) in
+    phase 12."""
+    cases = (torch_edge_cases.exact_bt_ring_cases() if level == 5
+             else torch_edge_cases.exact_ap_ring_cases(level))
+    if staged:
+        cases = [c for c in cases if len(c[2]) <= 64 * KB]
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a
+                 for a in k6_args(cases))
+    n = args[0].shape[1]
+    check((exact_ap_kernel.smem_bytes(n) >= n) == staged,
+          f"ring_ap m{level}: the batch of {n} bytes is "
+          f"{'not ' * staged}staged")
+    ms, out = event_ms(lambda: exact_ap_kernel.parse_k6(*args), 3)
+    return dict(tag=f"ring_ap m{level}" + " staged" * staged, kernel="K6",
+                streams=len(cases), args=to_cpu(args), kernel_out=to_cpu(out),
+                kernel_ms=ms, bytes=sum(len(c[2]) for c in cases),
+                tok=int(out[1].sum()))
 
 
 def cli_ring_phase(dev, data, sdir, k5_lib, meanwhile):
@@ -1133,12 +1351,15 @@ def main(procs):
 
     # ------------------------------------------------------------- 2 build
     t0 = time.time()
-    with ThreadPoolExecutor(1) as pool:
-        # K5's phase-clock build, its nvcc beside the others
+    with ThreadPoolExecutor(2) as pool:
+        # K5's and K6's phase-clock builds, their nvcc beside the others
         k5ph = pool.submit(k5_phases.library)
+        k6ph = pool.submit(k6_phases.library)
         _build.build_kernels()
         k5ph_lib = k5ph.result()
-    phase("build", kernels=",".join(_build.KERNELS) + ",csc_k5_phases",
+        k6ph_lib = k6ph.result()
+    phase("build", kernels=",".join(_build.KERNELS)
+          + ",csc_k5_phases,csc_k6_phases",
           seconds=f"{time.time() - t0:.2f}")
     for name in _build.KERNELS:
         log = _build.build_log(name)
@@ -1171,13 +1392,19 @@ def main(procs):
         res["csc_k5"]["blocks_per_sm_" + tag] = \
             exact_kernel.blocks_per_sm(n)
         res["csc_k6"]["smem_" + tag] = exact_ap_kernel.smem_bytes(n)
-        res["csc_k6"]["blocks_per_sm_" + tag] = \
-            exact_ap_kernel.blocks_per_sm(n)
-        res["csc_k6"]["blocks_per_sm_" + tag + "_tree"] = \
-            exact_ap_kernel.blocks_per_sm(n, tree=True)
+        # K6's four kernels: covered and ring, each without and with the
+        # tree
+        for tree in (False, True):
+            for ring in (False, True):
+                res["csc_k6"]["blocks_per_sm_" + tag + "_tree" * tree
+                              + "_ring" * ring] = \
+                    exact_ap_kernel.blocks_per_sm(n, tree=tree, ring=ring)
     # and of K5's kernel for streams longer than their dictionary
     res["csc_k5"]["blocks_per_sm_1m_ring"] = exact_kernel.blocks_per_sm(
         MB, ring=True)
+    check(all(f"registers_k6_parse_kernel<{t},{r}>" in res["csc_k6"]
+              for t in (0, 1) for r in (0, 1)),
+          "K6's build report does not name its four kernels")
     for name, r in res.items():
         phase("resources", kernel=name, **r)
     check(res["csc_k1"]["blocks_per_sm"] == 2,
@@ -1188,7 +1415,8 @@ def main(procs):
     check(res["csc_k5"]["blocks_per_sm_16k"] >= 8,
           f"K5 holds {res['csc_k5']['blocks_per_sm_16k']} blocks of 16 KB "
           f"streams per SM, not 8 or more")
-    for key in ("blocks_per_sm_16k", "blocks_per_sm_16k_tree"):
+    for key in ("blocks_per_sm_16k", "blocks_per_sm_16k_tree",
+                "blocks_per_sm_16k_ring", "blocks_per_sm_16k_tree_ring"):
         check(res["csc_k6"][key] >= 4,
               f"K6 holds {res['csc_k6'][key]} blocks of 16 KB streams per "
               f"SM ({key}), not 4 or more")
@@ -1432,6 +1660,7 @@ def main(procs):
     # device memory), beside the fast parse's (K4) streams of the same
     # inputs; K6's g++ build on the m3 task's first whole 1 MB stream
     k6_lib = build_k6_host(pathlib.Path(sdir))
+    k6_phases_err = 0
     for name, level, datas, reps in (("m3", 3, ed, 3), ("m4", 4, ed, 3),
                                      ("m5", 5, ed, 3), ("task", 3, group, 1),
                                      ("task m5", 5, group, 1)):
@@ -1448,6 +1677,20 @@ def main(procs):
             jobs.append(plain_job(tag, "K6", cell["parse_args"], 3))
             same_rows(tag, "K6", cell["parse_out"], jobs[-1]["kernel_out"],
                       PLAIN_STREAMS["K6"])
+        if name in ("m3", "m5", "task m5"):
+            # K6's phase-clock build (-DK6_PHASES) parses alike; its
+            # launch counts in no main path
+            ph_out, ph = k6_phases.run(k6ph_lib, cell["parse_args"])
+            k6_phases_err = max(k6_phases_err, compare(
+                f"{tag} against K6's phase-clock build", "K6", ph_out,
+                cell["parse_out"]))
+            split = k6_phases.summary(cell["parse_args"], ph_out, ph)
+            phase("k6_phases", cell=name, max_abs_err=k6_phases_err,
+                  block0_cycles=split["cycles"],
+                  cycles_per_position=split["cycles_per_position"],
+                  **split["counts"],
+                  **{k: f"{c:.4f}" for k, c in split["share"].items()})
+            del ph_out
         if name == "task":
             t0 = time.time()
             host = k6_host(k6_lib, to_cpu(first_args(cell["parse_args"], 1,
@@ -1602,6 +1845,12 @@ def main(procs):
         dev, big, sdir, k6_lib, 5)
     phase("cli_big_m5_done", seconds=f"{time.time() - t0:.1f}")
 
+    # ------------------------------------------------------ 9a5 cli_ring_ap
+    t0 = time.time()
+    ring_ap_launches, tree_ring_launches, ring_ap_ms, ring_ap_bound, \
+        ring_ap_err, ring_ap_jobs = cli_ring_ap_phase(dev, big, sdir, k6_lib)
+    phase("cli_ring_ap_done", seconds=f"{time.time() - t0:.1f}")
+
     # ---------------------------------------------------------- 9b archiver
     t0 = time.time()
     arc_launches = archiver_phase(dev, "cuda", hd[:MESH_STREAMS])
@@ -1610,6 +1859,9 @@ def main(procs):
     # --------------------------- 12 plain (workers on the CPU) start here
     jobs += k3_edge_jobs(dev)
     jobs.append(ring_plain_job(dev))
+    jobs += [ring_ap_plain_job(dev, level, staged) for level in (3, 5)
+             for staged in (False, True)]
+    jobs += ring_ap_jobs
     procs.extend(start_plain(jobs, sdir))
     phase("plain_start", workers=len(procs),
           jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
@@ -1624,19 +1876,30 @@ def main(procs):
     par_blobs = [None] * len(par)
     max_err = 0
     plain_card_s = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+
+    def to_workers(new):
+        """Start phase 12's workers on the jobs of a parity group (K3
+        against its plain version on the host CPU, beside the card's plain
+        versions here)."""
+        procs.extend(start_plain(new, sdir, len(jobs)))
+        jobs.extend(new)
+        phase("plain_start", workers=len(procs), jobs=",".join(
+            f"{j['kernel']}:{j['tag'].replace(' ', '_')}" for j in new))
+
     for level in (1, 2):
         idxs = [i for i, p in enumerate(props)
                 if (p.hash_width == 1) == (level == 1)]
-        outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
-            props, plans, idxs, dev)
+        k3_jobs = []
+        outs, parse, nf, err, p_plain_s, _ = encode_parity(
+            props, plans, idxs, dev, f"m{level}", k3_jobs)
+        to_workers(k3_jobs)
         for i, out in zip(idxs, outs):
             par_blobs[i] = out
         max_err = max(max_err, err)
         plain_card_s[parse] += p_plain_s
-        plain_card_s["K3"] += k3_plain_s
         phase("encode_parity", level=f"m{level}", streams=len(idxs),
               fields_compared=nf, max_abs_err=err,
-              k2_plain_s=f"{p_plain_s:.3f}", k3_plain_s=f"{k3_plain_s:.3f}")
+              k2_plain_s=f"{p_plain_s:.3f}", k3_plain="phase 12 (host CPU)")
     # the batch's text and EXE streams at m3: K4 against its plain version
     ap_props = []
     for _, p, _ in par[:3]:
@@ -1647,7 +1910,7 @@ def main(procs):
     ap_plans = [encode_host.plan_stream(q, d)
                 for q, (_, _, d) in zip(ap_props, par[:3])]
     outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
-        ap_props, ap_plans, [0, 1, 2], dev)
+        ap_props, ap_plans, [0, 1, 2], dev, "m3")
     check(parse == "K4", "parity m3: the group did not run K4")
     back = pipeline.decode_batch(ap_props, outs, device=dev)
     check(back == [c[2] for c in par[:3]], "parity m3: the round trip "
@@ -1674,8 +1937,11 @@ def main(procs):
             x_props.append(q)
         x_plans = pipeline.plan_streams(x_props, [c[2] for c in xs],
                                         "exact")
-        outs, parse, nf, err, p_plain_s, k3_plain_s = encode_parity(
-            x_props, x_plans, list(range(len(xs))), dev)
+        k3_jobs = []
+        outs, parse, nf, err, p_plain_s, _ = encode_parity(
+            x_props, x_plans, list(range(len(xs))), dev, f"m{level} exact",
+            k3_jobs)
+        to_workers(k3_jobs)
         want_k = "K6" if level >= 3 else "K5"
         check(parse == want_k, f"parity exact m{level}: the group did not "
               f"run {want_k}")
@@ -1684,11 +1950,10 @@ def main(procs):
               f"the round trip through K1 differs")
         max_err = max(max_err, err)
         plain_card_s["K6 tree" if level == 5 else want_k] += p_plain_s
-        plain_card_s["K3"] += k3_plain_s
         phase("encode_parity", level=f"m{level} exact", streams=len(xs),
               fields_compared=nf, max_abs_err=err,
               **{f"{want_k.lower()}_plain_s": f"{p_plain_s:.3f}"},
-              k3_plain_s=f"{k3_plain_s:.3f}")
+              k3_plain="phase 12 (host CPU)")
 
     # ----------------------------------------------------------- 11 parity
     par_blobs[-1] = corpus.flip(par_blobs[-1])
@@ -1740,7 +2005,8 @@ def main(procs):
     # ------------------------------------------------------------ 12 plain
     max_err = max(max_err, finish_plain(jobs, procs), k5_host_err,
                   k5_phases_err, k5_task_err, k4_host_err, big_err,
-                  ring_err, k6_task_err, big_m3_err, big_m5_err)
+                  ring_err, k6_task_err, big_m3_err, big_m5_err,
+                  k6_phases_err, ring_ap_err)
     m1, m3 = cells["encode_headline m1"], cells["encode_ap m3"]
     x1 = cells["encode_exact m1"]
     xa3, xa4 = cells["encode_exact_ap m3"], cells["encode_exact_ap m4"]
@@ -1768,7 +2034,9 @@ def main(procs):
             if n:
                 launches[kernel][run] = n
     card_on = {"K1": "the parity batch", "K2": "the m1 + m2 parity groups",
-               "K3": "the m1 + m2 + m3 + exact m1 + m2 + m3 parity groups",
+               "K3": "the m3 parity group (the other groups' K3 runs "
+                     "against its plain version on the host CPU, phase "
+                     "12)",
                "K4": "the m3 parity group (the batch's text and EXE "
                      "streams)",
                "K5": "the exact m1 + m2 parity groups (the batch's two "
@@ -1949,12 +2217,13 @@ def main(procs):
              bound_ms_past_cap=round(big_k6_bound[0], 6),
              past_cap_on="phase 9a's ~4.5 MB file at m3, one stream"),
         dict(row("K6", "K6 exact optimal parse of m5 with golden's "
-                 "binary-tree finder (k6_parse_kernel<true>: K6's parse "
-                 "with the tree in the HT6 row's place, its walk one "
-                 "dependent chain of link loads on the warp, each "
-                 "compare spread over the lanes, lane 0 re-linking the "
-                 "position; lengths 2-47 two a lane; the head and links "
-                 "in device memory)", "csc_tpu_torch/csrc/encode_k6.cu",
+                 "binary-tree finder (k6_parse_kernel<1,0>: K6's parse "
+                 "with the tree in the HT6 row's place; a walk step one "
+                 "load of the node's two links, started before the byte at "
+                 "clen decides it, the warp extending only an equal one, "
+                 "the head loaded a find ahead and an insertion pass's "
+                 "heads at once; lengths 2-47 two a lane; the head and "
+                 "links in device memory)", "csc_tpu_torch/csrc/encode_k6.cu",
                  "csc_tpu/ops/pipeline.py:248 (no TPU kernel: csc_tpu "
                  "codes m5 under the exact parse and past its cap with its "
                  "golden host encoder)", xa5["parse_ms"],
@@ -1967,9 +2236,61 @@ def main(procs):
              ms_past_cap=round(big_m5_ms, 4),
              bound_ms_past_cap=round(big_m5_bound[0], 6),
              past_cap_on="phase 9a's ~4.5 MB file at m5, one stream"),
+        ring_row("K6 ring", "K6 exact optimal parse of m3/m4 past the "
+                 "dictionary (k6_parse_kernel<0,1>: golden's ring window, "
+                 "K5's ring rules and the literal price's context 0 at "
+                 "ring position 0; a kernel of its own beside the covered "
+                 "streams')", plain, 3, ring_ap_launches, res, max_err,
+                 ms_past_d=round(ring_ap_ms, 4),
+                 bound_ms_past_d=round(ring_ap_bound[0], 6),
+                 past_d_on="phase 9a5: phase 9a's file under -d 1m (a 1 MB "
+                           "+ 10 KB ring, four wraps), m3, one stream"),
+        ring_row("K6 tree ring", "K6 exact optimal parse of m5 past the "
+                 "dictionary (k6_parse_kernel<1,1>: the tree's walks "
+                 "stopped at the ring's end; golden's IndexError past "
+                 "bt_size refused as ERR_BT)", plain, 5,
+                 tree_ring_launches, res, max_err),
     ] + [spike_row(f, srows, sdetail, s_launches[f]) for f in spikes.FILES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def ring_row(name, what, plain, level, launches, res, max_err, **extra):
+    """The kernels-line row of one of K6's ring kernels: its time on the
+    prefix of phase 9a5's stream at `level` (phase 12's job; at m5 up to
+    golden's fault) beside its plain version's on the same inputs, its
+    launches on the main path (phase 9a5), and its and the plain
+    version's times on the ring's edge streams, unstaged and staged."""
+    job = plain[("K6", f"cli_ring_ap m{level} prefix")]
+    # the bytes the parse reads: at m5 up to golden's fault
+    bnd = bound(job["parsed"] + 8 * job["tok"], job["parsed"])
+    edges = {}
+    for tag in (f"ring_ap m{level}", f"ring_ap m{level} staged"):
+        e = plain[("K6", tag)]
+        key = tag.replace(" ", "_")
+        edges.update({f"ms_{key}": round(e["kernel_ms"], 4),
+                      f"plain_ms_{key}": round(e["plain_s"] * 1e3, 2),
+                      f"streams_{key}": e["streams"]})
+    return dict({"name": what, "route": "cuda",
+                 "source": "csc_tpu_torch/csrc/encode_k6.cu",
+                 "replaces": "csc_tpu/ops/pipeline.py:248 (no TPU kernel: "
+                             "csc_tpu codes these streams with its golden "
+                             "host encoder)",
+                 "launches": sum(launches.values()), "max_abs_err": max_err,
+                 "ms": round(job["kernel_ms"], 4),
+                 "plain_ms": round(job["plain_s"] * 1e3, 2),
+                 "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
+                 "library_ms": None,
+                 "ms_on": f"the first {job['bytes']} bytes of phase 9a5's "
+                          f"m{level} stream (its LZ input and blocks, under "
+                          f"a {job['dict_size']}-byte ring: past its first "
+                          f"wrap; {job['parsed']} parsed), one launch",
+                 "plain_on": "the same inputs, on one CPU core of the "
+                             "card's host",
+                 "edges_on": "torch_edge_cases' ring cases, one launch "
+                             "(staged: those of at most 64 KB)",
+                 "launches_by_path": launches, "key": name,
+                 "resources": res.get("csc_k6")}, **edges, **extra)
 
 
 def spike_row(f, srows, detail, launches):

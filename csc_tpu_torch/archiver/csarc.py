@@ -21,11 +21,13 @@ kernels K1-K6) and raise when there is none; --backend=cpu runs the
 kernels' plain versions.  --parse=exact codes every task with the exact
 parse, the reference encoder's own bytes (csc_tpu's, whose golden
 encoder takes the tasks with BAD / ENTROPY / DLT blocks at m1 / m2 and
-every task at m3-m5); the index trailer always takes it.  Where csc_tpu
-still falls back to its golden codec this archiver stops with an error:
-a task the device encode does not take (m3-m5 past a -d smaller than
-the task) ends `a` naming the task's first file, a corrupt stream ends
-`x` / `t` with "decode error" and -1.  -t is accepted and ignored, as csc_tpu's device backend ignores
+every task at m3-m5); the index trailer always takes it.  A task longer
+than its dictionary (-d smaller than the task) takes the exact parse at
+every level, golden's ring window.  Where csc_tpu still falls back to
+its golden codec this archiver stops with an error: a task golden cannot
+code either (at m5 past a -d smaller than the task, golden's binary
+tree's IndexError on most) ends `a` naming the task's first file, a
+corrupt stream ends `x` / `t` with "decode error" and -1.  -t is accepted and ignored, as csc_tpu's device backend ignores
 it.
 
 With CSC_DIST_COORD / CSC_DIST_NPROCS / CSC_DIST_PID set, the processes

@@ -12,12 +12,15 @@ reference encoder's own bytes, as csc_tpu's CLI gives them under
 CSC_ENCODE_PARSE=exact (this CLI reads no environment variable for it).
 A file over 1 MB (encode_host.MAX_ENCODE) takes the exact parse under
 the default too, as csc_tpu codes it with its golden encoder, up to 1
-GB; so does a file longer than -d at levels 1-2 (32 MB by default; the
-dictionary is clamped to the file, so only a file past -d outgrows it),
-whose window wraps as golden's ring.  Levels 3-5 take files up to the
-dictionary.
+GB; so does a file longer than -d (32 MB by default; the dictionary is
+clamped to the file, so only a file past -d outgrows it), whose window
+wraps as golden's ring, at every level.  At level 5 golden's binary tree
+faults on most such files (its IndexError past bt_size, which equals the
+dictionary up to 16 MB): c then stops with an error naming the stream,
+where golden itself has no bytes to write.
 
     python -m csc_tpu_torch.cli c -m 1 in.bin out.csc
+    python -m csc_tpu_torch.cli c -m 3 -d 1m big.bin out.csc
     python -m csc_tpu_torch.cli c -m 3 --parse exact in.bin out.csc
     python -m csc_tpu_torch.cli d out.csc back.bin
 """

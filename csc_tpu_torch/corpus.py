@@ -173,3 +173,26 @@ def flip(blob):
     b = bytearray(blob)
     b[len(b) // 2] ^= 0xFF
     return bytes(b)
+
+
+BIG_TEXT, BIG_EXE, BIG_RANDOM, BIG_RAMP = 2560 * 1024, 640 * 1024, \
+    512 * 1024, 256 * 1024
+BIG_GAP, BIG_TAIL = 64 * 1024, 512 * 1024
+
+
+def big_file(text, exe, seed):
+    """chip_smoke.py phase 9a's 4.67 MB file: torch text, a libc10.so
+    slice, seeded random bytes, a DLT ramp, a random 8 KB block, text, the
+    same block again (the duplicate-block probe re-types it DT_NORMAL)
+    and text; each part a whole number of 8 KB blocks."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(0, 256, 8 * 1024, dtype=np.uint8).tobytes()
+    o = BIG_TEXT
+    parts = [text[:o], exe[len(exe) // 3:len(exe) // 3 + BIG_EXE],
+             rng.integers(0, 256, BIG_RANDOM, dtype=np.uint8).tobytes(),
+             dlt_ramp(BIG_RAMP), block, text[o:o + BIG_GAP], block,
+             text[o + BIG_GAP:o + BIG_GAP + BIG_TAIL]]
+    if not all(len(x) % 8192 == 0 for x in parts):
+        raise ValueError("big_file: a part is not a whole number of 8 KB "
+                         "blocks (the text or exe is too short)")
+    return b"".join(parts)

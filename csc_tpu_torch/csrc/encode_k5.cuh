@@ -230,6 +230,28 @@ __device__ unsigned long long k5_phases[NPHASE];
 #define K5_COUNT(i)
 #endif
 
+// K6's phase clocks (a build with -DK6_PHASES, csc_tpu_torch/
+// k6_phases.py): block 0's SM cycles in each part of K6's parse, marked
+// here in the finder's share (the fold, the tree's walk and insertions,
+// the slide) and in encode_k6.cuh; and counts.  Otherwise nothing.
+enum K6Phase {
+    Q_FIND, Q_WALK, Q_INSERT, Q_SLIDE, Q_PRICE, Q_CELLS, Q_LIT, Q_RELAX,
+    Q_CODE, Q_OTHER, Q_MARK, Q_FINDS, Q_STEPS, Q_INSERTS, Q_ISTEPS,
+    Q_STRETCHES, K6_NPHASE
+};
+#if defined(K6_PHASES) && defined(__CUDACC__)
+__device__ unsigned long long k6_phases[K6_NPHASE];
+#endif
+#if defined(K6_PHASES) && defined(__CUDA_ARCH__)
+#define K6_PHASE(i) k6_phase(i)
+#define K6_COUNT(i)                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0)                           \
+        atomicAdd(&::k5::k6_phases[i], 1ull)
+#else
+#define K6_PHASE(i)
+#define K6_COUNT(i)
+#endif
+
 // ------------------------------------------------------------------ lanes
 // One int32 a lane.  nvcc: this lane's value; g++: all 32.
 #ifdef __CUDA_ARCH__
@@ -451,7 +473,9 @@ struct Probe {
 // golden's rule (the slide advances it past an insertion without a
 // wrap); an insertion that starts at bt_pos >= bt_size, where golden's
 // first link access raises IndexError, sets bt_bad and writes nothing.
-// A stream its dictionary covers (no RING) is the only kind with a tree.
+// With RING the tree's compares stop at the ring's end too (mf.py:164,
+// 364: a source in the previous lap, distance past the ring position r,
+// is compared over distance - r bytes at most).
 template <bool STAGED, bool NOLZ, bool RING, bool BT = false>
 struct Parser {
     Stream s;
@@ -492,6 +516,17 @@ struct Parser {
         if (blockIdx.x == 0 && threadIdx.x == 0)
             atomicAdd(&k5_phases[i], (unsigned long long)(t - mark));
         mark = t;
+    }
+#endif
+#if defined(K6_PHASES) && defined(__CUDA_ARCH__)
+    long long k6_mark;
+
+    // the cycles since the last mark go to K6's phase i
+    __device__ void k6_phase(int i) {
+        const long long t = clock64();
+        if (blockIdx.x == 0 && threadIdx.x == 0)
+            atomicAdd(&k6_phases[i], (unsigned long long)(t - k6_mark));
+        k6_mark = t;
     }
 #endif
 
@@ -601,12 +636,17 @@ struct Parser {
     // the address of HT lane l's entry of hashes h (lanes 4 .. 5 + w;
     // lane L_ROW0: the row's head)
     K5_FN int32_t* entry(const Hashes& h, int l) const {
+        if constexpr (BT) {
+            if (l == L_HT6) return bt_head + h.h6;   // the tree's head
+        }
         return own(table, l) + (l == L_HT2 ? h.h2 : l == L_HT3 ? h.h3
                                 : h.h6 * s.hash_width);
     }
 
+    // the lanes that load a table entry in a probe: HT2, HT3 and the HT6
+    // row, or with the tree its head (in L_HT6)
     K5_FN bool ht_lane(int l) const {
-        return l >= L_HT2 && l < L_HT6 + s.hash_width;
+        return l >= L_HT2 && l < L_HT6 + (BT ? 1 : s.hash_width);
     }
 
     // the window of hashes at p0 .. p0 + 31 (zeros past the sub-block)
@@ -720,38 +760,87 @@ struct Parser {
         }
     }
 
+    // the climit of a source at distance dist from ppos, limit bytes to
+    // the piece's end: in the ring, one in the previous lap (dist past
+    // the ring position) ends at the ring's end
+    K5_FN int32_t ring_limit(int32_t ppos, uint32_t dist,
+                             int32_t limit) const {
+        if constexpr (RING) {
+            const int32_t r = ppos - lap0;
+            if (dist > (uint32_t)r && dist - (uint32_t)r < (uint32_t)limit)
+                return (int32_t)dist - r;
+        }
+        return limit;
+    }
+
     // the first k in [from, lim) where the bytes at a + k and b + k
-    // differ, or lim; 32 words a compare over the warp
-    K5_FN int32_t common(int32_t a, int32_t b, int32_t from,
-                         int32_t lim) const {
+    // differ, or lim; 32 words a compare over the warp.  Where k is
+    // below lim, `at` gets the two bytes there (read from the words the
+    // compare loaded), a's in bits 0-7 and b's in bits 8-15
+    K5_FN int32_t common(int32_t a, int32_t b, int32_t from, int32_t lim,
+                         uint32_t& at) const {
         for (int32_t k0 = from; k0 < lim; k0 += 4 * WARP) {
-            const Lanes x = lanes([&](int l) -> int32_t {
+            Lanes wa, x;
+            each([&](int l) {
                 const int32_t k = k0 + 4 * l;
-                return k < lim ? (int32_t)(word(a + k) ^ word(b + k)) : 0;
+                const uint32_t u = k < lim ? word(a + k) : 0;
+                set(wa, l, (int32_t)u);
+                set(x, l, k < lim ? (int32_t)(u ^ word(b + k)) : 0);
             });
             const uint32_t m = ballot(x);
             if (m) {
                 const int32_t l = ctz32(m);
-                const int32_t k = k0 + 4 * l + eq_bytes((uint32_t)get(x, l));
+                const uint32_t xl = (uint32_t)get(x, l);
+                const int32_t e = eq_bytes(xl);
+                const int32_t k = k0 + 4 * l + e;
+                const uint32_t ba = ((uint32_t)get(wa, l) >> (8 * e)) & 0xFF;
+                at = ba | ((ba ^ ((xl >> (8 * e)) & 0xFF)) << 8);
                 return k < lim ? k : lim;
             }
         }
         return lim;
     }
 
+    // the node pair of links at tlast (left, right): one 64-bit load,
+    // started before the step's compare so that its latency overlaps it
+    K5_FN void link_pair(const int32_t* nodes, int32_t tlast, int32_t& a,
+                         int32_t& b) const {
+#ifdef __CUDA_ARCH__
+        const int2 v = *reinterpret_cast<const int2*>(nodes + tlast);
+        a = v.x;
+        b = v.y;
+#else
+        a = nodes[tlast];
+        b = nodes[tlast + 1];
+#endif
+    }
+
     // the tree walk at ppos (find: find_match's, mf.py:335-400, the
     // compare up to climit, records past minlen; else slide_pos's
     // insertion, mf.py:155-192, the compare capped at good_len), pv the
-    // position's finder value and hbt its hash; limit the bytes to the
-    // piece's end (in a stream its dictionary covers, the climit of every
-    // source).  nrec: the find's records before the tree's.  The caller
-    // has checked bt_pos < bt_size.  Sets the head.
+    // position's finder value, hbt its hash and head the head's entry as
+    // it stands (loaded ahead by the caller); limit the bytes to the
+    // piece's end (each source's climit, `ring_limit`, at most that).
+    // nrec: the find's records before the tree's.  The caller has checked
+    // bt_pos < bt_size.  Sets the head.
+    //
+    // A step is one dependent load of a node's links and a compare: the
+    // node's two links come in one load, started first; with the data in
+    // shared memory the byte at clen decides most steps (the warp extends
+    // the compare only past an equal one), from device memory the warp's
+    // compare loads it with the words after it in one round; the bytes
+    // that decide the direction come from the compare's own words; every
+    // lane keeps the walk's state and writes the links (the same value to
+    // the same word: each lane then reads what it wrote, with no
+    // __syncwarp a step).  Golden reads a link after the step's store, so
+    // a link the store just wrote is taken from it.
     K5_FN void bt_walk(bool find, int32_t ppos, int32_t limit, int32_t pv,
-                       int32_t hbt, int32_t minlen, int32_t nrec) {
+                       int32_t hbt, int32_t head, int32_t minlen,
+                       int32_t nrec) {
         const uint32_t vld = (uint32_t)vld_rge;
         const uint32_t bsz = (uint32_t)bt_size;
         const int32_t good = s.good_len;
-        uint32_t dist = (uint32_t)(pv - bt_head[hbt]);
+        uint32_t dist = (uint32_t)(pv - head);
         bn = 0;
         // a record: the k-th of the tree's in lane k, while the find's
         // slots last
@@ -770,8 +859,10 @@ struct Parser {
         if (find && dist >= bsz && dist < vld) {
             // the head beyond the tree's range: no distance limit
             const int32_t c = ppos - (int32_t)dist;
-            if (minlen < limit && byte(c + minlen) == byte(ppos + minlen)) {
-                const int32_t ml = common(ppos, c, 0, limit);
+            const int32_t lim = ring_limit(ppos, dist, limit);
+            if (minlen < lim && byte(c + minlen) == byte(ppos + minlen)) {
+                uint32_t at;
+                const int32_t ml = common(ppos, c, 0, lim, at);
                 if (ml > minlen) {
                     minlen = ml;
                     if (ml > 6 || dist < (uint32_t)dist_bound(ml)) record(ml);
@@ -782,53 +873,68 @@ struct Parser {
         int32_t* nodes = bt_nodes;
         for (int32_t cyc = 0;; ++cyc) {
             if (cyc >= bt_cyc || dist >= bsz || dist >= vld) {
-                if (leader()) nodes[li] = nodes[ri] = 0;
+                nodes[li] = nodes[ri] = 0;
                 break;
             }
+            K6_COUNT(find ? Q_STEPS : Q_ISTEPS);
             const int32_t c = ppos - (int32_t)dist;
             int32_t clen = lenl < lenr ? lenl : lenr;
-            const int32_t climit = find || limit < good ? limit : good;
-            if (clen >= limit) {
-                if (leader()) nodes[li] = nodes[ri] = 0;
+            const int32_t lim = ring_limit(ppos, dist, limit);
+            const int32_t climit = find || lim < good ? lim : good;
+            if (clen >= lim) {
+                nodes[li] = nodes[ri] = 0;
                 break;
             }
             const int32_t npos = bt_pos >= (int32_t)dist
                 ? bt_pos - (int32_t)dist : bt_pos + bt_size - (int32_t)dist;
             const int32_t tlast = 2 * npos;
-            const int32_t k = common(ppos, c, clen, climit);
-            if (k > clen) {       // equal at clen: extended to k
+            int32_t la, lb;
+            link_pair(nodes, tlast, la, lb);
+            // the bytes at clen (ppos's in bits 0-7, the source's in 8-15),
+            // and whether they are equal
+            uint32_t at;
+            bool eq;
+            if constexpr (STAGED) {
+                at = byte(ppos + clen) | byte(c + clen) << 8;
+                eq = (at & 0xFF) == at >> 8;
+                if (eq) clen = common(ppos, c, clen + 1, climit, at);
+            } else {
+                const int32_t k = common(ppos, c, clen, climit, at);
+                eq = k > clen;
                 clen = k;
+            }
+            if (eq) {             // equal at clen: extended to the new clen
                 if (find && clen > minlen) {
                     minlen = clen;
                     if (clen > 6 || dist < (uint32_t)dist_bound(clen))
                         record(clen);
                 }
                 if (clen >= good) {
-                    const int32_t a = nodes[tlast], b = nodes[tlast + 1];
-                    if (leader()) {
-                        nodes[li] = a;
-                        nodes[ri] = b;
-                    }
+                    nodes[li] = la;
+                    nodes[ri] = lb;
                     break;
                 }
                 if (clen >= climit) {
-                    if (leader()) nodes[li] = nodes[ri] = 0;
+                    nodes[li] = nodes[ri] = 0;
                     break;
                 }
             }
-            if (byte(c + clen) < byte(ppos + clen)) {
-                if (leader()) nodes[li] = pv - (int32_t)dist;
+            const int32_t v = pv - (int32_t)dist;
+            if ((at >> 8) < (at & 0xFF)) {
+                nodes[li] = v;
+                const int32_t nl = li == tlast + 1 ? v : lb;
                 li = tlast + 1;
                 lenl = clen;
-                dist = (uint32_t)(pv - nodes[li]);
+                dist = (uint32_t)(pv - nl);
             } else {
-                if (leader()) nodes[ri] = pv - (int32_t)dist;
+                nodes[ri] = v;
+                const int32_t nr = ri == tlast ? v : la;
                 ri = tlast;
                 lenr = clen;
-                dist = (uint32_t)(pv - nodes[ri]);
+                dist = (uint32_t)(pv - nr);
             }
         }
-        if (leader()) bt_head[hbt] = pv;
+        bt_head[hbt] = pv;
         sync();
     }
 
@@ -984,10 +1090,12 @@ struct Parser {
                 bt_bad = true;    // the walk's first link past the table
                 return true;
             }
-            bt_walk(true, ppos, limit, pos, cur.h.h6, ml > 1 ? ml : 1,
-                    (recs & 1) + popc(recs));
+            K6_PHASE(Q_FIND);
+            bt_walk(true, ppos, limit, pos, cur.h.h6, get(cur.slot, L_HT6),
+                    ml > 1 ? ml : 1, (recs & 1) + popc(recs));
             if (++bt_pos >= bt_size) bt_pos -= bt_size;
             ++pos;
+            K6_PHASE(Q_WALK);
         }
         return true;
     }
@@ -1224,22 +1332,55 @@ struct Parser {
                     set(pf.slot, l, ht_lane(l) ? *entry(pf.h, l) : 0);
             });
         if constexpr (BT) {
-            // the tree's insertions, one after the other; bt_pos wrapped
-            // before each, advanced after it without a wrap
-            for (int32_t i = i0; i < len; ++i) {
-                const int32_t p = base + i;
-                if (bt_pos >= bt_size) bt_pos -= bt_size;
-                if (bt_pos >= bt_size) {
-                    bt_bad = true;
-                    return true;
+            K6_PHASE(Q_SLIDE);
+            // the tree's insertions, one after the other (bt_pos wrapped
+            // before each, advanced after it without a wrap), 32 a pass
+            // whose heads are loaded at once, one a lane: an insertion's
+            // head is the last earlier one's of the pass with its hash,
+            // else the loaded entry; pf's head follows them
+            int32_t fwd = -1;
+            for (int32_t q0 = i0; q0 < len; q0 += WARP) {
+                const int32_t cnt = len - q0 < WARP ? len - q0 : WARP;
+                fill(base + q0);
+                const Lanes key = lanes([&](int l) -> int32_t {
+                    return l < cnt ? own(wh6, l) : -1 - l;
+                });
+                const Lanes same = match(key);
+                const Lanes head = lanes([&](int l) -> int32_t {
+                    const uint32_t below = (uint32_t)own(same, l)
+                                         & ((1u << l) - 1);
+                    return l >= cnt ? 0
+                         : below ? pos + q0 + top32(below) - 1
+                                 : bt_head[own(key, l)];
+                });
+                for (int32_t j = 0; j < cnt; ++j) {
+                    const int32_t p = base + q0 + j;
+                    if (bt_pos >= bt_size) bt_pos -= bt_size;
+                    if (bt_pos >= bt_size) {
+                        bt_bad = true;
+                        return true;
+                    }
+                    K6_COUNT(Q_INSERTS);
+                    bt_walk(false, p, blk_end - p, pos + q0 + j - 1,
+                            get(key, j), get(head, j), 0, 0);
+                    ++bt_pos;
                 }
-                bt_walk(false, p, blk_end - p, pos + i - 1, hash_at(p).h6,
-                        0, 0);
-                ++bt_pos;
+                if (ahead) {
+                    const uint32_t m = ballot(lanes([&](int l) -> int32_t {
+                        return own(key, l) == pf.h.h6;
+                    }));
+                    if (m) fwd = pos + q0 + top32(m) - 1;
+                }
             }
+            if (fwd >= 0)
+                each([&](int l) {
+                    if (l == L_HT6) set(pf.slot, l, fwd);
+                });
+            K6_PHASE(Q_INSERT);
         }
         pos += len - 1;
         K5_PHASE(P_SLIDE);
+        K6_PHASE(Q_SLIDE);
         return true;
     }
 

@@ -7,8 +7,8 @@
 // encoder's own bytes.
 //
 // The finder, the window of hashes, the slide, the walk, the probe and
-// the sparse insertion are K5's (encode_k5.cuh, `k5::Parser`, its
-// parse of a stream its dictionary covers): K6 holds one and calls it.
+// the sparse insertion are K5's (encode_k5.cuh, `k5::Parser`): K6 holds
+// one and calls it.
 // What is new is the optimal parse and the model it reads:
 //
 //   - a stretch of at most AP_LIMIT positions of an 8 KB piece is a
@@ -58,6 +58,16 @@
 // ops/exact_ap_scan.py), the finder sets bt_bad and the parse ends
 // before it codes anything more (done 0, err ERR_BT).
 //
+// The ring (RING, an instantiation of its own beside each of the two
+// above, chosen per stream by size > dict_size, so that a stream its
+// dictionary covers keeps its code and registers): a stream longer than
+// its dictionary meets golden's ring window, whose rules are K5's
+// (encode_k5.cuh, "The ring"): pieces cut at the ring's end, the
+// previous lap's bytes past a piece's end, no source across the ring's
+// end (the tree's compares too); the optimal parse adds one, the literal
+// price's context is 0 at ring position 0 (golden/lz.py:269; the coding
+// context is still the model's ctx).
+//
 // The tape is a capacity: a token past it ends the parse (done 0, err
 // ERR_OVERFLOW, tok_cnt the capacity).  K6 has no step budget: csc_tpu
 // has no device loop for these streams (it codes them with golden).
@@ -71,6 +81,13 @@
 #include "encode_k5.cuh"
 
 namespace k6 {
+
+// a phase mark of K6's phase-clock build (k5::K6Phase), else nothing
+#if defined(K6_PHASES) && defined(__CUDA_ARCH__)
+#define K6_MARK(i) f.k6_phase(i)
+#else
+#define K6_MARK(i)
+#endif
 
 using k5::Lanes;
 using k5::ballot;
@@ -138,9 +155,9 @@ struct Found {
     Lanes code_hi, price_hi;
 };
 
-template <bool STAGED, bool NOLZ, bool BT>
+template <bool STAGED, bool NOLZ, bool BT, bool RING = false>
 struct ApParser {
-    k5::Parser<STAGED, NOLZ, false, BT> f;
+    k5::Parser<STAGED, NOLZ, RING, BT> f;
     Stream x;
     int32_t state, ctx, lp;  // the model's pack state, context, counter
     int32_t tok;
@@ -311,6 +328,7 @@ struct ApParser {
     // priced at state st with the rep queue in f.reps
     K5_FN void find_priced(int32_t st, int32_t ppos, int32_t limit,
                            Found& o) {
+        K6_COUNT(k5::Q_FINDS);
         if constexpr (BT) {
             find_priced_bt(st, ppos, limit, o);
             return;
@@ -318,6 +336,7 @@ struct ApParser {
         Lanes len, dist;
         uint32_t recs = 0;
         f.find_records(ppos, limit, len, dist, recs);  // no budget to pass
+        K6_MARK(k5::Q_FIND);
         const int32_t top = recs ? k5::top32(recs) : 0;
         const int32_t tl = get(len, top), td = get(dist, top);
         o.len = recs ? tl : 1;
@@ -379,6 +398,7 @@ struct ApParser {
                                      : matchd_price(st, own(dj, l));
             return (int32_t)(d + (uint32_t)own(lenp, l));
         });
+        K6_MARK(k5::Q_PRICE);
     }
 
     // the distance price of record code c (a rep's or a match's)
@@ -502,6 +522,7 @@ struct ApParser {
                                                 + (uint32_t)own(phi, l))
                                     : 0;
         });
+        K6_MARK(k5::Q_PRICE);
     }
 
     // ------------------------------------------------------------- cells
@@ -570,6 +591,8 @@ struct ApParser {
         sync();
         int32_t apend = 1, apcur = 0, st = state;
         slen = 0;
+        K6_COUNT(k5::Q_STRETCHES);
+        K6_MARK(k5::Q_CELLS);
         for (;;) {
             const int32_t cur = wpos + apcur;
             if (apcur) {
@@ -586,6 +609,7 @@ struct ApParser {
                 each([&](int l) {
                     if (l < 4) cell(C_REP + l)[apcur] = own(f.reps, l);
                 });
+                K6_MARK(k5::Q_CELLS);
                 if (apcur < aplimit)
                     find_priced(st, cur, avail - apcur, fd);
                 if constexpr (BT) {
@@ -600,6 +624,7 @@ struct ApParser {
                 backward(wpos, apcur);
                 token(1, 0, (int32_t)f.byte(cur));
                 sync();
+                K6_MARK(k5::Q_CODE);
                 return apcur + 1;
             }
             const bool init1 = apcur + 1 >= apend;
@@ -610,20 +635,24 @@ struct ApParser {
                       (int32_t)f.byte(cur + fd.len - 1));
                 f.reps = moved(f.reps, fd.len, fd.code);
                 sync();
+                K6_MARK(k5::Q_CODE);
                 slen = fd.len;
                 return apcur + fd.len;
             }
             const uint32_t here = price[apcur];
-            // the next cell: the literal, then rep0len1
+            // the next cell: the literal (its price's context the window
+            // byte before it, 0 at ring position 0), then rep0len1
             uint32_t p1 = init1 ? INF : price[apcur + 1];
-            const uint32_t cp = lit_price(st, cur ? (int32_t)f.byte(cur - 1)
-                                                  : 0,
+            const int32_t rpos = RING ? cur - f.lap0 : cur;
+            const uint32_t cp = lit_price(st, rpos ? (int32_t)f.byte(cur - 1)
+                                                   : 0,
                                           (int32_t)f.byte(cur)) + here;
             int32_t d1 = -1;
             if (cp < p1) {
                 p1 = cp;
                 d1 = 0;
             }
+            K6_MARK(k5::Q_LIT);
             if (fd.r01 && fd.r01p + here < p1) {
                 p1 = fd.r01p + here;
                 d1 = 1;
@@ -668,6 +697,7 @@ struct ApParser {
             }
             if (apcur + flen >= apend) apend = apcur + flen + 1;
             sync();
+            K6_MARK(k5::Q_RELAX);
             ++apcur;
         }
     }
@@ -753,6 +783,9 @@ struct ApParser {
 
     K5_FN Result run() {
         f.init();
+#if defined(K6_PHASES) && defined(__CUDA_ARCH__)
+        f.k6_mark = clock64();
+#endif
         f.budget = INT64_MAX;     // no step budget
         if constexpr (BT) {
             f.bt_head = x.bt_head;
@@ -800,6 +833,12 @@ struct ApParser {
                 f.blk_off = nboff;
                 f.blk_len = f.run_end - nboff < k5::SUB_BLOCK
                           ? f.run_end - nboff : k5::SUB_BLOCK;
+                if constexpr (RING) {
+                    // a piece also ends at the ring's end
+                    f.lap0 = nboff - nboff % f.wnd;
+                    if (f.blk_len > f.lap0 + f.wnd - nboff)
+                        f.blk_len = f.lap0 + f.wnd - nboff;
+                }
                 f.blk_i = 0;
                 if constexpr (NOLZ) {
                     if (f.run_type >= k5::DT_NO_LZ) {
@@ -814,12 +853,14 @@ struct ApParser {
             // compress_advanced's step at wpos: a literal, or a stretch
             const int32_t avail = f.blk_len - f.blk_i;
             Found fd;
+            K6_MARK(k5::Q_OTHER);
             find_priced(state, wpos, avail, fd);
             if (bad()) break;
             int32_t used = 1, slen = 0;
             if (fd.code == 0) {
                 token(1, 0, (int32_t)f.byte(wpos));
                 sync();
+                K6_MARK(k5::Q_CODE);
             } else {
                 used = stretch(wpos, avail, fd, slen);
                 if (bad()) break;
@@ -832,10 +873,13 @@ struct ApParser {
                 const int32_t i0 = slen > k5::FAST_SLIDE + 1
                     ? 1 + 4 * ((slen - k5::FAST_SLIDE - 1 + 3) / 4) : 1;
                 f.ahead(wpos, base + i0);
+                K6_MARK(k5::Q_OTHER);
                 f.slide(base, slen);
                 if (bad()) break;
             }
         }
+        K6_MARK(k5::Q_OTHER);
+        K6_MARK(k5::Q_MARK);      // a mark's own cost
         Result r;
         r.tok_cnt = tok;
         r.done = done ? 1 : 0;
@@ -850,9 +894,9 @@ struct ApParser {
     }
 };
 
-template <bool STAGED, bool NOLZ, bool BT>
+template <bool STAGED, bool NOLZ, bool BT, bool RING>
 K5_FN Result parse_as(const Stream& x, int32_t* regs) {
-    ApParser<STAGED, NOLZ, BT> p;
+    ApParser<STAGED, NOLZ, BT, RING> p;
     p.f.s = x.s;
     p.x = x;
     const Result r = p.run();
@@ -867,12 +911,19 @@ K5_FN Result parse_as(const Stream& x, int32_t* regs) {
 // the stream's parse; a stream whose block table holds no BAD / ENTROPY
 // / DLT block takes the parse without the probe and the sparse insertion
 // (K5's rule).  BT: m5's binary tree (hash_width 0, s.hash_bits the
-// tree's bits).  regs, when not null, gets the model's state, ctx and
-// length-cache counter at the end.
-template <bool STAGED, bool BT = false>
+// tree's bits).  RING: the stream is longer than its dictionary (s.size
+// > s.dict_size) and takes the ring's parse (with the probe, as K5's;
+// the nvcc build has a kernel for each, the caller picks).  regs, when
+// not null, gets the model's state, ctx and length-cache counter at the
+// end.
+template <bool STAGED, bool BT = false, bool RING = false>
 K5_FN Result parse_stream(const Stream& x, int32_t* regs = nullptr) {
-    return k5::has_nolz(x.s) ? parse_as<STAGED, true, BT>(x, regs)
-                             : parse_as<STAGED, false, BT>(x, regs);
+    if constexpr (RING) {
+        return parse_as<STAGED, true, BT, true>(x, regs);
+    } else {
+        return k5::has_nolz(x.s) ? parse_as<STAGED, true, BT, false>(x, regs)
+                                 : parse_as<STAGED, false, BT, false>(x, regs);
+    }
 }
 
 }  // namespace k6

@@ -21,7 +21,8 @@ constexpr int64_t MODEL_WORDS = k6::M_SMALL + k6::NLIT + 32 + 3;
 // MODEL_WORDS] int32, when not null, gets the model each stream leaves;
 // bt_bits > 0 takes m5's parse with the binary tree, as csc_k6_bt_launch
 // (hash_width 0, hash_bits unused; bt_sizes, bt_head and bt_nodes as
-// there).
+// there).  A stream longer than its dictionary takes the ring's parse,
+// as the kernel's ring launch does.
 extern "C" int csc_k6_host_staged(
     const void* data, int64_t n, const void* blocks, int32_t nblk,
     const void* sizes, const void* dict_sizes, int32_t hash_bits,
@@ -64,7 +65,7 @@ extern "C" int csc_k6_host_staged(
         s.btypes = (int32_t*)btypes + b * nblk;
         s.size = ((const int32_t*)sizes)[b];
         s.dict_size = ((const int32_t*)dict_sizes)[b];
-        if (s.size > s.dict_size) return 1;
+        const bool ring = s.size > s.dict_size;
         s.hash_bits = tree ? bt_bits : hash_bits;
         s.hash_width = hash_width;
         s.good_len = good_len;
@@ -92,12 +93,18 @@ extern "C" int csc_k6_host_staged(
         }
         k6::Result r;
         int32_t regs[3];
+        // the kernel's four parses: staged or not, tree or not, ring or
+        // covered
         if (s.words)
-            r = tree ? k6::parse_stream<true, true>(x, regs)
-                     : k6::parse_stream<true>(x, regs);
+            r = tree ? (ring ? k6::parse_stream<true, true, true>(x, regs)
+                             : k6::parse_stream<true, true>(x, regs))
+                     : (ring ? k6::parse_stream<true, false, true>(x, regs)
+                             : k6::parse_stream<true>(x, regs));
         else
-            r = tree ? k6::parse_stream<false, true>(x, regs)
-                     : k6::parse_stream<false>(x, regs);
+            r = tree ? (ring ? k6::parse_stream<false, true, true>(x, regs)
+                             : k6::parse_stream<false, true>(x, regs))
+                     : (ring ? k6::parse_stream<false, false, true>(x, regs)
+                             : k6::parse_stream<false>(x, regs));
         if (model) {
             int32_t* m = (int32_t*)model + b * MODEL_WORDS;
             for (int32_t i = 0; i < k6::M_SMALL; ++i) *m++ = small[i];

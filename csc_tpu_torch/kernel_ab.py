@@ -24,11 +24,16 @@ m1 and m2 on the encode headline, at m1 on 1 024 and 4 096 x 16 KB text
 (the encode path's large groups; 4 096 needs more than eight K5 blocks
 an SM) and on the encode task; K6 (the exact optimal parse) at m3 and
 m4 on the encode headline, at m3 on 1 024 x 16 KB text and on the m3
-encode task, and its binary-tree kernel at m5 on the encode headline and
-task (K6 against a checkout without it: `--other .`, this checkout
-against itself; the m5 cells against a checkout without the tree time
-this checkout against itself).  The inputs come from this
-checkout's encode path on the card.  K4, K5 and K6 are launched
+encode task, at m3 on 96 x 48 KB text under a 36 KB dictionary (its ring
+kernel: golden's ring window), and its binary-tree kernel at m5 on the
+encode headline, on 1 024 x 16 KB text, on the task and on chip_smoke.py
+phase 9a's 4.67 MB file past the cap (corpus.big_file, one stream: `c
+-m5`'s launch) (K6 against a checkout without it: `--other .`, this
+checkout against itself; the m5 cells against a checkout without the
+tree, and the ring cell against one without the ring kernel, time this
+checkout against itself).  Only the wanted kernels of the other
+checkout are built.  The inputs come from this checkout's encode path
+on the card.  K4, K5 and K6 are launched
 directly, with no debug copy (as on the encode path): the tape and the
 hash tables are zeroed before each timed call, outside its events, and
 the builds are compared on tape, tok_cnt, done and err (K5: and steps
@@ -301,6 +306,7 @@ def main(argv=None):
                   if os.path.exists(os.path.join(other_csrc,
                                                  _build.KERNELS[n][0])))
     want &= {"K" + n[-1] for n in names}
+    names = tuple(n for n in names if "K" + n[-1] in want)
     _build.build_kernels(names)
     _build.build_kernels(names, other_csrc)
     other = {n: _build.load(n, other_csrc) for n in names}
@@ -409,18 +415,42 @@ def main(argv=None):
                                  dev, "exact")
         cells["K6 task m3 4 x 1 MB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in group], k6, 1)
+        # the ring kernel (a checkout before it has none: this one's
+        # against itself): 48 KB streams past a 36 KB dictionary
+        this6 = _build.kernel_library("csc_k6")
+        with open(os.path.join(other_csrc, "encode_k6.cu")) as f:
+            k6r = k6 if "bool RING" in f.read() else this6
+        ring = [text[i * 48 * KB:(i + 1) * 48 * KB] for i in range(96)]
+        args6, _, _ = stage_args([props_init(26 * KB, 3) for _ in ring],
+                                 ring, dev)
+        if not bool((args6[2] > args6[3]).all()):
+            raise RuntimeError("kernel_ab: the ring cell's streams are not "
+                               "past their dictionary")
+        cells["K6 m3 ring 96 x 48 KB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in ring], k6r, 3)
         # m5, K6's binary-tree kernel (a checkout before it has none: its
         # cells then time this one's against itself)
-        k6t = k6 if hasattr(k6, "csc_k6_bt_launch") else \
-            _build.kernel_library("csc_k6")
+        k6t = k6 if hasattr(k6, "csc_k6_bt_launch") else this6
         args6, _, _ = stage_args([props_init(16 * KB, 5) for _ in enc], enc,
                                  dev, "exact")
         cells["K6 m5 96 x 16 KB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in enc], k6t, 3)
+        args6, _, _ = stage_args([props_init(16 * KB, 5) for _ in many],
+                                 many, dev, "exact")
+        if args6[0].shape[0] != len(many):
+            raise RuntimeError("kernel_ab: 1 024 x 16 KB m5 took more than "
+                               "one K6 launch")
+        cells["K6 m5 1024 x 16 KB"] = parse_cell(
+            "csc_k6", args6, [len(d) for d in many], k6t, 1)
+        del args6
         args6, _, _ = stage_args([props_init(MB, 5) for _ in group], group,
                                  dev, "exact")
         cells["K6 task m5 4 x 1 MB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in group], k6t, 1)
+        big = corpus.big_file(text, corpus.torch_library_exe(), SEED + 9)
+        args6, _, _ = stage_args([props_init(len(big), 5)], [big], dev)
+        cells["K6 m5 past the cap 4.67 MB"] = parse_cell(
+            "csc_k6", args6, [len(big)], k6t, 1)
     for name, c in cells.items():
         print(f"[ab] {name}: " + " ".join(
             f"{k}={v}" for k, v in c.items()), flush=True)

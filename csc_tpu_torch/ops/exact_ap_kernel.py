@@ -10,12 +10,18 @@ hash_width << hash_bits]; at m5, for the tree's kernel
 [B, 2 * min(bt_size, N + 1)] in ht6's place, int32 zeros), the model's
 p_lit (uint16 [B, 65536], 128 KB a stream) and the stretch's cells
 (int32 [B, NFIELD * CELLS], 74 KB a stream), which the kernel sets up,
-the tape, the counters and the block types, and launches the kernel on the current CUDA stream, one warp (a
-block) a stream; a stream of at most 64 KB is staged in the block's
-shared memory (`smem_bytes`, `blocks_per_sm`).  For tensors on the CPU
+the tape, the counters and the block types, and launches the kernel on
+the current CUDA stream, one warp (a block) a stream: two kernels, the
+streams their dictionary covers and those longer than it (golden's ring
+window), each block of the other kind returning at once; a stream of at
+most 64 KB is staged in the block's shared memory (`smem_bytes`,
+`blocks_per_sm`).  For tensors on the CPU
 it runs the plain version (ops/exact_ap_scan.py) instead; on any other
 device it raises.  LAUNCHES counts the calls that launch K6, TREE_LAUNCHES
-those of them that launch its binary-tree kernel (m5).
+those of them that launch its binary-tree kernels (m5), RING_LAUNCHES
+those of them whose ring kernel has a stream to parse (one longer than its
+dictionary: every launch starts the ring kernel, whose blocks return at
+once where it has none) and TREE_RING_LAUNCHES those of them at m5.
 """
 import ctypes
 
@@ -26,6 +32,8 @@ from . import exact_ap_scan, exact_kernel, prices
 
 LAUNCHES = 0
 TREE_LAUNCHES = 0
+RING_LAUNCHES = 0
+TREE_RING_LAUNCHES = 0
 NLIT = 256 * 256
 
 
@@ -68,15 +76,16 @@ def smem_bytes(n):
     return int(_lib_fn("csc_k6_smem", ctypes.c_int64, [ctypes.c_int64])(n))
 
 
-def blocks_per_sm(n, tree=False):
+def blocks_per_sm(n, tree=False, ring=False):
     """K6's resident blocks (streams) per SM on the current card for
-    streams of n bytes (tree: m5's kernel), as
+    streams of n bytes (tree: m5's kernels; ring: the kernel of streams
+    longer than their dictionary), as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them."""
     fn = _lib_fn("csc_k6_bt_blocks_per_sm" if tree else
                  "csc_k6_blocks_per_sm", ctypes.c_int,
-                 [ctypes.c_int64, ctypes.c_void_p])
+                 [ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p])
     blocks = ctypes.c_int(0)
-    rc = fn(n, ctypes.byref(blocks))
+    rc = fn(n, int(ring), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"K6 occupancy query failed: cudaError_t {rc}")
     return blocks.value
@@ -144,15 +153,18 @@ def launch(lib, data, blocks, sizes, dict_sizes, hash_bits, hash_width,
 
 
 def parse_k6(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
-             good_len, max_tokens, bt=None, bt_sizes=None):
-    """Parse B streams (m3-m5, each at most its dictionary) with golden's
-    optimal parse.
+             good_len, max_tokens, bt=None, bt_sizes=None, ring=None):
+    """Parse B streams (m3-m5; a stream longer than its dictionary
+    follows golden's ring window) with golden's optimal parse.
 
     data: [B, N] u8 LZ input; blocks: [B, NB, 2] i32, the analyzer's block
     table (encode_host.plan_stream(..., exact=True)); sizes, dict_sizes:
     [B] i32; hash_bits, hash_width, good_len: the preset's finder; bt (m5,
     exact_ap_scan.BT): the binary tree's bits and cycles, and its size
-    unless bt_sizes ([B] i32) gives each stream's.
+    unless bt_sizes ([B] i32) gives each stream's; ring: whether a stream
+    is longer than its dictionary, as the caller's host-side sizes say
+    (None: read from sizes and dict_sizes before the launch), for
+    RING_LAUNCHES alone.
     Returns (tape [B, max_tokens, 2] i32 of (kind | wire_len << 3,
     dist_code), tok_cnt, done, err [B] i32, btypes [B, NB] i32), on data's
     device; err is ERR_OVERFLOW when a token did not fit the tape, or
@@ -161,7 +173,7 @@ def parse_k6(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
     block's final type, after the duplicate-block probe (0 for a block
     the parse did not reach).
     """
-    global LAUNCHES, TREE_LAUNCHES
+    global LAUNCHES, TREE_LAUNCHES, RING_LAUNCHES, TREE_RING_LAUNCHES
     dev, b = data.device, data.shape[0]
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"K6 runs on CUDA tensors (or the plain version "
@@ -191,6 +203,8 @@ def parse_k6(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
             data, blocks, sizes, dict_sizes, hash_bits, hash_width,
             good_len, max_tokens, bt, bt_sizes)
 
+    if ring is None:
+        ring = bool((sizes > dict_sizes).any())
     from .. import _build
     lib = _build.kernel_library("csc_k6")
     scratch = new_scratch(b, hash_bits, hash_width, dev, bt, data.shape[1],
@@ -203,4 +217,6 @@ def parse_k6(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
            bt_sizes)
     LAUNCHES += 1
     TREE_LAUNCHES += bt is not None
+    RING_LAUNCHES += ring
+    TREE_RING_LAUNCHES += ring and bt is not None
     return tape, out[0], out[1], out[2], btypes

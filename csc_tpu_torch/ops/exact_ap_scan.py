@@ -27,11 +27,17 @@ runs longer than 10 of a DT_DLT run's delta-filtered bytes.
 Output, as K5's: the tape of (kind | wire_len << 3, dist_code) words, a
 K_SENT_A at every run's end and K_END at the stream's; the final type of
 every block.  The tape is a capacity: a token past it ends the parse
-(done 0, err ERR_OVERFLOW, tok_cnt the capacity).  The window is the
-stream itself (a stream its dictionary covers: golden's ring never
-wraps), holding the sub-blocks copied so far and zeros past them, as
-golden's does.  Used by the tests and by the CPU path; the card runs K6
-(csrc/encode_k6.cuh).
+(done 0, err ERR_OVERFLOW, tok_cnt the capacity).  The window is
+golden's (LZ.encode_normal, golden/lz.py:28, 51-75): a ring of the
+dictionary's bytes (8 zero bytes past its end), into which each piece is
+copied at the ring position wnd_curpos, a piece ending at 8 KB or at the
+ring's end, where wnd_curpos wraps to 0; the bytes past a piece are
+the previous lap's (zeros in the first lap), and every finder's climit
+stops a source at the ring's end (min(limit, wnd_size - cmp_pos)).  At
+ring position 0 the literal price's context is 0 (golden/lz.py:269).  A
+stream its dictionary covers never wraps, and its window is the stream's
+own length (plus the 8 bytes).  Used by the tests and by the CPU path;
+the card runs K6 (csrc/encode_k6.cuh).
 
 The binary tree (mf.py:46-71, 114-195, 198-231, 335-404, 504-508; m5):
 a head of 1 << bt_bits entries and a left and a right link for each of
@@ -74,7 +80,8 @@ STATS = ("stretches", "at_limit", "at_end", "lit_tail", "good_exit",
          "entropy_bytes", "rle_runs", "chunks", "gated", "split_rebuilds",
          "bt_finds", "bt_steps", "bt_head_hits", "bt_good_exits",
          "bt_inserts", "bt_sparse", "bt_probe_hits", "bt_records",
-         "bt_wraps", "long_lengths", "cand_cap")
+         "bt_wraps", "long_lengths", "cand_cap", "ring_wraps",
+         "ring_lit0", "ring_cut")
 MAX_GOOD_BT = 48          # m5's good_len: lengths 2 .. 47 a find
 CAND_SLOTS = MF_CAND_LIMIT - 2  # find_match's records that are read
 
@@ -95,9 +102,8 @@ class BT:
 def check_inputs(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
                  good_len, bt=None):
     """Raise on inputs K6 and this version do not take: K5's (ops/
-    exact_scan.py; hash_width 0 with the binary tree), a good_len past
-    the lanes' lengths (32, or 48 with the binary tree), or a stream
-    longer than its dictionary."""
+    exact_scan.py; hash_width 0 with the binary tree), or a good_len past
+    the lanes' lengths (32, or 48 with the binary tree)."""
     tree = bt is not None and bt.size > 0
     exact_scan.check_inputs(data, blocks, sizes, dict_sizes, hash_bits,
                             max(hash_width, 1) if tree else hash_width,
@@ -109,9 +115,6 @@ def check_inputs(data, blocks, sizes, dict_sizes, hash_bits, hash_width,
         raise ValueError(f"the binary tree takes hash_width 0, bt_bits in "
                          f"[1, 25] and bt_cyc >= 1, got {hash_width}, "
                          f"{bt.bits}, {bt.cyc}")
-    if bool((sizes > dict_sizes).any()):
-        raise ValueError("a stream longer than its dictionary: K6 takes "
-                         "streams their dictionary covers")
 
 
 def hash2(b0, b1):
@@ -145,7 +148,9 @@ class _Stream:
         self.data = data
         self.size = size
         self.wnd_size = dict_size
-        self.wnd = bytearray(size + 8)
+        # golden's ring (its 8 bytes of padding past the end); a stream
+        # the dictionary covers needs no more than its own length
+        self.wnd = bytearray(min(size, dict_size) + 8)
         bt = bt or BT()
         self.bt_size = bt.size if bt_size is None else bt_size
         self.bt_bits, self.bt_cyc = bt.bits, bt.cyc
@@ -253,6 +258,7 @@ class _Stream:
                 continue
             cmp_pos = wpos - rd if wpos >= rd else wpos + wnd_size - rd
             climit = min(limit, wnd_size - cmp_pos)
+            self.stats["ring_cut"] += climit < limit
             if minlen >= climit or wnd[cmp_pos + minlen] != wnd[wpos + minlen]:
                 continue
             match_len = self._extend(wpos, cmp_pos, climit)
@@ -277,6 +283,7 @@ class _Stream:
             else:
                 cmp_pos = wpos + wnd_size - dist
             climit = min(limit, wnd_size - cmp_pos)
+            self.stats["ring_cut"] += climit < limit
             if minlen >= climit or wnd[cmp_pos + minlen] != wnd[wpos + minlen]:
                 continue
             match_len = self._extend(wpos, cmp_pos, climit)
@@ -304,6 +311,7 @@ class _Stream:
                 continue
             cmp_pos = wpos - dist if wpos >= dist else wpos + wnd_size - dist
             climit = min(limit, wnd_size - cmp_pos)
+            self.stats["ring_cut"] += climit < limit
             if minlen >= climit or wnd[cmp_pos + minlen] != wnd[wpos + minlen]:
                 continue
             match_len = self._extend(wpos, cmp_pos, climit)
@@ -338,6 +346,7 @@ class _Stream:
             # the head beyond the tree's range: no distance limit
             cmp_pos = wpos - dist if wpos >= dist else wpos + wnd_size - dist
             climit = min(limit, wnd_size - cmp_pos)
+            st["ring_cut"] += climit < limit
             if minlen < climit and wnd[cmp_pos + minlen] == wnd[wpos + minlen]:
                 match_len = self._extend(wpos, cmp_pos, climit)
                 if match_len > minlen:
@@ -361,6 +370,7 @@ class _Stream:
             cmp_pos = wpos - dist if wpos >= dist else wpos + wnd_size - dist
             clen = min(lenl, lenr)
             climit = min(limit, wnd_size - cmp_pos)
+            st["ring_cut"] += climit < limit
             if clen >= climit:
                 nodes[l_idx] = nodes[r_idx] = 0
                 break
@@ -544,11 +554,13 @@ class _Stream:
     # ------------------------------------------------------ the LZ parse
     def encode_normal(self, off, size, lz):
         """EncodeNormal (csc_lz.cpp:61-100) of data[off, off + size):
-        8 KB pieces copied into the window, each parsed (lz) or sparsely
-        inserted (no-LZ); an LZ run ends with the sentinel."""
+        pieces of 8 KB, or up to the ring's end, copied into the window,
+        each parsed (lz) or sparsely inserted (no-LZ), wnd_curpos wrapping
+        at the ring's end; an LZ run ends with the sentinel."""
         i = 0
         while i < size:
-            cur = min(size - i, MIN_BLOCK_SIZE)
+            cur = min(self.wnd_size - self.wnd_curpos, size - i,
+                      MIN_BLOCK_SIZE)
             at = self.wnd_curpos
             self.wnd[at:at + cur] = self.data[off + i:off + i + cur]
             if lz:
@@ -557,6 +569,9 @@ class _Stream:
                 self.slide_pos_fast(at, cur)
                 self.wnd_curpos += cur
                 self.stats["sparse"] += 1
+            if self.wnd_curpos >= self.wnd_size:
+                self.wnd_curpos = 0
+                self.stats["ring_wraps"] += 1
             i += cur
         if lz:
             self.model.sentinel()
@@ -676,6 +691,7 @@ class _Stream:
                     self.wnd_curpos += length
                     break
                 here = a_price[apcur]
+                st["ring_lit0"] += cur == 0 and st["ring_wraps"] > 0
                 cprice = prices.literal_price(m, a_state[apcur],
                                               wnd[cur - 1] if cur else 0,
                                               wnd[cur])

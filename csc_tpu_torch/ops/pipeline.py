@@ -208,12 +208,14 @@ def plan_streams(props_list, datas, parse="fast"):
     """Per-stream plans, or None for an empty stream: an
     encode_host.FastPlan for the fast parse, an ExactPlan for the exact
     one (each says its parse).
-    A stream over MAX_ENCODE, or an m1 / m2 one longer than its
-    dictionary, takes the exact parse whatever `parse` says: csc_tpu
-    hands the first to golden, and its fast path writes a stream golden
-    rejects for the second (ROADMAP queue 3), where the exact parse
-    writes golden's bytes.  EncodeError for a stream the device path does
-    not take: over MAX_WINDOW (1 GB), or at m3-m5 past its dictionary."""
+    A stream over MAX_ENCODE, or one longer than its dictionary (m1-m5),
+    takes the exact parse whatever `parse` says: csc_tpu hands the first
+    to golden, and its fast path writes a stream golden rejects for the
+    second (ROADMAP queue 3), where the exact parse follows golden's ring
+    window and writes golden's bytes.  EncodeError for a stream the
+    device path does not take: over MAX_WINDOW (1 GB).  (An m5 stream
+    golden's binary tree faults on, and a K3 overflow, are refused by
+    encode_group.)"""
     if parse not in PARSES:
         raise ValueError(f"parse must be one of {PARSES}, got {parse!r}")
     plans = []
@@ -230,14 +232,6 @@ def plan_streams(props_list, datas, parse="fast"):
         # which only the exact parse follows (the fast parse treats the
         # stream as one window with no wrap, csc_tpu parse_pre.py:6)
         ring = len(data) > props.dict_size
-        if ring and props.lz_mode == 3:
-            # golden's ring window is followed by K5 alone (m1 / m2)
-            raise EncodeError(
-                f"stream {i}: {len(data)} bytes is more than its "
-                f"{props.dict_size}-byte dictionary and the exact parse "
-                f"of lz_mode 3 (m3-m5) does not follow golden's ring window "
-                f"yet; only the exact parse of m1 / m2 follows the ring "
-                f"window past the dictionary", [i])
         plans.append(encode_host.plan_stream(
             props, data, exact=parse == "exact" or big or ring)
             if data else None)
@@ -255,8 +249,8 @@ def _groups(props_list, plans):
     bucket (csc_tpu codes them with golden; the exact parse's output does
     not depend on the width, so the bucket only spares a short stream a
     long one's width; a stream longer than its dictionary is grouped the
-    same way, K5 choosing the ring's parse for it alone); at m1 / m2 on
-    the fast parse it is the call's longest stream (None)."""
+    same way, K5 or K6 choosing the ring's kernel for it alone); at m1 /
+    m2 on the fast parse it is the call's longest stream (None)."""
     by_preset = {}
     for i, plan in enumerate(plans):
         if plan is not None:
@@ -424,7 +418,8 @@ def encode_group(props_list, plans, idxs, device, on_stage=None,
             args += (tape_capacity(n, blocks.shape[1]), bt, torch.tensor(
                 [props_list[i].bt_size for i in idxs], dtype=torch.int32,
                 device=device) if bt.size else None)
-            out = parse_k6(*args)
+            out = parse_k6(*args, ring=any(
+                len(plans[i].lz) > props_list[i].dict_size for i in idxs))
             note("k6", k6_args=args, k6_out=out)
         else:
             args += (p0.lz_mode == 2, tape_capacity(n, blocks.shape[1]),
@@ -506,20 +501,20 @@ def encode_batch(props_list, datas, *, device=CUDA, on_stage=None,
     without the property header, byte-identical to csc_tpu's encode_batch
     on its fast path; a stream over MAX_ENCODE (1 MB) takes the
     exact parse all the same, as csc_tpu codes it with its golden encoder,
-    so its bytes are csc_tpu's and golden's; so does an m1 / m2 stream
-    longer than its dictionary (up to 1 GB), whose window wraps as
-    golden's ring: over 1 MB its bytes are csc_tpu's and golden's, at 1
-    MB or less golden's, where csc_tpu's fast path writes a stream golden
-    rejects (ROADMAP queue 3).  parse="exact" (m1-m5) returns the
+    so its bytes are csc_tpu's and golden's; so does a stream longer than
+    its dictionary (m1-m5, up to 1 GB), whose window wraps as golden's
+    ring: over 1 MB its bytes are csc_tpu's and golden's, at 1 MB or less
+    golden's, where csc_tpu's fast path writes a stream golden rejects
+    (ROADMAP queue 3).  parse="exact" (m1-m5) returns the
     reference encoder's own bytes for every stream, as csc_tpu's under
     CSC_ENCODE_PARSE=exact: BAD / ENTROPY / DLT runs, the duplicate-block
     probe and several raw chunks included.  Streams are grouped by preset
     and parse (one device call per preset and size group).  An empty
     stream is the SIG_EOF chunk alone.  Raises EncodeError for a stream
-    it cannot take (over 1 GB; m3-m5 longer than its dictionary), where
-    golden fails (an m5 stream past bt_size that golden's binary tree
-    indexes past its links) or that a kernel flags (a K3 output
-    overflow).  on_stage: as encode_group's,
+    it cannot take (over 1 GB), where golden fails (an m5 stream past
+    bt_size that golden's binary tree indexes past its links, which every
+    m5 stream longer than a dictionary of 16 MB or less is) or that a
+    kernel flags (a K3 output overflow).  on_stage: as encode_group's,
     called once more as on_stage("plan", plans=...) after the host plan.
     """
     device = torch.device(device)

@@ -348,7 +348,9 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
         "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB",
         "K6 m3 96 x 16 KB", "K6 m4 96 x 16 KB", "K6 m3 1024 x 16 KB",
-        "K6 task m3 4 x 1 MB", "K6 m5 96 x 16 KB", "K6 task m5 4 x 1 MB"])
+        "K6 task m3 4 x 1 MB", "K6 m3 ring 96 x 48 KB", "K6 m5 96 x 16 KB",
+        "K6 m5 1024 x 16 KB", "K6 task m5 4 x 1 MB",
+        "K6 m5 past the cap 4.67 MB"])
     for cell in res["cells"].values():
         assert sorted(cell["ms"]) == ["other", "this"]
         assert all(t > 0 for t in cell["ms"].values())
@@ -871,6 +873,98 @@ def test_exact_m5_streams_through_k6_k3_k1(dev):
     blob = pipeline.encode_batch([p], [big], device=dev, parse="exact")[0]
     assert blob == encode_stream(p, big)
     assert pipeline.decode_batch([p], [blob], device=dev) == [big]
+
+
+# ---------------------------- K6 past the dictionary (its ring kernels)
+def _staged_ring_batch(cases):
+    """K6's arguments of the cases of at most 64 KB: a batch whose
+    streams the kernel stages in shared memory (csc_k6_smem holds their
+    words)."""
+    args = k6_args([c for c in cases if len(c[2]) <= 64 * 1024])
+    assert exact_ap_kernel.smem_bytes(args[0].shape[1]) >= args[0].shape[1]
+    return args
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_k6_ring_matches_plain(dev, level):
+    """Streams longer than their dictionary at m3 / m4 (torch_edge_cases
+    `exact_ap_ring_cases`: ring ends off the 8 KB grid, the literal priced
+    at ring position 0, sources stopped at the ring's end, BAD / ENTROPY /
+    DLT runs and a probe hit across a wrap, raw chunks; torch_ring_cases'
+    mixed and quirks) beside streams their dictionary covers, in one
+    launch of both kernels, the batch past 64 KB (unstaged), and those of
+    at most 64 KB (lit0, cut and the covered ones) as a staged batch of
+    their own: every field."""
+    cases = (edges.exact_ap_ring_cases(level) + [ring.mixed(level),
+             ring.quirks(level)] + edges.exact_ap_cases(level)[:2])
+    for args in (k6_args(cases), _staged_ring_batch(cases)):
+        got = _k6_against_plain(args, dev)
+        assert bool(got[2].all()) and not bool(got[3].any())
+        assert bool((args[2] > args[3]).any())
+
+
+def test_k6_tree_ring_matches_plain(dev):
+    """The tree's ring kernel (m5 past the dictionary, so past bt_size:
+    torch_edge_cases `exact_bt_ring_cases`, whose `fault` golden raises
+    IndexError on, and torch_ring_cases' mixed, which it raises on too)
+    beside the covered tree's edge streams, in one launch of both
+    kernels, the batch past 64 KB (unstaged), and cut, ring48 and the
+    covered ones as a staged batch of their own: every field, ERR_BT
+    where golden raises."""
+    cases = (edges.exact_bt_ring_cases() + [ring.mixed(5)]
+             + edges.exact_bt_cases()[:3])
+    got = _k6_against_plain(k6_args(cases), dev)
+    assert got[3].tolist() == [0, 0, constants.ERR_BT, constants.ERR_BT,
+                               0, 0, 0]
+    args = _staged_ring_batch(cases)
+    assert int((args[2] > args[3]).sum()) == 2
+    got = _k6_against_plain(args, dev)
+    assert bool(got[2].all()) and not bool(got[3].any())
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_encode_past_the_dictionary_is_golden_at_m3_m4(dev, level):
+    """encode_batch on the card (the fast parse, routed to the exact one:
+    K6's ring kernel, no K4) of m3 / m4 streams longer than their
+    dictionary gives golden's bytes, which decode through K1."""
+    cases = edges.exact_ap_ring_cases(level)
+    props = [c[1] for c in cases]
+    datas = [c[2] for c in cases]
+    launches = (exact_ap_kernel.LAUNCHES, parse_ap_kernel.LAUNCHES)
+    card = pipeline.encode_batch(props, datas, device=dev)
+    assert exact_ap_kernel.LAUNCHES > launches[0]
+    assert parse_ap_kernel.LAUNCHES == launches[1]
+    for (name, p, data), blob in zip(cases, card):
+        assert len(data) > p.dict_size, name
+        assert blob == encode_stream(p, data), name
+    assert pipeline.decode_batch(props, card, device=dev) == datas
+
+
+def test_k6_phase_build_equals_k6(dev):
+    """K6 built with its phase clocks (-DK6_PHASES, csc_tpu_torch/
+    k6_phases.py) gives K6's every field on the tree's and the ring's
+    edge streams (the tree's ring ones unstaged and staged) and on 96 x
+    16 KB m5 text, and its clocks count block 0's finds and walk
+    steps."""
+    from csc_tpu_torch import k6_phases
+    lib = k6_phases.library()
+    text = corpus.torch_python_text(4 * 1024 * 1024)
+    kb = 16 * 1024
+    head = [("t", props_init(kb, 5), text[i * kb:(i + 1) * kb])
+            for i in range(96)]
+    bt_ring = edges.exact_bt_ring_cases()
+    for args in (k6_args(edges.exact_bt_cases()), k6_args(bt_ring),
+                 _staged_ring_batch(bt_ring),
+                 k6_args(edges.exact_ap_ring_cases(3)), k6_args(head)):
+        card = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        want = exact_ap_kernel.parse_k6(*card)
+        got, clocks = k6_phases.run(lib, card)
+        for name, g, w in zip(K6_FIELDS, got, want, strict=True):
+            assert torch.equal(g, w), name
+        counts = dict(zip(k6_phases.COUNTS, clocks[len(k6_phases.PHASES):]))
+        assert counts["finds"] > 0 and sum(clocks[:len(k6_phases.PHASES)])
+        if args[0].shape[0] == len(head):
+            assert counts["walk_steps"] > counts["finds"] > 8000
 
 
 @pytest.mark.parametrize("sized", [True, False])

@@ -125,18 +125,19 @@ def test_two_process_archive_equals_one_process(tmp_path):
 
 def test_a_task_one_rank_cannot_encode_stops_both(tmp_path):
     """One task, rank 0's, at m5 past a 16 KB -d (a 32 KB dictionary,
-    whose ring window the exact optimal parse does not follow): rank 0
-    cannot encode it, and rank 1, with no task, stops as well."""
-    import numpy as np
-    rng = np.random.default_rng(7)
-    make_tree(str(tmp_path / "tree"), {
-        "r.bin": rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()})
+    and bt_size with it): 72 KB of torch source, whose first lap ends in
+    a match, so golden's binary tree raises IndexError past bt_size
+    (torch_edge_cases.exact_bt_ring_cases' `fault`): rank 0 cannot
+    encode it, and rank 1, with no task, stops as well."""
+    import torch_edge_cases as edges
+    _, _, data = edges.exact_bt_ring_cases()[-1]
+    make_tree(str(tmp_path / "tree"), {"t.py": data})
     res = _ranks(["-m", "csc_tpu_torch.archiver.csarc", "a", "-r", "-m5",
                   "-d16k", "--parse=exact", "--backend=cpu", "x.csa",
                   "tree"], str(tmp_path))
     for rc, out, err in res:
         assert rc == 1
-        assert "tree/r.bin" in err and "ring window" in err
+        assert "tree/t.py" in err and "IndexError" in err
 
 
 @pytest.mark.parametrize("failing", [0, 1])

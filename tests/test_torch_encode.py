@@ -14,9 +14,12 @@ envelope (one window, no wrap: csc_tpu parse_pre.py:6).  There csc_tpu
 emits a stream that the golden decoder, which keeps the reference's
 ring window, rejects; the port's group encode, run on it directly with
 the fast parse, is still byte-identical to csc_tpu's, and encode_batch
-routes such a stream at m1 / m2 to the exact parse, whose ring window
-gives golden's bytes (test_torch_exact_ring_m1.py / _m2.py), and refuses
-it at m3-m5.  Also: what encode_batch refuses, and the CLI round trip."""
+routes such a stream to the exact parse, whose ring window gives
+golden's bytes (test_torch_exact_ring_m1.py / _m2.py at m1 / m2,
+test_torch_exact_ap_ring.py at m3 / m4): at m3 / m4 it decodes through
+golden's decoder, at m5 golden's binary tree raises IndexError on it and
+encode_batch raises EncodeError naming it.  Also: what encode_batch
+refuses, and the CLI round trip."""
 import pytest
 import torch
 
@@ -100,13 +103,17 @@ def check_streams(cases, ours, ref):
             assert p.dict_size < len(data)
             with pytest.raises(DecodeError):
                 decompress_stream(p, o, 0)
-            if p.lz_mode == 3:
-                # no ring window in the exact parse at m3-m5
-                with pytest.raises(pipeline.EncodeError, match="dictionary"):
+            assert pipeline.plan_streams([p], [data])[0].parse == "exact"
+            if p.lz_mode == 3 and p.bt_size:
+                # golden's tree faults on it (IndexError past bt_size)
+                with pytest.raises(pipeline.EncodeError,
+                                   match="longer than bt_size.*IndexError"):
                     pipeline.encode_batch([p], [data], device=CPU)
-            else:
-                assert pipeline.plan_streams([p], [data])[0].parse == \
-                    "exact"
+            elif p.lz_mode == 3:
+                # the exact parse's ring window: golden's bytes
+                got = pipeline.encode_batch([p], [data], device=CPU)[0]
+                assert got == golden_encode(p, data)
+                assert decompress_stream(p, got, 0) == data
         else:
             assert decompress_stream(p, o, 0) == data, name
     props = [c[1] for c in cases]
@@ -142,12 +149,16 @@ def test_empty_stream_is_the_eof_chunk():
 
 def test_refuses_what_it_cannot_encode():
     data = corpus.words(500, 1)
-    # m3 is encoded now; a stream longer than its dictionary is still
-    # refused there (32 KB dictionary, 40 KB stream)
-    longer = corpus.repetitive(40 * 1024, 2)
-    with pytest.raises(pipeline.EncodeError, match="stream 1.*dictionary"):
-        pipeline.encode_batch([props_init(500, 1), props_init(500, 3)],
-                              [data, longer], device=CPU)
+    # a stream longer than its dictionary takes the exact parse's ring at
+    # m3-m5 too; at m5 golden's binary tree raises IndexError on most
+    # (bt_size is the dictionary), and the stream is refused by name
+    # behind one the path takes
+    _, p_ring, fault = edges.exact_bt_ring_cases()[-1]
+    assert len(fault) > p_ring.dict_size == p_ring.bt_size
+    with pytest.raises(pipeline.EncodeError,
+                       match=r"stream\(s\) \[1\]: longer than bt_size"):
+        pipeline.encode_batch([props_init(500, 1), p_ring], [data, fault],
+                              device=CPU)
     # every stream past the fast parse's cap takes the exact parse, m5
     # too; where golden's binary tree raises IndexError (a bt_size below
     # the stream) there are no reference bytes to write

@@ -29,6 +29,7 @@ from csc_tpu_torch.ops import (exact_kernel, parse_ap_kernel, parse_kernel,
                                pipeline)
 from csc_tpu_torch.props import props_init, write_properties
 
+import torch_edge_cases as edges
 import torch_fixtures as fixture
 import torch_ring_cases as ring
 
@@ -94,8 +95,9 @@ def check_refused(level, refused):
     before it followed golden's ring window, is taken by it under either
     parse (its bytes are golden's in test_torch_exact_ring_m1.py / _m2.py;
     csc_tpu's device parse, which has no ring, writes a stream golden
-    rejects, test_torch_encode.py); m3-m5 past the dictionary (whose
-    ring the exact optimal parse does not follow) still raises
+    rejects, test_torch_encode.py); m3-m5 past the dictionary, which the
+    exact optimal parse's ring now takes, is refused only where golden's
+    own binary tree raises IndexError (m5, bt_size the dictionary):
     EncodeError naming the stream (its index in a batch behind a stream
     the path takes) and the reason."""
     from csc_tpu.ops import pipeline as j_pipeline
@@ -119,14 +121,14 @@ def check_refused(level, refused):
         assert decompress_stream(p, o, 0) == data, name
     assert pipeline.decode_batch([c[1] for c in taken], ours,
                                  device=CPU) == [c[2] for c in taken]
-    # m3-m5 past the dictionary (the exact optimal parse does not follow
-    # golden's ring window)
-    longer = corpus.repetitive(48 * 1024, 2)
+    # m5 past the dictionary where golden's tree raises IndexError
+    _, p_ring, fault = edges.exact_bt_ring_cases()[-1]
+    assert len(fault) > p_ring.dict_size
     with pytest.raises(pipeline.EncodeError,
-                       match=r"stream 1: 49152 bytes is more than its "
-                             r"32768-byte dictionary .*lz_mode 3"):
-        pipeline.encode_batch([text[1], props_init(1024, 5)],
-                              [text[2], longer], device=CPU, parse="exact")
+                       match=r"stream\(s\) \[1\]: longer than bt_size.*"
+                             r"IndexError"):
+        pipeline.encode_batch([text[1], p_ring], [text[2], fault],
+                              device=CPU, parse="exact")
 
 
 def check_cli(level, tmp_path, monkeypatch):

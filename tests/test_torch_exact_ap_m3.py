@@ -58,7 +58,7 @@ def ap_run(level, tmp, cases=None):
     with pytest.MonkeyPatch.context() as mp:
         ring.use_host_builds(mp, (k1, k3, None), ("k1", "k3"))
 
-        def k6(*args):
+        def k6(*args, ring=None):
             trace = []
             out = exact_ap_scan.exact_ap_plain(*args, trace=trace)
             calls.append((args, out, trace))

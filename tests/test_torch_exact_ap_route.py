@@ -3,8 +3,10 @@ under parse="fast" an m3 stream over encode_host.MAX_ENCODE takes it, as
 csc_tpu hands such a stream to its golden encoder, so its bytes are
 golden's and equal parse="exact"'s, while a stream under the cap in the
 same batch keeps the fast parse (K4); golden's binary-tree IndexError
-stream over the cap, and m3-m5 past the dictionary, still raise
-EncodeError naming the stream and the reason; `c -m3 --parse exact` writes csc_tpu's file and
+stream over the cap still raises EncodeError naming the stream and the
+reason, and m3-m5 past the dictionary take the exact parse (its ring
+window, test_torch_exact_ap_ring.py) under either parse; `c -m3 --parse
+exact` writes csc_tpu's file and
 `csarc a -m4 --parse=exact --backend=cpu` csc_tpu's archive.  The cap is
 lowered to 2 KB with monkeypatch and the inputs are short and
 repetitive, so that the plain versions run in seconds; the real sizes
@@ -55,7 +57,9 @@ def test_fast_parse_past_the_cap_takes_k6(small_cap):
 def test_m5_and_the_ring_are_refused(small_cap):
     """m5 past the cap or under the exact parse takes K6's tree
     (test_torch_exact_bt_route.py); still refused: golden's IndexError
-    stream past the cap, and m3-m5 past the dictionary."""
+    stream past the cap.  m3-m5 past the dictionary are no longer
+    refused: they take the exact parse (its ring window) whatever the
+    parse asked for (the name is kept from when they were refused)."""
     small, _ = small_cap
     _, m5, fault = edges.bt_fault_case()
     with pytest.raises(pipeline.EncodeError,
@@ -65,17 +69,12 @@ def test_m5_and_the_ring_are_refused(small_cap):
                               [small, fault], device=CPU)
     assert e.value.streams == [1]
     longer = corpus.repetitive(40 * 1024, 2)
-    with pytest.raises(pipeline.EncodeError,
-                       match="stream 0: 40960 bytes is more than its "
-                             "32768-byte dictionary and .*lz_mode 3"):
-        pipeline.plan_streams([props_init(1024, 5)], [longer], "exact")
-    p4 = props_init(1024, 4)
-    for parse in pipeline.PARSES:
-        with pytest.raises(pipeline.EncodeError,
-                           match="stream 0: 40960 bytes is more than its "
-                                 "32768-byte dictionary and .*lz_mode 3.*"
-                                 "ring window"):
-            pipeline.plan_streams([p4], [longer], parse)
+    for level in (3, 4, 5):
+        p = props_init(1024, level)
+        assert p.dict_size == 32768 < len(longer)
+        for parse in pipeline.PARSES:
+            plan = pipeline.plan_streams([p], [longer], parse)[0]
+            assert plan.parse == "exact", (level, parse)
 
 
 def test_cli_c_m3_parse_exact_writes_csc_tpus_file(tmp_path, monkeypatch):

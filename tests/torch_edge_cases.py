@@ -747,3 +747,94 @@ def bt_fault_case():
     return ("fault", _bt_props(BT_SMALL),
             r[:2000] + phrase + r[2100:BT_SMALL - 100] + phrase
             + r[BT_SMALL:])
+
+
+RING_D = 26 * 1024   # props_init's request: a 36 KB dictionary and ring
+
+
+def _ring_props(level, filters=False, request=RING_D, raw_blocksize=None):
+    q = props.props_init(request, level)
+    if not filters:
+        q.DLTFilter = q.EXEFilter = q.TXTFilter = 0
+    if raw_blocksize:
+        q.raw_blocksize = raw_blocksize
+    return q
+
+
+def _ring_cut(text, wnd):
+    """A stream that makes a source stop at the ring's end: text up to
+    the ring's end whose last 300 bytes are a block P (two bytes no text
+    holds at its end, so the first lap ends in a literal: golden's m5
+    tree completes there), then P twice more, then text; after the wrap
+    each position of P finds the last lap's P at distance 300, whose
+    compare the ring cuts where a linear one would run on."""
+    k = 1024
+    p = text[100 * k:100 * k + 298] + b"\xfe\xff"
+    return (text[:wnd - 300] + p + p + p
+            + text[150 * k:150 * k + 60 * k - wnd - 600])
+
+
+def exact_ap_ring_cases(level):
+    """(name, props, data) streams longer than their dictionary for the
+    exact optimal parse of m3 / m4 (golden's ring window: K6's ring
+    kernel, csrc/encode_k6.cuh `RING`; the plain version ops/
+    exact_ap_scan.py), each driving a rule the plain version counts
+    (`stats`):
+
+      text   96 KB of torch source under a 36 KB dictionary, filters off:
+             ring ends at 36 and 72 KB, off the 8 KB grid (pieces cut
+             there), the literal priced at ring position 0 (`ring_lit0`)
+      lit0   40 KB of torch source under 36 KB, filters off: a stretch
+             from ring position 0 whose literal price, at context 0 there,
+             decides the path (at the previous lap's last byte as context
+             the tokens differ at m3 and m4)
+      cut    60 KB, the last 300 bytes of the first lap repeated past the
+             wrap (`_ring_cut`): sources stopped at the ring's end
+             (`ring_cut`)
+      runs   96 KB under 36 KB, filters on: random bytes at 24-40 KB (a
+             DT_BAD run across the first ring end), text, the first 8 KB
+             of them again at 48 KB (DT_BAD, but the duplicate probe hits
+             its first lap's copy, across the wrap, and re-types it
+             DT_NORMAL), a DT_ENTROPY and a DT_DLT block up to the second
+             ring end, text
+      chunks 80 KB of repetitive text in two 40 KB raw chunks under a
+             32 KB dictionary: a piece cut at the ring's end and the
+             chunk's
+    """
+    k = 1024
+    text = corpus.torch_python_text(512 * k)
+    rng = np.random.default_rng(37)
+    rnd = rng.integers(0, 256, 8 * k, dtype=np.uint8).tobytes()
+    ten = (rng.integers(0, 10, 8 * k, dtype=np.uint8) * 7 + 65).tobytes()
+    wnd = _ring_props(level).dict_size
+    rnd2 = rng.integers(0, 256, 8 * k, dtype=np.uint8).tobytes()
+    runs = (text[200 * k:224 * k] + rnd + rnd2 + text[240 * k:248 * k]
+            + rnd + ten + corpus.dlt_ramp(8 * k) + text[260 * k:284 * k])
+    return [("text", _ring_props(level), text[300 * k:396 * k]),
+            ("lit0", _ring_props(level), text[147279:147279 + 40 * k]),
+            ("cut", _ring_props(level), _ring_cut(text, wnd)),
+            ("runs", _ring_props(level, True), runs),
+            ("chunks", _ring_props(level, request=k,
+                                   raw_blocksize=40 * k),
+             corpus.repetitive(80 * k, 3))]
+
+
+def exact_bt_ring_cases():
+    """(name, props, data) streams longer than their dictionary at m5
+    (K6's tree in its ring kernel), the m5 preset of a 36 KB dictionary,
+    filters off; bt_size is the dictionary, so each is past bt_size too:
+
+      cut    `_ring_cut` (the first lap ends in a literal, so golden's
+             tree completes): the tree's walks stopped at the ring's end
+      ring48 ring48: the random 8 KB across the ring's end (a DT_BAD run,
+             the sparse insertion wrapping bt_pos) and repetitive text
+      fault  72 KB of torch source: the first lap ends in a match whose
+             slide leaves bt_pos at bt_size, so golden's next find raises
+             IndexError (golden/mf.py:359)
+    """
+    k = 1024
+    text = corpus.torch_python_text(512 * k)
+    wnd = _ring_props(5).dict_size
+    return [("cut", _ring_props(5), _ring_cut(text, wnd)),
+            ring48(5),
+            ("fault", _ring_props(5), text[:72 * k])]

@@ -43,6 +43,9 @@ REFERENCES = {
     **{f"encode_exact_m{lv}": ("test_torch_encode_exact_m1", "reference",
                                (lv,)) for lv in (1, 2)},
     "k3_edges_jax": ("test_torch_k3_edges_jax", "reference", ()),
+    **{f"exact_ap_ring_m{lv}": ("test_torch_exact_ap_ring", "reference",
+                                (lv,)) for lv in (3, 4)},
+    "exact_bt_ring_m5": ("test_torch_exact_ap_ring", "reference", (5,)),
 }
 
 

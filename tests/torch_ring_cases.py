@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from csc_tpu_torch import corpus
-from csc_tpu_torch.ops import pipeline
+from csc_tpu_torch.ops import exact_ap_scan, pipeline
 from csc_tpu_torch.props import props_init
 
 import test_torch_exact_host
@@ -182,6 +182,16 @@ def gxx_k1_k3(monkeypatch, tmp):
     use_host_builds(monkeypatch, (k1, k3, None), ("k1", "k3"))
 
 
+def _memo_key(a):
+    """A kernel argument as a key: a tensor by its dtype, shape and bytes,
+    K6's binary tree (exact_ap_scan.BT) by its size, bits and cycles."""
+    if torch.is_tensor(a):
+        return a.dtype, tuple(a.shape), a.numpy().tobytes()
+    if isinstance(a, exact_ap_scan.BT):
+        return "BT", a.size, a.bits, a.cyc
+    return a
+
+
 def memo_kernels(monkeypatch, names=("parse_k5", "code_k3")):
     """Make the pipeline's kernels `names` (K5 and K3 by default) give a
     call on inputs they have seen that call's outputs (their outputs
@@ -192,12 +202,11 @@ def memo_kernels(monkeypatch, names=("parse_k5", "code_k3")):
     for name in names:
         real, cache = getattr(pipeline, name), {}
 
-        def call(*args, _real=real, _cache=cache, _name=name):
-            key = tuple((a.dtype, tuple(a.shape), a.numpy().tobytes())
-                        if torch.is_tensor(a) else a for a in args)
+        def call(*args, _real=real, _cache=cache, _name=name, **kw):
+            key = tuple(_memo_key(a) for a in args) + tuple(sorted(kw.items()))
             if key not in _cache:
                 ran.append(_name)
-                _cache[key] = _real(*args)
+                _cache[key] = _real(*args, **kw)
             return _cache[key]
         monkeypatch.setattr(pipeline, name, call)
     return ran
