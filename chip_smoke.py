@@ -6,9 +6,10 @@
 Phases, each printing its own line; the first failure raises:
   1. device          nvidia-smi name and power limit, torch's device name
   2. build           K1-K6 and the ten spike libraries (csrc/*.cu) with
-                     nvcc into build/, one nvcc per source started
-                     together, with ptxas's reports of K1-K6 and their
-                     registers (K5's of each of its two kernels), stack
+                     nvcc into build/, one nvcc per source (K6's in five
+                     parts, _build.PARTS) started together, with ptxas's
+                     reports of K1-K6 and their registers (K5's of each
+                     of its two kernels), stack
                      frame, LDL / STL counts (SASS), K1's blocks per SM
                      and K4's, K5's and K6's shared memory a block and
                      blocks per SM (K6's of each of its four kernels:
@@ -55,7 +56,9 @@ Phases, each printing its own line; the first failure raises:
                      on the first whole 1 MB task stream (k6_host); at
                      m3, m5 and the m5 task K6's phase-clock build on the
                      same inputs, its outputs equal to K6's and its split
-                     of block 0's cycles (k6_phases)
+                     of block 0's cycles (k6_phases), and on kernel_ab.py's
+                     ring cell (96 x 48 KB m3 past a 36 KB dictionary: the
+                     ring kernel) against the normal build's raw launch
   8. extract         one archiver extract group: 256 x 1 MB m1 text
   9. cli             `c` then `d` with --backend cuda on a 1 MB file, `c
                      --parse exact` then `d` on it, and `d` of the first
@@ -152,10 +155,11 @@ Every count of launches is read around a main-path run (phases 4-9b2,
 13; K6's ring kernels: 9a5).
 Phase 12's plain versions run on the host's CPU in worker processes
 (`chip_smoke.py --plain FILE`, one thread each, at a lower priority than
-the main process), started once phases 4-9
-are timed, so they overlap phases 10 and 11; on the card a plain version
-takes several ms a lockstep step.  The last two lines are the kernels'
-JSON record and the ok line.
+the main process): those of phases 4-7c start once 7c is timed, so they
+overlap phases 8-11, the others once phase 9 is timed; on the card a
+plain version takes several ms a lockstep step.  Each line's `at_s` is
+the seconds since the script started.  The last two lines are the
+kernels' JSON record and the ok line.
 """
 import json
 import os
@@ -254,7 +258,12 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+START = time.time()
+
+
 def phase(tag, **kv):
+    """A phase's line; `at_s` the seconds since the script started."""
+    kv["at_s"] = f"{time.time() - START:.1f}"
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -1722,6 +1731,27 @@ def main(procs):
           fields_compared=len(FIELDS["K6"]), max_abs_err=k6_task_err,
           gxx_seconds=f"{k6_task_s:.2f}", build="csrc/encode_k6_host.cpp "
           "with g++")
+    # the phase-clock build on kernel_ab.py's ring cell (96 x 48 KB m3
+    # text past a 36 KB dictionary: the ring kernel), held to the normal
+    # build's raw launch on the same inputs (neither counts as a launch)
+    _, ring_args = next(k6_phases.cells_inputs(dev, ["ring_m3"], text))
+    ph_out, ph = k6_phases.run(k6ph_lib, ring_args)
+    k6_phases_err = max(k6_phases_err, compare(
+        "ring_m3 against K6's phase-clock build", "K6", ph_out,
+        k6_phases.launch(_build.kernel_library("csc_k6"), ring_args)))
+    split = k6_phases.summary(ring_args, ph_out, ph)
+    phase("k6_phases", cell="ring_m3", max_abs_err=k6_phases_err,
+          block0_cycles=split["cycles"],
+          cycles_per_position=split["cycles_per_position"],
+          **split["counts"],
+          **{k: f"{c:.4f}" for k, c in split["share"].items()})
+    del ph_out, ring_args
+    # phase 12's workers on the plain versions of phases 4-7c start here,
+    # beside phases 8-9
+    procs.extend(start_plain(jobs, sdir))
+    phase("plain_start", workers=len(procs),
+          jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
+                        for j in jobs))
 
     # ----------------------------------------------------------- 8 extract
     gps = gp * GROUP_REPEAT
@@ -1856,16 +1886,16 @@ def main(procs):
     arc_launches = archiver_phase(dev, "cuda", hd[:MESH_STREAMS])
     phase("archiver_done", seconds=f"{time.time() - t0:.1f}")
 
-    # --------------------------- 12 plain (workers on the CPU) start here
-    jobs += k3_edge_jobs(dev)
-    jobs.append(ring_plain_job(dev))
-    jobs += [ring_ap_plain_job(dev, level, staged) for level in (3, 5)
-             for staged in (False, True)]
-    jobs += ring_ap_jobs
-    procs.extend(start_plain(jobs, sdir))
+    # ---------------------- 12 plain (workers on the CPU): the rest start
+    new = k3_edge_jobs(dev) + [ring_plain_job(dev)]
+    new += [ring_ap_plain_job(dev, level, staged) for level in (3, 5)
+            for staged in (False, True)]
+    new += ring_ap_jobs
+    procs.extend(start_plain(new, sdir, len(jobs)))
+    jobs += new
     phase("plain_start", workers=len(procs),
           jobs=",".join(f"{j['kernel']}:{j['tag'].replace(' ', '_')}"
-                        for j in jobs))
+                        for j in new))
 
     # ---------------------------------------------------- 10 encode_parity
     props = [c[1] for c in par]

@@ -5,7 +5,8 @@ build/ at the root of the checkout, under a name keyed by a hash of the
 sources and flags, so a changed source builds anew and an unchanged one
 loads at once.  The sources have a plain C interface (no PyTorch
 headers), which keeps a build to seconds.  `build_kernels` starts one
-nvcc per kernel, all at once.  The host runtime (csrc/csc_host.cpp: the
+nvcc per kernel, all at once; a file in PARTS is compiled in parts, one
+nvcc a part, and linked.  The host runtime (csrc/csc_host.cpp: the
 content filters and the block analyzer) is compiled the same way with
 g++.  A failed build raises: nothing falls back to another path.
 """
@@ -33,6 +34,10 @@ KERNELS = {
     "csc_k5": ["encode_k5.cu", "encode_k5.cuh"],
     "csc_k6": ["encode_k6.cu", "encode_k6.cuh", "encode_k5.cuh"],
 }
+# files compiled in parts: file -> (macro, parts), part i compiled with
+# -D<macro>=i (where the file names the macro; an older checkout's file
+# is one part)
+PARTS = {"encode_k6.cu": ("K6_PART", 5)}
 # the spike probes (csc_tpu_torch/spikes): one library per spike file
 SPIKE_FILES = ("carry", "dma", "gather", "marginal", "mxu_stage", "pallas",
                "pallas2", "pallas3", "regops", "roofline")
@@ -85,25 +90,60 @@ def _target(sources, name, flags, csrc=CSRC):
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
+def _parts(src):
+    """The macro and count of parts <src> is compiled in (None: one)."""
+    part = PARTS.get(os.path.basename(src))
+    if part is not None:
+        with open(src) as f:
+            if part[0] not in f.read():
+                part = None
+    return part
+
+
 def _start(compiler, flags, sources, so, csrc=CSRC):
-    """Start one compile of <csrc>/<sources[0]> into `so`; returns
-    (process, tmp path, command)."""
+    """Start the compile of <csrc>/<sources[0]> into `so`, one process or
+    one a part (PARTS); returns (processes, commands, link command, tmp
+    path)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [compiler] + flags + ["-o", tmp, os.path.join(csrc, sources[0])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return proc, tmp, cmd
+    src = os.path.join(csrc, sources[0])
+    part = _parts(src)
+    if part is None:
+        cmds, link = [[compiler] + flags + ["-o", tmp, src]], None
+    else:
+        objs = [f"{tmp}.{i}.o" for i in range(part[1])]
+        base = [f for f in flags if f != "-shared"] + ["-c"]
+        cmds = [[compiler] + base + [f"-D{part[0]}={i}", "-o", o, src]
+                for i, o in enumerate(objs)]
+        link = [compiler, "-shared", "-o", tmp] + objs
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    return procs, cmds, link, tmp
 
 
 def _finish(job, so):
-    proc, tmp, cmd = job
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"build failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{err}")
+    procs, cmds, link, tmp = job
+    errs, failed = [], []
+    for proc, cmd in zip(procs, cmds):
+        _, err = proc.communicate()
+        errs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"build failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if not failed and link is not None:
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"link failed ({res.returncode}): "
+                          f"{' '.join(link)}\n{res.stderr}")
+    if link is not None:
+        for obj in link[4:]:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     with open(so + ".log", "w") as f:   # the compiler's report (ptxas -v)
-        f.write(err)
+        f.write("".join(errs))
     os.replace(tmp, so)
 
 
@@ -175,12 +215,13 @@ def resources(name, csrc=CSRC):
     return res
 
 
-def build(sources, name, compiler=None, flags=NVCC_FLAGS):
-    """Compile sources (names in csrc/, the first the file to compile)
-    into build/lib<name>_<hash>.so unless it exists; return its path."""
-    so = _target(sources, name, flags)
+def build(sources, name, compiler=None, flags=NVCC_FLAGS, csrc=CSRC):
+    """Compile sources (names in csrc/, the first the file to compile;
+    `csrc`: another checkout's sources) into build/lib<name>_<hash>.so
+    unless it exists; return its path."""
+    so = _target(sources, name, flags, csrc)
     if not os.path.exists(so):
-        _finish(_start(compiler or _nvcc(), flags, sources, so), so)
+        _finish(_start(compiler or _nvcc(), flags, sources, so, csrc), so)
     return so
 
 

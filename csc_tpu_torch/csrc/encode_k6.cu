@@ -29,9 +29,31 @@
 // and its DP step a chain of dependent cell and probability loads (at
 // m5 the tree's walk a chain of dependent link loads too): K6 is bound
 // by load latency, not by bytes.
+//
+// The build (csc_tpu_torch/_build.py, PARTS) compiles this file in five
+// parts, one nvcc each, all started together, and links them: with
+// -DK6_PART=i for i < 4 the kernel k6_parse_kernel<i / 2, i % 2> and its
+// attribute, launch, occupancy (and phase-clock) functions, with
+// -DK6_PART=4 the C interface that calls them.  Without K6_PART it is
+// all one.  Each kernel's nvcc thus runs beside the others'.
 #include <cuda_runtime.h>
 
+#if defined(K6_PART) && defined(K6_PHASES)
+// a __device__ variable is a host symbol too: each part's phase clocks
+// under a name of its own, so the parts link
+#define K6_CLOCKS_NAME(p) k6_phases_##p
+#define K6_CLOCKS(p) K6_CLOCKS_NAME(p)
+#define k6_phases K6_CLOCKS(K6_PART)
+#endif
 #include "encode_k6.cuh"
+
+#ifndef K6_PART
+#define K6_KERNELS 1
+#define K6_GLUE 1
+#else
+#define K6_KERNELS (K6_PART < 4)
+#define K6_GLUE (K6_PART == 4)
+#endif
 
 // the model's part of a block's shared memory: the length cache, the
 // small trees, the p_2_bits table
@@ -54,6 +76,42 @@ struct K6Tree {
     int64_t stride;
 };
 
+// a launch's arguments (the kernel's, after the batch and the stream)
+struct K6Args {
+    const uint8_t* data;
+    int64_t n;
+    const int32_t* blocks;
+    int32_t nblk;
+    const int32_t* sizes;
+    const int32_t* dict_sizes;
+    int32_t hash_bits, hash_width, good_len;
+    const uint16_t* p2b;
+    int32_t *ht2, *ht3, *ht6;
+    uint16_t* lit;
+    int32_t *cells, *tape;
+    int64_t tcap;
+    int32_t *out, *btypes;
+    K6Tree tree;
+};
+
+constexpr int K6_MAX_DEVICES = 64;
+
+// each kernel's functions, defined in its part (they keep no state: a
+// function-local static of a template the parts share would be one
+// object in every library of the process that defines it)
+template <bool BT, bool RING>
+cudaError_t k6_carve_one(int pct, bool size);
+template <bool BT, bool RING>
+cudaError_t k6_launch_one(int32_t batch, cudaStream_t stream,
+                          const K6Args& a);
+template <bool BT, bool RING>
+int k6_occupancy(int64_t n, int* blocks);
+#ifdef K6_PHASES
+template <bool BT, bool RING>
+cudaError_t k6_phases_take(unsigned long long* acc);
+#endif
+
+#if K6_KERNELS
 // one block a stream, one warp a block; the whole register file allowed
 // one block, as K5's (K5's parse is K6's finder).  RING: the streams
 // longer than their dictionary, the others returning at once (and the
@@ -135,28 +193,73 @@ __global__ void __launch_bounds__(k5::WARP, 1) k6_parse_kernel(
     }
 }
 
-// a kernel's shared memory: the most a block may take (set once a
-// device), and the share of the SM's 256 KB that is shared memory (pct,
-// the rest L1)
-constexpr int K6_MAX_DEVICES = 64;
-
+// a kernel's shared memory: the most a block may take (if `size`), and
+// the share of the SM's 256 KB that is shared memory (pct, the rest L1)
 template <bool BT, bool RING>
-static cudaError_t k6_carve_one(int dev, int pct) {
-    static bool sized[K6_MAX_DEVICES];
-    if (dev < 0 || dev >= K6_MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (!sized[dev]) {
+cudaError_t k6_carve_one(int pct, bool size) {
+    if (size) {
         cudaError_t e = cudaFuncSetAttribute(
             k6_parse_kernel<BT, RING>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)k6_smem(k5::STAGE_MAX));
         if (e != cudaSuccess) return e;
-        sized[dev] = true;
     }
     return cudaFuncSetAttribute(k6_parse_kernel<BT, RING>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 pct);
 }
 
+// one launch of the kernel
+template <bool BT, bool RING>
+cudaError_t k6_launch_one(int32_t batch, cudaStream_t stream,
+                          const K6Args& a) {
+    k6_parse_kernel<BT, RING><<<batch, k5::WARP, k6_smem(a.n), stream>>>(
+        a.data, a.n, a.blocks, a.nblk, a.sizes, a.dict_sizes, a.hash_bits,
+        a.hash_width, a.good_len, a.p2b, a.ht2, a.ht3, a.ht6, a.lit, a.cells,
+        a.tape, a.tcap, a.out, a.btypes, a.tree);
+    return cudaGetLastError();
+}
+
+// the occupancy of a launch's kernel, its shared memory taken first for
+// a staged stream, L1 for another
+template <bool BT, bool RING>
+int k6_occupancy(int64_t n, int* blocks) {
+    cudaError_t e = k6_carve_one<BT, RING>(
+        n <= k5::STAGE_MAX ? cudaSharedmemCarveoutMaxShared
+                           : cudaSharedmemCarveoutMaxL1, true);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, k6_parse_kernel<BT, RING>, k5::WARP, k6_smem(n));
+}
+
+#ifdef K6_PHASES
+// the kernel's phase clocks and counts added into acc [k5::K6_NPHASE],
+// and zeroed
+template <bool BT, bool RING>
+cudaError_t k6_phases_take(unsigned long long* acc) {
+    unsigned long long v[k5::K6_NPHASE];
+    cudaError_t e = cudaMemcpyFromSymbol(v, k5::k6_phases, sizeof(v));
+    if (e != cudaSuccess) return e;
+    for (int i = 0; i < k5::K6_NPHASE; ++i) acc[i] += v[i];
+    const unsigned long long zero[k5::K6_NPHASE] = {};
+    return cudaMemcpyToSymbol(k5::k6_phases, zero, sizeof(zero));
+}
+#endif
+
+#ifdef K6_PART
+// this part's kernel
+constexpr bool K6_BT = K6_PART / 2 == 1, K6_RING = K6_PART % 2 == 1;
+template cudaError_t k6_carve_one<K6_BT, K6_RING>(int, bool);
+template cudaError_t k6_launch_one<K6_BT, K6_RING>(int32_t, cudaStream_t,
+                                                   const K6Args&);
+template int k6_occupancy<K6_BT, K6_RING>(int64_t, int*);
+#ifdef K6_PHASES
+template cudaError_t k6_phases_take<K6_BT, K6_RING>(unsigned long long*);
+#endif
+#endif
+#endif  // K6_KERNELS
+
+#if K6_GLUE
 // a staged launch of `batch` blocks takes as much shared memory as the
 // blocks that one SM holds of the batch need (and the 1 KB a block that
 // CUDA reserves), the rest of the SM's 256 KB as L1, which caches the
@@ -164,10 +267,11 @@ static cudaError_t k6_carve_one(int dev, int pct) {
 // keeps most of it (4-7 % off the 96 and 1 024 x 16 KB cells on the
 // H100); a group that fills the SMs takes the shared memory it needs.
 // An unstaged launch takes L1 first.  The device's SM count and shared
-// memory are read once.
+// memory are read once, the most a block may take set once.
 template <bool BT>
 static cudaError_t k6_carve(int64_t n, int32_t batch) {
     static int sms[K6_MAX_DEVICES], maxsm[K6_MAX_DEVICES];
+    static bool sized[K6_MAX_DEVICES];
     int dev;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
@@ -190,32 +294,20 @@ static cudaError_t k6_carve(int64_t n, int32_t batch) {
         pct = (int)((need * 100 + bytes - 1) / bytes);
         pct = pct > 100 ? 100 : pct < 1 ? 1 : pct;
     }
-    e = k6_carve_one<BT, false>(dev, pct);
-    return e == cudaSuccess ? k6_carve_one<BT, true>(dev, pct) : e;
+    e = k6_carve_one<BT, false>(pct, !sized[dev]);
+    if (e == cudaSuccess) e = k6_carve_one<BT, true>(pct, !sized[dev]);
+    if (e == cudaSuccess) sized[dev] = true;
+    return e;
 }
 
 // the covered streams' kernel, then the ring's, on the same arguments
 template <bool BT>
-static cudaError_t k6_launch_both(
-    int32_t batch, int64_t n, cudaStream_t stream, const uint8_t* data,
-    const int32_t* blocks, int32_t nblk, const int32_t* sizes,
-    const int32_t* dict_sizes, int32_t hash_bits, int32_t hash_width,
-    int32_t good_len, const uint16_t* p2b, int32_t* ht2, int32_t* ht3,
-    int32_t* ht6, uint16_t* lit, int32_t* cells, int32_t* tape,
-    int64_t tcap, int32_t* out, int32_t* btypes, K6Tree tree) {
-    cudaError_t e = k6_carve<BT>(n, batch);
+static cudaError_t k6_launch_both(int32_t batch, cudaStream_t stream,
+                                  const K6Args& a) {
+    cudaError_t e = k6_carve<BT>(a.n, batch);
     if (e != cudaSuccess) return e;
-    k6_parse_kernel<BT, false><<<batch, k5::WARP, k6_smem(n), stream>>>(
-        data, n, blocks, nblk, sizes, dict_sizes, hash_bits, hash_width,
-        good_len, p2b, ht2, ht3, ht6, lit, cells, tape, tcap, out, btypes,
-        tree);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    k6_parse_kernel<BT, true><<<batch, k5::WARP, k6_smem(n), stream>>>(
-        data, n, blocks, nblk, sizes, dict_sizes, hash_bits, hash_width,
-        good_len, p2b, ht2, ht3, ht6, lit, cells, tape, tcap, out, btypes,
-        tree);
-    return cudaGetLastError();
+    e = k6_launch_one<BT, false>(batch, stream, a);
+    return e == cudaSuccess ? k6_launch_one<BT, true>(batch, stream, a) : e;
 }
 
 // Launch on `stream` (the covered streams' kernel, then the ring's);
@@ -238,12 +330,13 @@ extern "C" int csc_k6_launch(
         || tcap < 1 || nblk < 1)
         return (int)cudaErrorInvalidValue;
     return (int)k6_launch_both<false>(
-        batch, n, (cudaStream_t)stream, (const uint8_t*)data,
-        (const int32_t*)blocks, nblk, (const int32_t*)sizes,
-        (const int32_t*)dict_sizes, hash_bits, hash_width, good_len,
-        (const uint16_t*)p2b, (int32_t*)ht2, (int32_t*)ht3, (int32_t*)ht6,
-        (uint16_t*)lit, (int32_t*)cells, (int32_t*)tape, tcap,
-        (int32_t*)out, (int32_t*)btypes, K6Tree{});
+        batch, (cudaStream_t)stream,
+        K6Args{(const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+               (const int32_t*)sizes, (const int32_t*)dict_sizes, hash_bits,
+               hash_width, good_len, (const uint16_t*)p2b, (int32_t*)ht2,
+               (int32_t*)ht3, (int32_t*)ht6, (uint16_t*)lit, (int32_t*)cells,
+               (int32_t*)tape, tcap, (int32_t*)out, (int32_t*)btypes,
+               K6Tree{}});
 }
 
 // csc_k6_launch of m5's parse, with the binary tree (hash_width 0, no
@@ -262,14 +355,14 @@ extern "C" int csc_k6_bt_launch(
         || good_len > k6::MAX_GOOD_BT || tcap < 1 || nblk < 1 || stride < 2)
         return (int)cudaErrorInvalidValue;
     return (int)k6_launch_both<true>(
-        batch, n, (cudaStream_t)stream, (const uint8_t*)data,
-        (const int32_t*)blocks, nblk, (const int32_t*)sizes,
-        (const int32_t*)dict_sizes, bt_bits, 0, good_len,
-        (const uint16_t*)p2b, (int32_t*)ht2, (int32_t*)ht3, nullptr,
-        (uint16_t*)lit, (int32_t*)cells, (int32_t*)tape, tcap,
-        (int32_t*)out, (int32_t*)btypes,
-        K6Tree{bt_bits, bt_cyc, (const int32_t*)bt_sizes,
-               (int32_t*)bt_head, (int32_t*)bt_nodes, stride});
+        batch, (cudaStream_t)stream,
+        K6Args{(const uint8_t*)data, n, (const int32_t*)blocks, nblk,
+               (const int32_t*)sizes, (const int32_t*)dict_sizes, bt_bits, 0,
+               good_len, (const uint16_t*)p2b, (int32_t*)ht2, (int32_t*)ht3,
+               nullptr, (uint16_t*)lit, (int32_t*)cells, (int32_t*)tape, tcap,
+               (int32_t*)out, (int32_t*)btypes,
+               K6Tree{bt_bits, bt_cyc, (const int32_t*)bt_sizes,
+                      (int32_t*)bt_head, (int32_t*)bt_nodes, stride}});
 }
 
 // shared memory a block of streams n bytes wide
@@ -278,21 +371,6 @@ extern "C" int64_t csc_k6_smem(int64_t n) { return (int64_t)k6_smem(n); }
 // the int32 words of a stream's cells (NFIELD * CELLS)
 extern "C" int64_t csc_k6_cell_words() {
     return (int64_t)k6::NFIELD * k6::CELLS;
-}
-
-// the occupancy of a launch's kernel, its shared memory taken first for
-// a staged stream, L1 for another
-template <bool BT, bool RING>
-static int k6_occupancy(int64_t n, int* blocks) {
-    int dev;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = k6_carve_one<BT, RING>(dev, n <= k5::STAGE_MAX
-                                            ? cudaSharedmemCarveoutMaxShared
-                                            : cudaSharedmemCarveoutMaxL1);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, k6_parse_kernel<BT, RING>, k5::WARP, k6_smem(n));
 }
 
 // blocks of streams n bytes wide that one SM holds at once: of streams
@@ -313,10 +391,16 @@ extern "C" int csc_k6_bt_blocks_per_sm(int64_t n, int32_t ring,
 // block 0's phase clocks and counts (k5::K6Phase order) into host memory
 // dst [k5::K6_NPHASE] uint64, and zeroes them
 extern "C" int csc_k6_phases(void* dst) {
-    cudaError_t e = cudaMemcpyFromSymbol(dst, k5::k6_phases,
-                                         sizeof(k5::k6_phases));
-    if (e != cudaSuccess) return (int)e;
-    static const unsigned long long zero[k5::K6_NPHASE] = {};
-    return (int)cudaMemcpyToSymbol(k5::k6_phases, zero, sizeof(zero));
+    unsigned long long* acc = (unsigned long long*)dst;
+    for (int i = 0; i < k5::K6_NPHASE; ++i) acc[i] = 0;
+    cudaError_t e = k6_phases_take<false, false>(acc);
+#ifdef K6_PART
+    // each part's kernel has clocks of its own
+    if (e == cudaSuccess) e = k6_phases_take<false, true>(acc);
+    if (e == cudaSuccess) e = k6_phases_take<true, false>(acc);
+    if (e == cudaSuccess) e = k6_phases_take<true, true>(acc);
+#endif
+    return (int)e;
 }
 #endif
+#endif  // K6_GLUE

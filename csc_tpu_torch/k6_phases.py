@@ -1,15 +1,18 @@
 """Where K6's time goes on one card: block 0's SM cycles in each part of
 the exact optimal parse.
 
-    python -m csc_tpu_torch.k6_phases [--json FILE] [--cells m5,task_m5]
+    python -m csc_tpu_torch.k6_phases [--json FILE] [--other DIR]
+                                      [--cells m5,task_m5,ring_m3]
 
 Builds csrc/encode_k6.cu with -DK6_PHASES (clock64 marks at the phase
 boundaries of encode_k6.cuh and of the finder's share in encode_k5.cuh,
 read back through csc_k6_phases), launches it on the encode path's
 inputs of the exact cells (m5 and m3 on 96 x 16 KB text, the m5 and m3
-tasks of 4 x 1 MB, the streams of kernel_ab.py) and prints, for block
-0's stream, each phase's cycles a position (a find), its share of the
-stream's cycles, and the counts.  The phases:
+tasks of 4 x 1 MB, the m3 streams past their dictionary of 96 x 48 KB
+text under a 36 KB dictionary: the ring kernel; the streams of
+kernel_ab.py) and prints, for block 0's stream, each phase's cycles a
+position (a find), its share of the stream's cycles, and the counts.
+The phases:
 
   find     the find's hashes, table loads, lanes' compares and fold
            (K5's find_records up to the tree)
@@ -25,13 +28,18 @@ stream's cycles, and the counts.  The phases:
   other    the run loop, the walk of the blocks, the sparse insertion
   mark     one mark's own cost (subtract it from each mark)
 
-The marks cost cycles of their own: read the shares here and take the
-kernel's time from kernel_ab.py.  `run` returns the phase build's
-outputs, which chip_smoke.py holds to the normal build's.
+With --other DIR (the root of another checkout with the same marks,
+for example a `git archive` of the parent commit under build/), that
+checkout's phase build runs each cell too, before this one's, and its
+lines are tagged "other".  The marks cost cycles of their own: read the
+shares here and take the kernel's time from kernel_ab.py.  `run`
+returns the phase build's outputs, which chip_smoke.py holds to the
+normal build's (`launch`).
 """
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 
 import numpy as np
@@ -47,10 +55,11 @@ PHASES = ("find", "walk", "insert", "slide", "price", "cells", "lit",
 COUNTS = ("finds", "walk_steps", "inserts", "insert_steps", "stretches")
 
 
-def library():
-    """The K6 library built with its phase clocks."""
+def library(csrc=_build.CSRC):
+    """The K6 library built with its phase clocks (from another
+    checkout's sources: `csrc`, its csc_tpu_torch/csrc)."""
     so = _build.build(_build.KERNELS["csc_k6"], "csc_k6_phases",
-                      flags=_build.NVCC_FLAGS + ["-DK6_PHASES"])
+                      flags=_build.NVCC_FLAGS + ["-DK6_PHASES"], csrc=csrc)
     lib = ctypes.CDLL(so)
     name, argtypes = _build._ARGTYPES["csc_k6"]
     getattr(lib, name).restype = ctypes.c_int
@@ -69,9 +78,10 @@ def read(lib):
     return [int(v) for v in buf]
 
 
-def run(lib, args):
-    """One launch of the phase build on parse_k6's arguments: its
-    outputs as parse_k6 gives them and the phase clocks and counts."""
+def launch(lib, args):
+    """One synchronized launch of K6 library `lib` (the phase build or
+    the normal one) on parse_k6's arguments, counted in no LAUNCHES: its
+    outputs as parse_k6 gives them."""
     data, blocks, sizes, dicts, hash_bits, hash_width, good_len, tcap, \
         bt, bt_sizes = args
     b, dev = data.shape[0], data.device
@@ -80,13 +90,20 @@ def run(lib, args):
     tape = torch.zeros((b, tcap, 2), dtype=torch.int32, device=dev)
     out = torch.zeros((3, b), dtype=torch.int32, device=dev)
     btypes = torch.zeros(blocks.shape[:2], dtype=torch.int32, device=dev)
-    read(lib)
     exact_ap_kernel.launch(lib, data, blocks, sizes, dicts, hash_bits,
                            hash_width, good_len,
                            exact_ap_kernel.p2b_table(dev), scratch, tape,
                            out, btypes, bt, bt_sizes)
     torch.cuda.synchronize()
-    return (tape, out[0], out[1], out[2], btypes), read(lib)
+    return tape, out[0], out[1], out[2], btypes
+
+
+def run(lib, args):
+    """One launch of the phase build on parse_k6's arguments: its
+    outputs as parse_k6 gives them and the phase clocks and counts."""
+    read(lib)
+    out = launch(lib, args)
+    return out, read(lib)
 
 
 def cell(lib, args):
@@ -110,18 +127,30 @@ def summary(args, out, v):
                 per_find={k: round(c / finds, 1) for k, c in cyc.items()})
 
 
-def cells_inputs(dev, names):
+def cells_inputs(dev, names, text=None):
     """K6's arguments of the named cells ("m5", "m3": 96 x 16 KB text;
-    "task_m5", "task_m3": 4 x 1 MB), as the encode path gives them."""
-    text = corpus.torch_python_text(64 * MB)
+    "task_m5", "task_m3": 4 x 1 MB; "ring_m3": kernel_ab.py's ring cell,
+    96 x 48 KB text under a 36 KB dictionary), as the encode path gives
+    them, from `text` (the corpus' 64 MB of torch sources by default)."""
+    if text is None:
+        text = corpus.torch_python_text(64 * MB)
     rng = np.random.default_rng(SEED)
     offs = sorted(int(o) for o in rng.choice(len(text) // MB - 2, 4,
                                              replace=False))
     group = [text[o * MB:(o + 1) * MB] for o in offs]
     enc = [text[i * 16 * KB:(i + 1) * 16 * KB] for i in range(96)]
+    ring = [text[i * 48 * KB:(i + 1) * 48 * KB] for i in range(96)]
     for name in names:
-        task = name.startswith("task_")
         level = int(name[-1])
+        if name.startswith("ring_"):
+            args, _, _ = stage_args([props_init(26 * KB, level)
+                                     for _ in ring], ring, dev)
+            if not bool((args[2] > args[3]).all()):
+                raise RuntimeError("k6_phases: the ring cell's streams are "
+                                   "not past their dictionary")
+            yield f"m{level} ring 96 x 48 KB", args
+            continue
+        task = name.startswith("task_")
         datas = group if task else enc
         args, _, _ = stage_args([props_init(MB if task else 16 * KB, level)
                                  for _ in datas], datas, dev, "exact")
@@ -132,8 +161,10 @@ def cells_inputs(dev, names):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="write the results here too")
-    ap.add_argument("--cells", default="m5,task_m5,m3,task_m3",
-                    help="the cells, of m5, task_m5, m3, task_m3")
+    ap.add_argument("--other", help="root of another checkout whose phase "
+                    "build runs each cell too")
+    ap.add_argument("--cells", default="m5,task_m5,m3,task_m3,ring_m3",
+                    help="the cells, of m5, task_m5, m3, task_m3, ring_m3")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k6_phases: needs a CUDA card")
@@ -142,11 +173,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    lib = library()
+    libs = {"this": library()}
+    if a.other:
+        libs = {"other": library(os.path.join(os.path.abspath(a.other),
+                                              "csc_tpu_torch", "csrc")),
+                **libs}
     res = {"card": smi}
     for name, args in cells_inputs(dev, a.cells.split(",")):
-        res[name] = cell(lib, args)
-        print(f"[k6_phases] {name}: {json.dumps(res[name])}", flush=True)
+        for who, lib in libs.items():
+            key = name if who == "this" else f"{name} (other)"
+            res[key] = cell(lib, args)
+            print(f"[k6_phases] {key}: {json.dumps(res[key])}", flush=True)
     if a.json:
         with open(a.json, "w") as f:
             json.dump(res, f, indent=1)

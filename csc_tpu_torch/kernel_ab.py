@@ -25,10 +25,12 @@ m1 and m2 on the encode headline, at m1 on 1 024 and 4 096 x 16 KB text
 an SM) and on the encode task; K6 (the exact optimal parse) at m3 and
 m4 on the encode headline, at m3 on 1 024 x 16 KB text and on the m3
 encode task, at m3 on 96 x 48 KB text under a 36 KB dictionary (its ring
-kernel: golden's ring window), and its binary-tree kernel at m5 on the
-encode headline, on 1 024 x 16 KB text, on the task and on chip_smoke.py
-phase 9a's 4.67 MB file past the cap (corpus.big_file, one stream: `c
--m5`'s launch) (K6 against a checkout without it: `--other .`, this
+kernel: golden's ring window), at m3 on chip_smoke.py phase 9a's 4.67 MB
+file past the cap (corpus.big_file, one stream: `c -m3`'s launch) and
+past a 1 MB dictionary (`c -m3 -d 1m`'s, the ring kernel), and its
+binary-tree kernel at m5 on the
+encode headline, on 1 024 x 16 KB text, on the task and on the 4.67 MB
+file (`c -m5`'s launch) (K6 against a checkout without it: `--other .`, this
 checkout against itself; the m5 cells against a checkout without the
 tree, and the ring cell against one without the ring kernel, time this
 checkout against itself).  Only the wanted kernels of the other
@@ -428,6 +430,19 @@ def main(argv=None):
                                "past their dictionary")
         cells["K6 m3 ring 96 x 48 KB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in ring], k6r, 3)
+        # chip_smoke.py phase 9a's 4.67 MB file at m3, one stream: `c
+        # -m3`'s launch past the cap, and `c -m3 -d 1m`'s past a 1 MB
+        # dictionary (the ring kernel)
+        big = corpus.big_file(text, corpus.torch_library_exe(), SEED + 9)
+        args6, _, _ = stage_args([props_init(len(big), 3)], [big], dev)
+        cells["K6 m3 past the cap 4.67 MB"] = parse_cell(
+            "csc_k6", args6, [len(big)], k6, 1)
+        args6, _, _ = stage_args([props_init(MB, 3)], [big], dev)
+        if not bool((args6[2] > args6[3]).all()):
+            raise RuntimeError("kernel_ab: `c -m3 -d 1m`'s stream is not "
+                               "past its dictionary")
+        cells["K6 m3 past -d 1m 4.67 MB"] = parse_cell(
+            "csc_k6", args6, [len(big)], k6r, 1)
         # m5, K6's binary-tree kernel (a checkout before it has none: its
         # cells then time this one's against itself)
         k6t = k6 if hasattr(k6, "csc_k6_bt_launch") else this6
@@ -447,7 +462,6 @@ def main(argv=None):
                                  dev, "exact")
         cells["K6 task m5 4 x 1 MB"] = parse_cell(
             "csc_k6", args6, [len(d) for d in group], k6t, 1)
-        big = corpus.big_file(text, corpus.torch_library_exe(), SEED + 9)
         args6, _, _ = stage_args([props_init(len(big), 5)], [big], dev)
         cells["K6 m5 past the cap 4.67 MB"] = parse_cell(
             "csc_k6", args6, [len(big)], k6t, 1)

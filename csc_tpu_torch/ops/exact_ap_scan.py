@@ -81,7 +81,9 @@ STATS = ("stretches", "at_limit", "at_end", "lit_tail", "good_exit",
          "bt_finds", "bt_steps", "bt_head_hits", "bt_good_exits",
          "bt_inserts", "bt_sparse", "bt_probe_hits", "bt_records",
          "bt_wraps", "long_lengths", "cand_cap", "ring_wraps",
-         "ring_lit0", "ring_cut")
+         "ring_lit0", "ring_cut", "match_reach", "rep_reach")
+# `match_reach` / `rep_reach`: the farthest a stretch's cell lies from its
+# back cell where a match / a rep match entered it
 MAX_GOOD_BT = 48          # m5's good_len: lengths 2 .. 47 a find
 CAND_SLOTS = MF_CAND_LIMIT - 2  # find_match's records that are read
 
@@ -645,6 +647,9 @@ class _Stream:
                 if apcur:
                     back = a_back[apcur]
                     d = a_dist[apcur]
+                    if d and apcur - back > 1:
+                        k = "match_reach" if d > 4 else "rep_reach"
+                        st[k] = max(st[k], apcur - back)
                     rep, brep = a_rep[apcur], a_rep[back]
                     rep[:] = brep
                     s = a_state[back]

@@ -348,7 +348,9 @@ def test_kernel_ab_against_this_checkout(dev, tmp_path):
         "K5 m1 96 x 16 KB", "K5 m2 96 x 16 KB", "K5 m1 1024 x 16 KB",
         "K5 m1 4096 x 16 KB", "K5 task m1 4 x 1 MB",
         "K6 m3 96 x 16 KB", "K6 m4 96 x 16 KB", "K6 m3 1024 x 16 KB",
-        "K6 task m3 4 x 1 MB", "K6 m3 ring 96 x 48 KB", "K6 m5 96 x 16 KB",
+        "K6 task m3 4 x 1 MB", "K6 m3 ring 96 x 48 KB",
+        "K6 m3 past the cap 4.67 MB", "K6 m3 past -d 1m 4.67 MB",
+        "K6 m5 96 x 16 KB",
         "K6 m5 1024 x 16 KB", "K6 task m5 4 x 1 MB",
         "K6 m5 past the cap 4.67 MB"])
     for cell in res["cells"].values():
@@ -901,6 +903,22 @@ def test_k6_ring_matches_plain(dev, level):
         got = _k6_against_plain(args, dev)
         assert bool(got[2].all()) and not bool(got[3].any())
         assert bool((args[2] > args[3]).any())
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_k6_far_back_cells_match_plain(dev, level):
+    """Cells entered from as far back as a relaxed length reaches
+    (torch_edge_cases `exact_ap_far_cases`: good_len - 1 behind, by a
+    match and by a rep, at the level's good_len and at 32; a stretch at
+    AP_LIMIT), streams their dictionary covers and streams past a 32 KB
+    one (the ring kernel), staged and, at a width past 64 KB, unstaged:
+    every field."""
+    for past in (False, True):
+        for good_len in (None, 32):
+            cases = edges.exact_ap_far_cases(level, past, good_len)
+            for width in (None, 64 * 1024 + 4):
+                got = _k6_against_plain(k6_args(cases, width), dev)
+                assert bool(got[2].all()) and not bool(got[3].any())
 
 
 def test_k6_tree_ring_matches_plain(dev):

@@ -8,8 +8,10 @@ many times), the data staged as words and read as bytes; the model each
 stream leaves (the harness's `model` output) against the plain version's
 shadow model; a tape too short at every kind of token (ERR_OVERFLOW, the
 parse cut at the same token); and one stream alone at its width against
-the same stream in a wider group.  This is the CPU check of the CUDA
-kernel's logic.  Tolerance 0."""
+the same stream in a wider group; `exact_ap_far_cases` (cells entered
+from good_len - 1 behind, by a match and by a rep, at the level's
+good_len and at 32; a stretch at AP_LIMIT).  This is the CPU check of
+the CUDA kernel's logic.  Tolerance 0."""
 import ctypes
 import os
 import shutil
@@ -161,6 +163,34 @@ def test_host_equals_plain_on_k5s_edge_streams(k6, level):
         want = exact_ap_scan.exact_ap_plain(*args)
         assert bool((want[2] == 1).all())
         assert_same(k6_host(k6, args), want)
+
+
+def check_far_cases(k6, level, past, good_len):
+    """K6's g++ build against the plain version on `exact_ap_far_cases`,
+    staged and unstaged: every field; each case reaches what it is there
+    for, by the plain version's records."""
+    cases = edges.exact_ap_far_cases(level, past, good_len)
+    args = k6_args(cases)
+    trace = []
+    want = exact_ap_scan.exact_ap_plain(*args, trace=trace)
+    assert bool((want[2] == 1).all()) and bool((want[3] == 0).all())
+    st = {name: s.stats for (name, _, _), s in zip(cases, trace)}
+    good = cases[0][1].good_len
+    assert st["reps"]["match_reach"] == st["reps"]["rep_reach"] == good - 1
+    assert st["limit"]["at_limit"]
+    assert all((s["ring_wraps"] > 0) == past for s in st.values())
+    for stage_max in (1 << 16, 0):
+        assert_same(k6_host(k6, args, stage_max), want)
+
+
+@pytest.mark.parametrize("good_len", [None, 32], ids=["preset", "good32"])
+@pytest.mark.parametrize("level", [3, 4])
+def test_host_equals_plain_on_far_back_cells(k6, level, good_len):
+    """Cells entered from a back cell good_len - 1 behind, the farthest a
+    relaxed length reaches, by a match and by a rep (at good_len 32,
+    MAX_GOOD, from 31 behind); a stretch that runs to AP_LIMIT; streams
+    their dictionary covers."""
+    check_far_cases(k6, level, False, good_len)
 
 
 def test_tape_overflow_cuts_at_the_same_token(k6):

@@ -14,8 +14,9 @@ slow-marked test), decode back through the golden decoder and the port's
 decode_batch, and reach each ring rule by the plain version's counters;
 K6's g++ build (encode_k6_host.cpp, its ring instantiation) equals the
 plain version on every field, its data staged as words and read as
-bytes.  `c -m3 -d 1k` of a file past its 32 KB dictionary writes
-csc_tpu's CLI file and `csarc a -m4 -d1k` csc_tpu's archive.
+bytes, here and on `exact_ap_far_cases` past the dictionary.  `c -m3
+-d 1k` of a file past its 32 KB dictionary writes csc_tpu's CLI file
+and `csarc a -m4 -d1k` csc_tpu's archive.
 Tolerance 0."""
 import numpy as np
 import pytest
@@ -30,7 +31,8 @@ from csc_tpu_torch.props import props_init, write_properties
 import torch_edge_cases as edges
 import torch_fixtures as fixture
 import torch_ring_cases as ring
-from test_torch_exact_ap_host import assert_same, build_k6_host, k6_host
+from test_torch_exact_ap_host import (assert_same, build_k6_host,
+                                      check_far_cases, k6_host)
 from torch_archiver_trees import archive_both
 
 CPU = torch.device("cpu")
@@ -154,6 +156,16 @@ def test_ring_reaches_each_rule(run):
 
 def test_ring_gxx_equals_plain_on_every_field(run, k6):
     check_gxx(run, k6)
+
+
+@pytest.mark.parametrize("good_len", [None, 32], ids=["preset", "good32"])
+@pytest.mark.parametrize("level", [3, 4])
+def test_gxx_equals_plain_on_far_back_cells(k6, level, good_len):
+    """The ring kernel's parse on `exact_ap_far_cases` past a 32 KB
+    dictionary: cells entered from good_len - 1 behind by a match and by
+    a rep (31 behind at good_len 32), after the dictionary's ring has
+    wrapped; a stretch at AP_LIMIT; staged and unstaged, every field."""
+    check_far_cases(k6, level, True, good_len)
 
 
 @pytest.mark.slow

@@ -669,6 +669,52 @@ def exact_ap_cases(level):
     return cases + exact_nolz_cases(level)
 
 
+def _segments(n, good, seed):
+    """Four-symbol bytes S of n bytes, then S again with one byte in
+    good and one in good - 1 changed by turns to another of the four: past
+    S, segments of good - 1 and good - 2 bytes equal to S's at distance n,
+    each a match (the first) or a rep, entered by turns from good - 1
+    cells behind, inside a stretch that runs on through the changed bytes
+    at every offset from its start."""
+    s = np.frombuffer(four_symbols(n, seed), np.uint8)
+    t = s.copy()
+    at = np.cumsum(np.resize([good, good - 1], n))
+    at = at[at < n + good] - 1
+    at = at[at < n]
+    t[at] = (s[at] - 97 + 1 + np.random.default_rng(seed + 1).integers(
+        0, 3, len(at))) % 4 + 97
+    return s.tobytes() + t.tobytes()
+
+
+def exact_ap_far_cases(level, past=False, good_len=None):
+    """(name, props, data) streams for the cells of K6's optimal parse at
+    m3 / m4 entered from as far back as a relaxed length reaches
+    (good_len - 1), filters off, one preset: a 64 KB dictionary, or
+    (past) a 32 KB one the streams run past (golden's ring window: the
+    ring kernel), at the level's good_len or at 32 (MAX_GOOD, the most
+    the kernel takes); each drives what the plain version records
+    (`stats`):
+
+      reps   `_segments` (past the dictionary after 28 KB of random
+             bytes): cells entered from good_len - 1 behind by a match
+             (`match_reach`) and by a rep (`rep_reach`)
+      limit  four-symbol bytes: a stretch that runs to AP_LIMIT
+             (`at_limit`)
+    """
+    def p():
+        q = (_ring_props(level, request=1024) if past
+             else _ap_props(64 * 1024, level))
+        q.good_len = good_len or q.good_len
+        return q
+    # past the dictionary, S follows 28 KB of random bytes (a DT_BAD run)
+    # and its copy runs across the ring's end
+    lead = (np.random.default_rng(40 + level).integers(
+        0, 256, 28 * 1024, dtype=np.uint8).tobytes() if past else b"")
+    return [("reps", p(), lead + _segments(5 * 1024, p().good_len,
+                                           41 + level)),
+            ("limit", p(), four_symbols(len(lead) + 10 * 1024, 43 + level))]
+
+
 def _letters(n, seed, base=97):
     return (np.random.default_rng(seed).integers(0, 26, n)
             + base).astype(np.uint8).tobytes()
